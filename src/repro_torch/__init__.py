@@ -1,0 +1,18 @@
+"""MapUpdate on PyTorch/CUDA — the port of ``repro`` (JAX/Pallas) to one
+NVIDIA H100.
+
+The port keeps the JAX package's module layout and public names, so each
+counterpart sits at the same relative path (``repro_torch.core.engine.
+Engine`` <-> ``repro.core.engine.Engine``).  Plain tensor code is
+PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel under
+``csrc/``, compiled for ``sm_90a`` at first use
+(``kernels/_build.py``).
+
+This slice covers the single-shard MapUpdate tick: events, queues,
+operators, the slate table, both updater paths and the engine loop,
+with the ``slate_update`` and ``slate_lookup`` kernels.  Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+Importing this package imports nothing heavy: modules are imported
+where they are used (``from repro_torch.core.engine import Engine``).
+"""

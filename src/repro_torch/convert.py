@@ -1,0 +1,103 @@
+"""Carry engine state between the JAX package and the port.
+
+The system has no weights: what must carry across is the engine state —
+queues, slate tables, the tick and the counters.  Both functions speak
+the plain nested-dict form that ``dataclasses.asdict`` gives of a JAX
+engine state after ``jax.device_get``: every dataclass (``QueueState``,
+``EventBatch``, ``SlateTable``) becomes a dict of its fields and every
+array a numpy array, at the JAX package's shapes.  :func:`to_plain`
+makes that form from either package's state objects.
+
+The port's queue buffers and tables carry one hidden sink row
+(``core/queues.py``, ``slates/table.py``); ``state_from_numpy`` appends
+it and ``state_to_numpy`` strips it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.event import EventBatch
+from repro_torch.core.queues import QueueState
+from repro_torch.slates.table import EMPTY, SlateTable
+
+
+def to_plain(tree) -> Any:
+    """Dataclasses -> dicts of their fields, arrays and tensors -> numpy,
+    recursively (dicts, lists and tuples kept)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return {f.name: to_plain(getattr(tree, f.name))
+                for f in dataclasses.fields(tree)}
+    if isinstance(tree, dict):
+        return {k: to_plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_plain(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def _t(a, device, sink=None) -> torch.Tensor:
+    """numpy -> tensor on ``device``; ``sink`` appends one row of that
+    fill value."""
+    arr = np.asarray(a)
+    if sink is not None:
+        arr = np.concatenate([arr, np.full((1,) + arr.shape[1:], sink,
+                                           arr.dtype)])
+    return torch.from_numpy(np.array(arr)).to(device)   # owned copy
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _queue_buf(d, device) -> EventBatch:
+    return EventBatch(
+        sid=_t(d["sid"], device, 0), ts=_t(d["ts"], device, 0),
+        key=_t(d["key"], device, 0),
+        value=_map_leaves(lambda a: _t(a, device, 0), d["value"]),
+        valid=_t(d["valid"], device, False))
+
+
+def state_from_numpy(tree, device=None) -> Dict[str, Any]:
+    """A JAX engine state (plain form, or the state objects themselves)
+    -> a port engine state on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    p = to_plain(tree)
+    queues = {}
+    for name, q in p["queues"].items():
+        queues[name] = QueueState(
+            buf=_queue_buf(q["buf"], dev),
+            head=_t(q["head"], dev), size=_t(q["size"], dev),
+            dropped=_t(q["dropped"], dev), peak=_t(q["peak"], dev))
+    tables = {}
+    for name, t in p["tables"].items():
+        tables[name] = SlateTable(
+            keys=_t(t["keys"], dev, EMPTY), ts=_t(t["ts"], dev, 0),
+            dirty=_t(t["dirty"], dev, False),
+            vals=_map_leaves(lambda a: _t(a, dev, 0), t["vals"]),
+            dropped=_t(t["dropped"], dev))
+    out = {"queues": queues, "tables": tables}
+    for k in ("tick", "throttle_hits", "deferred"):
+        out[k] = _t(p[k], dev)
+    out["processed"] = {k: _t(v, dev) for k, v in p["processed"].items()}
+    return out
+
+
+def state_to_numpy(state) -> Dict[str, Any]:
+    """A port engine state -> the plain form at the JAX package's shapes
+    (sink rows stripped)."""
+    p = to_plain(state)
+    strip = lambda tree: _map_leaves(lambda a: a[:-1], tree)
+    for q in p["queues"].values():
+        q["buf"] = strip(q["buf"])
+    for t in p["tables"].values():
+        for k in ("keys", "ts", "dirty", "vals"):
+            t[k] = strip(t[k])
+    return p

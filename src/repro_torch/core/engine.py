@@ -1,0 +1,464 @@
+"""Single-shard MapUpdate engine (port of ``repro.core.engine``).
+
+Execution model (DESIGN.md section 2): every tick each operator dequeues
+up to ``batch_size`` events, applies its vectorized function, and
+emitted events are enqueued at their subscribers for the next tick.
+End-to-end latency = graph depth x tick latency, as in Muppet's
+pipeline; there is no master on the data path.
+
+Two dispatch granularities:
+  - ``step``: one tick per host call;
+  - ``run_chunk``: T ticks over pre-staged (stacked) sources.  The JAX
+    package rolls them into one ``lax.scan``; here the chunk is a Python
+    loop over ticks that never reads the device from the host inside a
+    tick (no ``.item()``, no ``bool(tensor)``, no mask indexing), so the
+    whole chunk is enqueued ahead of the card and the host syncs once
+    per chunk, in ``run``.  It is the same code as ``step``, so a chunk
+    is bitwise equal to T ``step`` calls.
+
+State is a dict of tensors and dataclasses of tensors.  Ticks update
+queue buffers and slate tables in place, where the JAX engine donates
+the state: as there, pass a state to ``step`` / ``run_chunk`` / ``run``
+and use the one they return.
+
+Not in this slice: ``EngineConfig.durability`` (WAL, flush, recovery)
+and ``EngineConfig.telemetry`` (count-min sketch, latency histograms)
+raise ``NotImplementedError``; ``StateHandle`` has no ``serve``,
+``metrics_text`` or ``cache``.
+"""
+from __future__ import annotations
+
+import threading
+from collections import deque
+from contextlib import nullcontext
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device, torch_dtype
+from repro_torch.core import apply as apply_mod
+from repro_torch.core import queues as q_mod
+from repro_torch.core.event import EventBatch, concat, tree_map
+from repro_torch.core.operators import (AssociativeUpdater, Mapper,
+                                        SequentialUpdater)
+from repro_torch.core.queues import OverflowPolicy
+from repro_torch.core.workflow import Workflow
+from repro_torch.kernels.slate_lookup import ops as lk_ops
+from repro_torch.slates import table as tbl
+
+
+@dataclass
+class EngineConfig:
+    batch_size: int = 256
+    queue_capacity: int = 1024
+    overflow: Dict[str, OverflowPolicy] = field(default_factory=dict)
+    overflow_stream: Dict[str, str] = field(default_factory=dict)
+    default_policy: OverflowPolicy = OverflowPolicy.DROP
+    # fused slate-update backend for sum_mergeable / monoid updaters:
+    # "auto" (the CUDA kernel on a CUDA device, the plain packed-table
+    # version on the CPU), "cuda", "jnp", "ref", or "off" (always the
+    # generic path).  See core/apply.apply_associative.
+    fused: str = "auto"
+    # key plane width, end-to-end: "int32" (default) or "int64"
+    key_dtype: str = "int32"
+    # ticks per chunk in run(); 1 = per-tick host sync
+    chunk_size: int = 8
+    # not in this slice: must stay None
+    durability: Any = None
+    telemetry: Any = None
+
+    def policy_for(self, op_name: str) -> OverflowPolicy:
+        return self.overflow.get(op_name, self.default_policy)
+
+
+def stack_sources(per_tick: Sequence[Dict[str, EventBatch]]
+                  ) -> Dict[str, EventBatch]:
+    """Stack T per-tick source dicts into one dict of EventBatches with a
+    leading tick axis [T, B, ...] — the pre-staged input of
+    ``run_chunk``.  Missing streams are padded with all-invalid batches
+    and smaller batches are padded to the chunk's max capacity."""
+    if not per_tick:
+        raise ValueError("need at least one tick of sources")
+    caps: Dict[str, int] = {}
+    templates: Dict[str, EventBatch] = {}
+    for d in per_tick:
+        for s, b in d.items():
+            if s not in caps or b.capacity > caps[s]:
+                caps[s], templates[s] = b.capacity, b
+
+    def get(d, s):
+        if s in d:
+            return d[s].pad_to(caps[s])
+        tmpl = templates[s]
+        return tmpl.mask(torch.zeros_like(tmpl.valid))
+
+    return {s: tree_map(lambda *xs: torch.stack(xs),
+                        *[get(d, s) for d in per_tick])
+            for s in templates}
+
+
+def _limit_ingest(batch: EventBatch, ingest) -> EventBatch:
+    """Keep only the first ``ingest`` valid events (device-side source
+    throttling inside a chunk)."""
+    rank = torch.cumsum(batch.valid.to(torch.int32), 0) - 1
+    return batch.mask(rank < ingest)
+
+
+def resolve_key_dtype(name) -> torch.dtype:
+    """Validate an ``EngineConfig.key_dtype``: int32 or int64.  (The JAX
+    package also demands ``jax_enable_x64`` for int64; torch never
+    demotes int64.)"""
+    dt = torch_dtype(name)
+    if dt not in (torch.int32, torch.int64):
+        raise ValueError(f"key_dtype must be int32 or int64, got {name!r}")
+    return dt
+
+
+class StateHandle:
+    """Live view of ``(engine, state)`` for concurrent readers.
+
+    ``Engine.run(..., handle=h)`` republishes ``h.state`` after every
+    chunk, so a reader thread sees live slates without the caller
+    threading state through it.  Reads hold the engine's ``read_lock``,
+    which ``run`` holds while a chunk updates the state in place."""
+
+    def __init__(self, engine, state=None):
+        self.engine = engine
+        self.state = state
+
+    def _lock(self):
+        return getattr(self.engine, "read_lock", None) or nullcontext()
+
+    def read_slate(self, updater: str, key: int):
+        with self._lock():
+            return self.engine.read_slate(self.state, updater, key)
+
+    def read_slates(self, updater: str, keys):
+        """Batched point reads; list aligned with ``keys``, ``None`` for
+        missing."""
+        with self._lock():
+            return self.engine.read_slates(self.state, updater, keys)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock():
+            return self.engine.stats(self.state)
+
+
+class Engine:
+    """Runs the tick from the host.  ``device`` defaults to ``cuda``;
+    pass ``device="cpu"`` to run on the CPU."""
+
+    def __init__(self, workflow: Workflow, config: EngineConfig = None,
+                 device=None):
+        self.wf = workflow
+        self.cfg = config or EngineConfig()
+        if self.cfg.durability is not None:
+            raise NotImplementedError(
+                "EngineConfig.durability (WAL, flush, recovery) is ported "
+                "in slice 3 of the port (ROADMAP queue 1 item 10)")
+        if self.cfg.telemetry is not None:
+            raise NotImplementedError(
+                "EngineConfig.telemetry (count-min sketch, latency "
+                "histograms) is ported in slice 2 of the port (ROADMAP "
+                "queue 1 item 9)")
+        self.device = resolve_device(device)
+        self.key_dtype = resolve_key_dtype(self.cfg.key_dtype)
+        # serializes concurrent readers against run(), which updates the
+        # state in place chunk by chunk
+        self.read_lock = threading.RLock()
+
+    @property
+    def key_bits(self) -> int:
+        return self.key_dtype.itemsize * 8
+
+    # ---- state ----
+    def init_state(self) -> Dict[str, Any]:
+        kd, dev = self.key_dtype, self.device
+        queues = {op.name: q_mod.make_queue(self.cfg.queue_capacity,
+                                            op.in_value_spec, key_dtype=kd,
+                                            device=dev)
+                  for op in self.wf.operators}
+        tables = {up.name: tbl.make_table(up.table_capacity, up.slate_spec(),
+                                          key_dtype=kd, device=dev)
+                  for up in self.wf.updaters()}
+        z = lambda: torch.zeros((), dtype=torch.int32, device=dev)
+        return {
+            "queues": queues,
+            "tables": tables,
+            "tick": z(),
+            "throttle_hits": z(),
+            "deferred": z(),
+            "processed": {op.name: z() for op in self.wf.operators},
+        }
+
+    # ---- one tick ----
+    def _tick(self, state, sources: Dict[str, EventBatch]):
+        cfg, wf = self.cfg, self.wf
+        queues = dict(state["queues"])
+        tables = dict(state["tables"])
+        processed = dict(state["processed"])
+        throttle_hits = state["throttle_hits"]
+        deferred_total = state["deferred"]
+        tick = state["tick"]
+        outputs: Dict[str, List[EventBatch]] = {}
+        for s, b in sources.items():
+            if b.device != self.device:
+                raise ValueError(f"source {s!r} is on {b.device}, the "
+                                 f"engine on {self.device}")
+
+        def deliver_all(items: List[Tuple[str, EventBatch]]):
+            """Route batches to subscriber queues; overflow-stream policy
+            may chain (bounded — cycles are a config error)."""
+            nonlocal throttle_hits
+            work = deque(items)
+            for _ in range(len(work) + 64):
+                if not work:
+                    return
+                stream, batch = work.popleft()
+                subs = wf.dests_of(stream)
+                if not subs:
+                    outputs.setdefault(stream, []).append(batch)
+                    continue
+                for dest in subs:
+                    nq, ovf = q_mod.enqueue(queues[dest], batch)
+                    pol = cfg.policy_for(dest)
+                    if pol is OverflowPolicy.DROP:
+                        nq = q_mod.count_drop(nq, ovf)
+                    elif pol is OverflowPolicy.OVERFLOW_STREAM:
+                        work.append((cfg.overflow_stream[dest], ovf))
+                    elif pol is OverflowPolicy.THROTTLE:
+                        throttle_hits = throttle_hits + ovf.count()
+                        nq = q_mod.count_drop(nq, ovf)
+                    queues[dest] = nq
+            raise RuntimeError("overflow-stream routing did not converge "
+                               "(cycle in overflow_stream config?)")
+
+        # 1. deliver sources (visible to operators this tick; operator
+        #    emissions become visible next tick — pipelined execution)
+        deliver_all(list(sources.items()))
+        emitted_now: List[Tuple[str, EventBatch]] = []
+
+        # 2. apply operators on their queues
+        for op in wf.operators:
+            queues[op.name], batch = q_mod.dequeue(queues[op.name],
+                                                   cfg.batch_size)
+            if isinstance(op, Mapper):
+                outs = op.map_batch(batch)
+                for s, b in outs.items():
+                    emitted_now.append((s, b.mask(batch.valid & b.valid)))
+                processed[op.name] = processed[op.name] + batch.count()
+            elif isinstance(op, AssociativeUpdater):
+                tables[op.name], ems, n = apply_mod.apply_associative(
+                    op, tables[op.name], batch, tick, impl=cfg.fused)
+                emitted_now.extend(ems.items())
+                processed[op.name] = processed[op.name] + n
+            elif isinstance(op, SequentialUpdater):
+                tables[op.name], ems, deferred, n = \
+                    apply_mod.apply_sequential(op, tables[op.name], batch,
+                                               tick)
+                emitted_now.extend(ems.items())
+                # hotspot backpressure: re-queue over-budget run tails
+                deferred_total = deferred_total + deferred.count()
+                nq, ovf = q_mod.enqueue(queues[op.name], deferred)
+                queues[op.name] = q_mod.count_drop(nq, ovf)
+                processed[op.name] = processed[op.name] + n
+            else:
+                raise TypeError(f"unknown operator type {type(op)}")
+
+        # 3. TTL sweeps
+        for up in wf.updaters():
+            if up.ttl:
+                tables[up.name] = tbl.expire_ttl(tables[up.name], tick,
+                                                 up.ttl)
+
+        # 4. route this tick's emissions (visible next tick)
+        deliver_all(emitted_now)
+
+        out_batches = {s: concat(bs) if len(bs) > 1 else bs[0]
+                       for s, bs in outputs.items()}
+        new_state = {
+            "queues": queues,
+            "tables": tables,
+            "tick": tick + 1,
+            "throttle_hits": throttle_hits,
+            "deferred": deferred_total,
+            "processed": processed,
+        }
+        return new_state, out_batches
+
+    # ---- host API ----
+    def step(self, state, sources: Dict[str, EventBatch]):
+        """One tick.  Updates ``state`` in place and returns
+        ``(state, outputs)``."""
+        return self._tick(state, sources)
+
+    def run_chunk(self, state, stacked_sources: Dict[str, EventBatch],
+                  n_ticks: Optional[int] = None, *,
+                  ingest: Optional[int] = None, throttle_floor: int = 8):
+        """Run T ticks with no host sync between them.
+
+        ``stacked_sources``: dict of EventBatches with a leading tick
+        axis [T, B, ...] (see ``stack_sources``).  Returns
+        ``(state, stacked_outputs, info)`` where ``stacked_outputs``
+        leaves have leading dim T and ``info`` holds the on-device
+        per-tick ``throttle_hits`` trace [T] plus the final ``ingest``.
+
+        With ``ingest=None`` the chunk is bitwise equal to T ``step``
+        calls; an int enables on-device source throttling: each tick's
+        sources are masked to the first ``ingest`` valid events, and the
+        limit halves (not below ``throttle_floor``) after a tick with new
+        throttle hits and doubles back toward ``max(ingest, batch_size)``
+        otherwise.  An empty ``stacked_sources`` runs ``n_ticks``
+        source-less ticks."""
+        lead = {s: b.key.shape[0] for s, b in stacked_sources.items()}
+        t_dim = next(iter(lead.values())) if lead else n_ticks
+        if t_dim is None:
+            raise ValueError("empty stacked_sources needs an explicit "
+                             "n_ticks")
+        if n_ticks is not None and lead and t_dim != n_ticks:
+            raise ValueError(f"stacked sources have {t_dim} ticks, "
+                             f"caller asked for {n_ticks}")
+        adapt = ingest is not None
+        dev = self.device
+        ing = torch.full((), ingest if adapt else self.cfg.batch_size,
+                         dtype=torch.int32, device=dev)
+        ing_max = torch.clamp(ing, min=self.cfg.batch_size)
+        outs_per_tick, hits = [], []
+        for t in range(t_dim):
+            src = {s: tree_map(lambda a, t=t: a[t], b)
+                   for s, b in stacked_sources.items()}
+            hits0 = state["throttle_hits"]
+            if adapt:
+                src = {s: _limit_ingest(b, ing) for s, b in src.items()}
+            state, outs = self._tick(state, src)
+            if adapt:
+                delta = state["throttle_hits"] - hits0
+                # halve under pressure; double back toward the ceiling
+                ing = torch.where(delta > 0,
+                                  torch.clamp(ing // 2, min=throttle_floor),
+                                  torch.minimum(ing_max, ing * 2))
+            outs_per_tick.append(outs)
+            hits.append(state["throttle_hits"])
+        stacked_outs = {s: tree_map(lambda *xs: torch.stack(xs),
+                                    *[o[s] for o in outs_per_tick])
+                        for s in (outs_per_tick[0] if outs_per_tick else {})}
+        return state, stacked_outs, {"throttle_hits": torch.stack(hits),
+                                     "ingest": ing}
+
+    def run(self, state, source_fn, n_ticks: int, *,
+            throttle_floor: int = 8, chunk_size: Optional[int] = None,
+            source_offset: int = 0,
+            handle: Optional[StateHandle] = None):
+        """Drive the engine with *source throttling* (paper section 5):
+        while throttle hits grow, halve the ingest batch until queues
+        drain.  ``source_fn(tick, max_events) -> dict[stream,
+        EventBatch]``.
+
+        Ticks run in chunks of ``chunk_size`` (default
+        ``cfg.chunk_size``); the host reads the throttle trace once per
+        chunk — one sync per chunk — and replays the per-tick
+        halve/double rule over it, so the ingest limit handed to
+        ``source_fn`` reacts at chunk boundaries.  ``chunk_size=1``
+        recovers exact per-tick backpressure.  ``source_offset`` resumes
+        a source stream at an absolute index.  ``handle`` is republished
+        with the current state after every chunk."""
+        chunk = chunk_size or self.cfg.chunk_size
+        outputs = []
+        ingest = None
+        # throttle_hits is cumulative: resuming from prior state must not
+        # read old hits as a fresh backpressure signal
+        last_hits = int(state["throttle_hits"].item())
+        t = source_offset
+        end = source_offset + n_ticks
+        while t < end:
+            n = min(chunk - t % chunk, end - t)
+            per_tick = [source_fn(t + i, ingest) for i in range(n)]
+            # the chunk updates the state in place: hold the read lock
+            # until the new state is republished
+            with self.read_lock:
+                state, outs, info = self.run_chunk(
+                    state, stack_sources(per_tick), n)
+                for i in range(n):
+                    outputs.append(tree_map(lambda x, i=i: x[i], outs))
+                hits_trace = info["throttle_hits"].tolist()  # 1 sync
+                for hits in hits_trace:
+                    if hits > last_hits:     # backpressure signal
+                        cur = (ingest if ingest is not None
+                               else self.cfg.batch_size)
+                        ingest = max(throttle_floor, cur // 2)
+                    elif ingest is not None:
+                        ingest = min(self.cfg.batch_size, ingest * 2)
+                        if ingest == self.cfg.batch_size:
+                            ingest = None
+                    last_hits = hits
+                t += n
+                if handle is not None:
+                    handle.state = state
+        return state, outputs
+
+    def drain(self, state, max_ticks: int = 64):
+        """Run source-less ticks until every queue is empty (or
+        ``max_ticks``) — flushes in-flight events through the remaining
+        pipeline hops.  Each probe costs one host sync.  Returns
+        ``(state, ticks_run)``."""
+        d = 0
+        while d < max_ticks:
+            sizes = torch.stack([q.size for q in state["queues"].values()])
+            if int(sizes.max().item()) == 0:
+                break
+            state, _ = self._tick(state, {})
+            d += 1
+        return state, d
+
+    # ---- introspection (paper section 4.4: reading slates live) ----
+    def _query(self, keys) -> torch.Tensor:
+        arr = np.asarray(keys, dtype=np.int64 if self.key_bits == 64
+                         else np.int32).reshape(-1)
+        return torch.from_numpy(arr).to(self.device)
+
+    def read_slate(self, state, updater: str, key: int):
+        """Fetch one slate (dict of host tensors, copies — never views of
+        the live table, which later ticks update in place), or ``None``."""
+        table = state["tables"][updater]
+        slot, found = tbl.lookup(table, self._query([key]))
+        if not bool(found[0].item()):
+            return None
+        s = int(slot[0].item())
+        return tree_map(lambda v: v[s].to("cpu", copy=True), table.vals)
+
+    def read_slates(self, state, updater: str, keys, *,
+                    impl: str = "auto"):
+        """Batched point reads: one lookup launch and one host copy for a
+        whole [Q] key vector, equal to Q ``read_slate`` calls.  Returns a
+        list aligned with ``keys`` of per-key slate dicts (``None`` for
+        missing keys).  ``impl`` picks the lookup backend
+        (kernels/slate_lookup: "auto"/"cuda"/"ref"/"jnp")."""
+        query = self._query(keys)
+        if query.numel() == 0:
+            return []
+        table = state["tables"][updater]
+        found, rows = lk_ops.lookup_tree(table.keys, table.vals, query,
+                                         impl=impl, capacity=table.capacity)
+        found = found.cpu().numpy()
+        rows = tree_map(lambda r: r.cpu(), rows)
+        return [tree_map(lambda v, i=i: v[i], rows) if found[i] else None
+                for i in range(query.numel())]
+
+    def stats(self, state) -> Dict[str, Any]:
+        g = lambda t: int(t.item())
+        return {
+            "tick": g(state["tick"]),
+            "throttle_hits": g(state["throttle_hits"]),
+            "deferred": g(state["deferred"]),
+            "processed": {k: g(v) for k, v in state["processed"].items()},
+            "queue_dropped": {k: g(q.dropped)
+                              for k, q in state["queues"].items()},
+            "queue_peak": {k: g(q.peak) for k, q in state["queues"].items()},
+            "queue_size": {k: g(q.size) for k, q in state["queues"].items()},
+            "table_occupancy": {k: g(t.occupancy())
+                                for k, t in state["tables"].items()},
+            "table_dropped": {k: g(t.dropped)
+                              for k, t in state["tables"].items()},
+        }

@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface and loaded with ``ctypes`` —
+no PyTorch headers, so a build takes seconds.  Libraries land in
+``build/repro_torch/`` at the repository root (``.gitignore``d), named
+by a hash of the source and flags, so an edited source rebuilds and an
+unchanged one is reused.  Builds come only from the sources in the
+repository.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on a non-zero code (a refused launch never runs,
+and a later ``synchronize`` would not report it).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD / f"lib{name}-{tag}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source unless its library exists; returns
+    (process or None, output path, temp path)."""
+    out = _lib_path(name)
+    if out.exists():
+        return None, out, None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, tmp
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no current library, all
+    ``nvcc`` processes started together; returns name -> library path.
+    Raises with the compiler's output if any build fails."""
+    started = {n: _start(n) for n in names}
+    errors = []
+    for n, (proc, out, tmp) in started.items():
+        if proc is None:
+            continue
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {n: out for n, (_, out, _) in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise if a launch returned a CUDA error; ``<name>_error_string``
+    in the library names it."""
+    if code != 0:
+        fn = getattr(lib, f"{name}_error_string")
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} "
+                           f"({fn(code).decode()})")
