@@ -9,17 +9,21 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
 
 1. prints the card (``nvidia-smi`` name and power limit) and the
    torch / CUDA versions;
-2. builds both kernels (one nvcc per source, started together) and
+2. builds every kernel (one nvcc per source, all started together) and
    prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at
    the main path's shapes (B=65,536 events, D=8 lanes, C=2**22 slots,
-   Q=4,096 reads), for int32 and int64 keys, and times both on the
-   same inputs by device time from torch.profiler.  No single PyTorch
-   call computes either function (a segmented combine fused with a slot
-   read-modify-write; a probe walk fused with a row gather), so there is
-   no library time;
+   Q=4,096 reads; a 2 x 2048 count-min sketch over Zipf keys hashed by
+   ``telemetry.sketch.columns``; a 128-wide latency histogram row with
+   ages over all 32 buckets), for int32 and int64 keys, and times both
+   on the same inputs by device time from torch.profiler.  No single
+   PyTorch call computes ``slate_update`` or ``slate_lookup`` (a
+   segmented combine fused with a slot read-modify-write; a probe walk
+   fused with a row gather), so they have no library time; the two
+   count updates are timed beside ``torch.bincount``;
 4. checks that a ``run_chunk`` tick never syncs the host (torch's sync
-   debug mode set to "error"), on a small engine;
+   debug mode set to "error"), on a small engine, with telemetry off
+   and on;
 5. drives the main path end to end through the engine's entry points:
    ``S1 -> M1 (pass-through) -> S2 -> {U1 sum, U2 max}`` with
    ``table_capacity=2**22`` per updater, 65,536 events a tick,
@@ -30,6 +34,19 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    exact in f32.  Every slate is held against an independent numpy
    reference (bincounts and maxima over every event fed), the launch
    counters must show both kernels ran, and no queue may drop.
+6. drives the telemetry path: the same workflow and feed with
+   ``EngineConfig(telemetry=TelemetryConfig())`` (depth 2, width 2048,
+   sample 128, window 8, 32 latency buckets), event times lagged by
+   0-63 ticks, once alone for its ms/tick and once while a reader
+   thread asks the HTTP server of
+   ``StateHandle.serve`` (with a ``HotKeyCache``) for ``/slate``,
+   ``/slates``, ``/status`` and ``/metrics``.  It checks the slates
+   against the same reference (telemetry on vs off parity), the last
+   report's top heavy hitter (key 0, the Zipf head, estimated at least
+   at its true count in that window), each arc's histogram against a
+   numpy bucketing of the ages, the ``/metrics`` page, and that all
+   four kernels ran.  Each path's launch counters are set to 0 just
+   before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -277,6 +294,107 @@ def check_slate_lookup(dev, seed):
     return entry
 
 
+def check_count_update(name, update, plain, counts, cols, add, extra=()):
+    """Hold one count kernel against its plain version bitwise (on these
+    inputs and on ``extra`` (cols, add) pairs), then time the kernel, the
+    plain version and ``torch.bincount`` of the masked flat columns."""
+    import torch
+    rows, width = counts.shape
+    err = 0.0
+    for c, a in tuple(extra) + ((cols, add),):
+        got = update(counts.clone(), c, a)
+        want = plain(counts.clone(), c, a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version")
+        err = max(err, float((got - want).abs().max()))
+    n = rows * width
+    flat = torch.where(add[None, :] > 0, cols + (torch.arange(
+        rows, device=cols.device, dtype=torch.int32) * width)[:, None],
+        n).reshape(-1)
+    lib = torch.bincount(flat, minlength=n + 1)[:n].view(rows, width)
+    if not torch.equal(counts + lib.to(torch.int32), want):
+        raise AssertionError(f"torch.bincount disagrees with {name}")
+    scratch = counts.clone()
+    ms = device_ms(lambda: update(scratch, cols, add))
+    plain_ms = device_ms(lambda: plain(scratch, cols, add))
+    library_ms = device_ms(lambda: torch.bincount(flat, minlength=n + 1))
+    # cols and add read once, the counters read and written once
+    B_ = cols.shape[1]
+    nbytes = rows * B_ * 4 + B_ * 4 + 2 * n * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{name} [{rows}, {width}] B={B_}: kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.5f} ms, torch.bincount {library_ms:.5f} ms (device "
+        f"time, torch.profiler, mean of 20); bound {bound_ms:.6f} ms "
+        f"({nbytes} bytes at 3.35 TB/s)")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/countmin.cu",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def check_countmin(dev, seed):
+    """The engine's default sketch (2 x 2048) at B=65,536 Zipf keys
+    hashed by ``columns``, about a tenth of the events masked, int32 and
+    int64 keys."""
+    import torch
+    from repro_torch.kernels.countmin import kernel as ck
+    from repro_torch.kernels.countmin import ref as cr
+    from repro_torch.telemetry import sketch as sk_mod
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    keys = zipf_keys(zipf_cdf(dev), B, gen)
+    salts = sk_mod.salts_tensor(sk_mod.make_salts(2), dev)
+    cols = sk_mod.columns(keys, salts, 2048)
+    cols64 = sk_mod.columns(keys.to(torch.int64) * (2**33 + 1) - 2**40,
+                            salts, 2048)
+    add = (torch.rand(B, generator=gen, device=dev) >= 0.1).to(torch.int32)
+    counts = torch.randint(0, 1000, (2, 2048), generator=gen, device=dev,
+                           dtype=torch.int32)
+    hot = int(torch.bincount(cols[0]).max())
+    log(f"countmin_update inputs: depth 2, width 2048, B={B}, "
+        f"{int((add == 0).sum())} events masked, hottest column of row 0 "
+        f"holds {hot} events ({hot / B:.3f} of the batch)")
+    e = check_count_update("countmin_update", ck.countmin_update,
+                           cr.countmin_update, counts, cols, add,
+                           extra=((cols64, add),))
+    log("countmin_update int32 and int64 keys: bitwise=True")
+    e["replaces"] = "src/repro/kernels/countmin/kernel.py:59"
+    return e
+
+
+def check_histogram(dev, seed):
+    """One 128-wide histogram row at B=65,536 with ages spread over all
+    32 buckets, bucketed by ``latency.bucketize``."""
+    import torch
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.histogram import ref as hr
+    from repro_torch.telemetry import latency as lat_mod
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    b = torch.randint(0, 32, (B,), generator=gen, device=dev)
+    lo = torch.where(b == 0, 0, torch.bitwise_left_shift(
+        torch.ones_like(b), b - 1))
+    u = torch.rand(B, generator=gen, device=dev, dtype=torch.float64)
+    ages = (lo + (u * lo).floor().to(torch.int64)).clamp(max=2**31 - 1)
+    cols = lat_mod.bucketize(ages.to(torch.int32), 32)[None, :].contiguous()
+    if not torch.equal(cols[0].long(), b):
+        raise AssertionError("bucketize misplaced an age on the card")
+    add = (torch.rand(B, generator=gen, device=dev) >= 0.1).to(torch.int32)
+    counts = torch.randint(0, 1000, (1, lat_mod.pad_width(32)),
+                           generator=gen, device=dev, dtype=torch.int32)
+    # the engine's own case: a whole tick's events in one bucket
+    one = torch.full_like(cols, 3)
+    log(f"histogram_update inputs: one row of {counts.shape[1]}, B={B}, "
+        f"ages over all 32 buckets (bucketize checked on the card), "
+        f"{int((add == 0).sum())} events masked")
+    e = check_count_update("histogram_update", hk.histogram_update,
+                           hr.histogram_update, counts, cols, add,
+                           extra=((one, add),))
+    log("histogram_update spread and single-bucket ages: bitwise=True")
+    e["replaces"] = "src/repro/kernels/histogram/kernel.py:56"
+    return e
+
+
 # ---------------------------------------------------------------- workflow
 def build_workflow(capacity):
     import torch
@@ -328,56 +446,152 @@ def build_workflow(capacity):
                     external_streams=("S1",))
 
 
-def make_source(cdf, batch, seed):
+MAX_LAG = 64
+
+
+def make_source(cdf, batch, seed, lagged=False):
     """``source_fn(tick, max_events)``: tick t's events come from a
-    generator seeded by (seed, t), so the reference regenerates them."""
+    generator seeded by (seed, t), so the reference regenerates them.
+    ``lagged`` stamps each event ``max(t - lag, 0)`` with a lag in
+    [0, MAX_LAG) drawn after the keys and values (which stay the
+    same)."""
     import torch
     from repro_torch.core.event import EventBatch
 
     def gen_tick(t):
         g = torch.Generator(device=cdf.device).manual_seed(
             seed * 1_000_003 + t)
-        return zipf_keys(cdf, batch, g), tick_values(batch, g, cdf.device)
+        keys, vals = zipf_keys(cdf, batch, g), tick_values(batch, g,
+                                                           cdf.device)
+        if not lagged:
+            return keys, vals, torch.full((batch,), t, dtype=torch.int32,
+                                          device=cdf.device)
+        lag = torch.randint(0, MAX_LAG, (batch,), generator=g,
+                            device=cdf.device)
+        return keys, vals, torch.clamp(t - lag, min=0).to(torch.int32)
 
     def source_fn(t, max_events):
-        keys, vals = gen_tick(t)
+        keys, vals, ts = gen_tick(t)
         dev = keys.device
         valid = torch.ones(batch, dtype=torch.bool, device=dev)
         if max_events is not None:
             valid = torch.arange(batch, device=dev) < max_events
         return {"S1": EventBatch(
             sid=torch.zeros(batch, dtype=torch.int32, device=dev),
-            ts=torch.full((batch,), t, dtype=torch.int32, device=dev),
-            key=keys, value={"v": vals}, valid=valid)}
+            ts=ts, key=keys, value={"v": vals}, valid=valid)}
 
     return source_fn, gen_tick
 
 
 def check_no_host_sync(dev, seed):
-    """One chunk of ticks with torch's sync debug mode on "error": any
-    host sync inside the tick raises."""
+    """One chunk of ticks with torch's sync debug mode on "error", with
+    telemetry off and on: any host sync inside the tick raises."""
     import torch
     from repro_torch.core.engine import Engine, EngineConfig, stack_sources
-    eng = Engine(build_workflow(1 << 16),
-                 EngineConfig(batch_size=4096, queue_capacity=16384),
-                 device=dev)
-    state = eng.init_state()
-    source_fn, _ = make_source(zipf_cdf(dev), 4096, seed + 7)
-    stacked = stack_sources([source_fn(t, None) for t in range(3)])
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        state, _, info = eng.run_chunk(state, stacked)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    hits = info["throttle_hits"].tolist()
-    log(f"run_chunk of 3 ticks under sync debug mode 'error': no host "
-        f"sync (throttle trace {hits})")
+    from repro_torch.telemetry import TelemetryConfig
+    for tel in (None, TelemetryConfig()):
+        eng = Engine(build_workflow(1 << 16),
+                     EngineConfig(batch_size=4096, queue_capacity=16384,
+                                  telemetry=tel), device=dev)
+        state = eng.init_state()
+        source_fn, _ = make_source(zipf_cdf(dev), 4096, seed + 7,
+                                   lagged=True)
+        stacked = stack_sources([source_fn(t, None) for t in range(3)])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _, info = eng.run_chunk(state, stacked)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        hits = info["throttle_hits"].tolist()
+        extra = "" if tel is None else (
+            f", sketch total {int(state['sketch']['total'])}")
+        log(f"run_chunk of 3 ticks, telemetry {'off' if tel is None else 'on'},"
+            f" under sync debug mode 'error': no host sync (throttle trace "
+            f"{hits}{extra})")
 
 
 # ---------------------------------------------------------------- phase 5
-def end_to_end(dev, ticks, seed, card):
+def reference(gen_tick, ticks):
+    """The independent reference: every event fed, in numpy.  Returns
+    per-key counts, f64 lane sums and f32 lane maxima over ``N_KEYS +
+    Q // 16`` keys (the last ``Q // 16`` are never fed)."""
     import numpy as np
+    n = N_KEYS + Q // 16
+    counts = np.zeros(n, np.int64)
+    sums = np.zeros((n, D), np.float64)
+    maxes = np.zeros((n, D), np.float32)
+    for t in range(ticks):
+        k, v, _ = gen_tick(t)
+        k, v = k.cpu().numpy(), v.cpu().numpy()
+        counts += np.bincount(k, minlength=n)
+        for lane in range(D):
+            sums[:, lane] += np.bincount(k, weights=v[:, lane], minlength=n)
+        np.maximum.at(maxes, k, v)
+    if sums.max() >= 2**24:
+        raise AssertionError("a lane sum reached 2**24: f32 not exact")
+    return counts, sums, maxes
+
+
+def read_set(seed):
+    """Q keys to read: the hot head, random cold keys, keys never fed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n_never = Q // 16
+    cold = rng.integers(Q // 2, N_KEYS, Q // 2 - n_never)
+    never = np.arange(N_KEYS, N_KEYS + n_never)
+    return np.concatenate([np.arange(Q // 2), cold, never])
+
+
+def check_slates(state, stats, ref, read_keys, reads, ticks, what):
+    """Hold a run's stats, batched reads and whole tables against the
+    reference."""
+    import numpy as np
+    counts, sums, maxes = ref
+    fed = ticks * B
+    if any(v != 0 for v in stats["queue_dropped"].values()):
+        raise AssertionError(f"{what}: queues dropped events: {stats}")
+    if stats["processed"] != {"M1": fed, "U1": fed, "U2": fed}:
+        raise AssertionError(f"{what}: processed counts wrong: "
+                             f"{stats['processed']}")
+    n_seen = int((counts > 0).sum())
+    for name, want in (("U1", sums), ("U2", maxes)):
+        missing = 0
+        for k, row in zip(read_keys, reads[name]):
+            if counts[k] == 0:
+                if row is not None:
+                    raise AssertionError(f"{what} {name}: key {k} never fed")
+                continue
+            if row is None:
+                missing += 1
+                continue
+            if not np.array_equal(row["v"].numpy(),
+                                  want[k].astype(np.float32)):
+                raise AssertionError(f"{what} {name}: key {k} reads "
+                                     f"{row['v'].tolist()}, reference "
+                                     f"{want[k].tolist()}")
+        if missing and stats["table_dropped"][name] == 0:
+            raise AssertionError(f"{what} {name}: {missing} keys missing "
+                                 "and no table drop counted")
+        # every slate in the table, not just the read set
+        t = state["tables"][name]
+        occ = t.keys[:C] != -1
+        ks = t.keys[:C][occ].long().cpu().numpy()
+        vals = t.vals["v"][:C][occ].cpu().numpy()
+        if not np.array_equal(vals, want[ks].astype(np.float32)):
+            raise AssertionError(f"{what} {name}: table rows differ from the "
+                                 "reference")
+        lost = n_seen - ks.size
+        if lost and stats["table_dropped"][name] == 0:
+            raise AssertionError(f"{what} {name}: {lost} keys lost, none "
+                                 "counted")
+        log(f"{what} {name}: {ks.size} slates equal to the reference, {lost}"
+            f" of {n_seen} fed keys dropped by the table (counted "
+            f"{stats['table_dropped'][name]}); read set {read_keys.size} "
+            f"keys, {missing} missing")
+
+
+def end_to_end(dev, ticks, seed, card):
     import torch
     from repro_torch.core.engine import Engine, EngineConfig
     from repro_torch.kernels.slate_lookup import kernel as lk
@@ -402,15 +616,9 @@ def end_to_end(dev, ticks, seed, card):
     torch.cuda.synchronize()
     t_drain = time.perf_counter() - t0
 
-    rng = np.random.default_rng(seed)
-    hot = np.arange(Q // 2)
-    n_never = Q // 16
-    cold = rng.integers(Q // 2, N_KEYS, Q // 2 - n_never)
-    never = np.arange(N_KEYS, N_KEYS + n_never)      # never fed
-    read_keys = np.concatenate([hot, cold, never])
+    read_keys = read_set(seed)
     t0 = time.perf_counter()
-    got_sum = eng.read_slates(state, "U1", read_keys)
-    got_max = eng.read_slates(state, "U2", read_keys)
+    reads = {u: eng.read_slates(state, u, read_keys) for u in ("U1", "U2")}
     t_reads = time.perf_counter() - t0
     singles = [int(k) for k in read_keys[[0, 1, 7, Q // 2, -1]]]
     single = {k: (eng.read_slate(state, "U1", k),
@@ -418,11 +626,11 @@ def end_to_end(dev, ticks, seed, card):
     launches = {"slate_update": uk.slate_update.launches,
                 "slate_lookup": lk.slate_lookup.launches}
     stats = eng.stats(state)
-    log(f"end to end: {ticks} ticks x {B} events in {t_run:.3f} s = "
-        f"{t_run / ticks * 1e3:.3f} ms/tick, {ticks * B / t_run:.4e} "
-        f"events/s (source generation on the card included), drain "
-        f"{drained} ticks in {t_drain:.3f} s, {2 * read_keys.size} "
-        f"read_slates keys in {t_reads:.4f} s; {card}")
+    log(f"end to end, telemetry off: {ticks} ticks x {B} events in "
+        f"{t_run:.3f} s = {t_run / ticks * 1e3:.3f} ms/tick, "
+        f"{ticks * B / t_run:.4e} events/s (source generation on the card "
+        f"included), drain {drained} ticks in {t_drain:.3f} s, "
+        f"{2 * read_keys.size} read_slates keys in {t_reads:.4f} s; {card}")
     log(f"engine state on the card: "
         f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB after "
         f"the run; launches on the main path {launches}")
@@ -431,53 +639,14 @@ def end_to_end(dev, ticks, seed, card):
         f"queue_peak={stats['queue_peak']} "
         f"table_occupancy={stats['table_occupancy']} "
         f"table_dropped={stats['table_dropped']}")
-
-    # ---- the independent reference: every event fed, in numpy ----
-    counts = np.zeros(N_KEYS + n_never, np.int64)
-    sums = np.zeros((N_KEYS + n_never, D), np.float64)
-    maxes = np.zeros((N_KEYS + n_never, D), np.float32)
-    for t in range(ticks):
-        k, v = gen_tick(t)
-        k, v = k.cpu().numpy(), v.cpu().numpy()
-        counts += np.bincount(k, minlength=counts.size)
-        for lane in range(D):
-            sums[:, lane] += np.bincount(k, weights=v[:, lane],
-                                         minlength=counts.size)
-        np.maximum.at(maxes, k, v)
-
-    fed = ticks * B
-    if any(v != 0 for v in stats["queue_dropped"].values()):
-        raise AssertionError(f"queues dropped events: {stats}")
-    if stats["processed"] != {"M1": fed, "U1": fed, "U2": fed}:
-        raise AssertionError(f"processed counts wrong: {stats['processed']}")
-    if sums.max() >= 2**24:
-        raise AssertionError("a lane sum reached 2**24: f32 not exact")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")
 
-    def check(name, got, want):
-        missing = 0
-        for k, row in zip(read_keys, got):
-            if counts[k] == 0:
-                if row is not None:
-                    raise AssertionError(f"{name}: key {k} never fed")
-                continue
-            if row is None:
-                missing += 1
-                continue
-            if not np.array_equal(row["v"].numpy(),
-                                  want[k].astype(np.float32)):
-                raise AssertionError(f"{name}: key {k} reads "
-                                     f"{row['v'].tolist()}, reference "
-                                     f"{want[k].tolist()}")
-        if missing and stats["table_dropped"][name] == 0:
-            raise AssertionError(f"{name}: {missing} keys missing and no "
-                                 "table drop counted")
-        return missing
-
-    miss_sum = check("U1", got_sum, sums)
-    miss_max = check("U2", got_max, maxes)
+    ref = reference(gen_tick, ticks)
+    check_slates(state, stats, ref, read_keys, reads, ticks, "telemetry off")
+    import numpy as np
+    counts, sums, maxes = ref
     for k, (a, b) in single.items():
         for name, row, want in (("U1", a, sums), ("U2", b, maxes)):
             if counts[k] and row is not None and not np.array_equal(
@@ -485,24 +654,226 @@ def end_to_end(dev, ticks, seed, card):
                 raise AssertionError(f"read_slate {name} {k} differs")
             if not counts[k] and row is not None:
                 raise AssertionError(f"read_slate {name} {k}: never fed")
+    profile_ticks(eng, state, source_fn, ticks, t_run / ticks)
+    return launches, ref, t_run / ticks
 
-    # every slate in both tables, not just the read set
-    n_seen = int((counts > 0).sum())
-    for name, want in (("U1", sums), ("U2", maxes)):
-        t = state["tables"][name]
-        occ = t.keys[:C] != -1
-        ks = t.keys[:C][occ].long().cpu().numpy()
-        vals = t.vals["v"][:C][occ].cpu().numpy()
-        if not np.array_equal(vals, want[ks].astype(np.float32)):
-            raise AssertionError(f"{name}: table rows differ from the "
-                                 "reference")
-        lost = n_seen - ks.size
-        if lost and stats["table_dropped"][name] == 0:
-            raise AssertionError(f"{name}: {lost} keys lost, none counted")
-        log(f"{name}: {ks.size} slates equal to the reference, {lost} of "
-            f"{n_seen} fed keys dropped by the table (counted "
-            f"{stats['table_dropped'][name]}); read set {read_keys.size} "
-            f"keys, {miss_sum if name == 'U1' else miss_max} missing")
+
+# ---------------------------------------------------------------- phase 6
+def bit_length_table(n):
+    """Bucket of each latency in [0, n): Python's exact int.bit_length,
+    independent of the port's searchsorted."""
+    import numpy as np
+    return np.asarray([int(a).bit_length() for a in range(n)], np.int64)
+
+
+class Reader:
+    """A thread asking the HTTP server for every route while ``run``
+    goes: the slate of the hot key 0 (404 until its first events land),
+    a batched read, ``/status`` and ``/metrics``, then a short pause."""
+
+    def __init__(self, port, pause_s=0.2):
+        import threading
+        self.url = f"http://127.0.0.1:{port}"
+        self.pause_s = pause_s
+        self.rounds, self.errors, self.hot_counts = 0, [], []
+        self.metrics = ""
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def get(self, path):
+        import urllib.request
+        with urllib.request.urlopen(self.url + path, timeout=30) as r:
+            if r.status != 200:
+                raise AssertionError(f"{path}: HTTP {r.status}")
+            return r.read().decode()
+
+    def _hot(self):
+        import urllib.error
+        try:
+            return json.loads(self.get("/slate/U1/0"))["v"][0]
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                raise
+            return None
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                hot = self._hot()
+                if hot is not None:
+                    self.hot_counts.append(hot)
+                keys = ",".join(str(k) for k in range(0, 4096, 64))
+                got = json.loads(self.get(f"/slates/U2?keys={keys}"))
+                if len(got["slates"]) != 64:
+                    raise AssertionError("/slates answered "
+                                         f"{len(got['slates'])} keys")
+                json.loads(self.get("/status"))
+                self.metrics = self.get("/metrics")
+                self.rounds += 1
+            except Exception as e:         # recorded, raised by stop()
+                self.errors.append(repr(e))
+                return
+            self._stop.wait(self.pause_s)
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=60)
+
+    def check(self):
+        if self._thread.is_alive() or self.errors:
+            raise AssertionError(f"HTTP reader failed: {self.errors}")
+
+
+def check_metrics_page(text):
+    """The page parses as Prometheus text 0.0.4 and carries each arc's
+    cumulative latency buckets, ``_sum`` and ``_count``."""
+    import re
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                        r'(\+Inf|-?[0-9.e+-]+)$')
+    for line in text.strip().splitlines():
+        if not line.startswith("#") and not sample.match(line):
+            raise AssertionError(f"/metrics: unparseable line {line!r}")
+    for arc in ("U1", "U2"):
+        b = re.findall(r'muppet_event_latency_ticks_hist_bucket\{arc="'
+                       + arc + r'",le="([^"]+)"\} ([0-9.e+]+)', text)
+        cum = [float(v) for _, v in b]
+        n = re.search(r'muppet_event_latency_ticks_hist_count\{arc="' + arc
+                      + r'"\} ([0-9.e+]+)', text)
+        sm = re.search(r'muppet_event_latency_ticks_hist_sum\{arc="' + arc
+                       + r'"\} ([0-9.e+]+)', text)
+        if not (b and b[-1][0] == "+Inf" and cum == sorted(cum) and n and sm
+                and float(n.group(1)) == cum[-1] > 0):
+            raise AssertionError(f"/metrics: no cumulative _bucket/_sum/"
+                                 f"_count series for arc {arc}")
+
+
+def telemetry_path(dev, ticks, seed, card, ref, off_ms):
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import Engine, EngineConfig, StateHandle
+    from repro_torch.kernels.countmin import kernel as ck
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.kernels.slate_update import kernel as uk
+    from repro_torch.slates.replica import HotKeyCache
+    from repro_torch.telemetry import TelemetryConfig
+
+    tc = TelemetryConfig()
+    cfg = EngineConfig(batch_size=B, queue_capacity=262144, chunk_size=8,
+                       telemetry=tc)
+    cdf = zipf_cdf(dev)
+    source_fn, gen_tick = make_source(cdf, B, seed, lagged=True)
+    # telemetry's own cost: the same run on an engine of its own, with no
+    # HTTP reader competing for the host
+    eng = Engine(build_workflow(C), cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(eng.init_state(), source_fn, ticks)
+    torch.cuda.synchronize()
+    quiet_s = (time.perf_counter() - t0) / ticks
+    log(f"end to end, telemetry on, no reader: {quiet_s * 1e3:.3f} ms/tick "
+        f"against {off_ms * 1e3:.3f} ms/tick with telemetry off "
+        f"({quiet_s / off_ms:.4f}x), {B / quiet_s:.4e} events/s; {card}")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = Engine(build_workflow(C), cfg, device=dev)
+    cache = HotKeyCache(capacity=64)
+    handle = StateHandle(eng, eng.init_state(), cache=cache)
+    server = handle.serve()
+    reader = Reader(server.port)
+    kernels = (uk.slate_update, lk.slate_lookup, ck.countmin_update,
+               hk.histogram_update)
+    try:
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        reader.start()
+        t0 = time.perf_counter()
+        state, _ = eng.run(handle.state, source_fn, ticks, handle=handle)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        state, drained = eng.drain(state)
+        handle.state = state
+        read_keys = read_set(seed)
+        reads = {u: handle.read_slates(u, read_keys) for u in ("U1", "U2")}
+        reader.stop()
+        reader.check()
+        # the page after the last window (the live ones may predate it)
+        metrics = reader.get("/metrics")
+        launches = {k.__name__: k.launches for k in kernels}
+    finally:
+        reader.stop()
+        server.close()
+    stats = eng.stats(state)
+    report = eng.telemetry.last
+    log(f"end to end, telemetry on, HTTP reader: {ticks} ticks x {B} events in "
+        f"{t_run:.3f} s = {t_run / ticks * 1e3:.3f} ms/tick against "
+        f"{off_ms * 1e3:.3f} ms/tick with telemetry off "
+        f"({t_run / ticks / off_ms:.4f}x), {ticks * B / t_run:.4e} events/s, "
+        f"while the HTTP reader made {reader.rounds} rounds of 4 requests "
+        f"(key 0's count as read live: {reader.hot_counts}); "
+        f"drain {drained} ticks; {card}")
+    log(f"launches on the telemetry path {launches}; hot-key cache "
+        f"{cache.stats()}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never ran on the telemetry path: "
+                             f"{launches}")
+    c = reader.hot_counts
+    if reader.rounds == 0 or not c or c != sorted(c):
+        raise AssertionError(f"the HTTP reader made {reader.rounds} rounds "
+                             f"during the run; key 0's live counts {c} "
+                             "should be there and never fall")
+    check_slates(state, stats, ref, read_keys, reads, ticks, "telemetry on")
+
+    # the last window's heavy hitters: the window covers the ticks from
+    # one boundary to the next, whose updaters dequeue the sources of one
+    # tick earlier; each of the two updaters counts each event
+    last = ticks // tc.window * tc.window
+    true0 = 0
+    ages = []
+    for t in range(ticks):
+        k, _, ts = gen_tick(t)
+        if last - tc.window - 1 <= t < last - 1:
+            true0 += 2 * int((k == 0).sum())
+        # an updater dequeues source t's events at tick t + 1, stamped
+        # ts + 1 by the mapper
+        ages.append(t - ts.cpu().numpy().astype(np.int64))
+    top = report.heavy_hitters[0] if report.heavy_hitters else None
+    log(f"last report: tick {report.tick}, events {report.events.tolist()}, "
+        f"heavy hitters {report.heavy_hitters[:4]}, key 0 true count "
+        f"{true0} (both updaters), event latency p50/p90/p99 "
+        f"{report.event_latency_p50}/{report.event_latency_p90}/"
+        f"{report.event_latency_p99}, queue delay p99 "
+        f"{report.queue_delay_p99}")
+    if top is None or top[0] != 0 or top[1] < true0:
+        raise AssertionError(f"top heavy hitter {top}, expected key 0 with "
+                             f"an estimate >= {true0}")
+    ages = np.concatenate(ages)
+    want = np.bincount(bit_length_table(MAX_LAG)[ages], minlength=32)
+    sk = state["sketch"]
+    if int(sk["total"]) != 2 * ticks * B:
+        raise AssertionError(f"sketch total {int(sk['total'])}")
+    for arc in ("U1", "U2"):
+        h = state["lat_hist"][arc]
+        got = h["counts"].cpu().numpy()[0]
+        if got.sum() != stats["processed"][arc] or got[32:].any() \
+                or not np.array_equal(got[:32], want) \
+                or int(h["sum"]) != int(ages.sum()):
+            raise AssertionError(f"{arc} latency histogram {got[:8]} sum "
+                                 f"{int(h['sum'])}, reference {want[:8]} "
+                                 f"sum {int(ages.sum())}")
+    log(f"latency histograms: both arcs equal a numpy bucketing of "
+        f"{ages.size} ages (buckets 0-6: {want[:7].tolist()}), sum "
+        f"{int(ages.sum())}; sketch total {int(sk['total'])}")
+    check_metrics_page(metrics)
+    log(f"/metrics after the run: {len(metrics.splitlines())} lines parse, "
+        f"with _bucket/_sum/_count for both arcs; the last live page had "
+        f"{len(reader.metrics.splitlines())} lines")
     profile_ticks(eng, state, source_fn, ticks, t_run / ticks)
     return launches
 
@@ -569,16 +940,23 @@ def main(argv=None):
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    libs = _build.build(["slate_update", "slate_lookup"])
+    libs = _build.build(["slate_update", "slate_lookup", "countmin"])
     log(f"built {sorted(libs)} with {_build.nvcc_path()} in "
         f"{time.perf_counter() - t0:.2f} s")
 
     entries = [check_slate_update(dev, args.seed),
-               check_slate_lookup(dev, args.seed)]
+               check_slate_lookup(dev, args.seed),
+               check_countmin(dev, args.seed),
+               check_histogram(dev, args.seed)]
     torch.cuda.empty_cache()
     check_no_host_sync(dev, args.seed)
     torch.cuda.empty_cache()
-    launches = end_to_end(dev, args.ticks, args.seed, card)
+    # each path's launches: the slate kernels from the slice-1 path, the
+    # telemetry kernels from the telemetry path
+    slice1, ref, off_s = end_to_end(dev, args.ticks, args.seed, card)
+    torch.cuda.empty_cache()
+    launches = {**telemetry_path(dev, args.ticks, args.seed, card, ref,
+                                 off_s), **slice1}
     for e in entries:
         e["launches"] = launches[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

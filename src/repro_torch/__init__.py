@@ -8,10 +8,14 @@ PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel under
 ``csrc/``, compiled for ``sm_90a`` at first use
 (``kernels/_build.py``).
 
-This slice covers the single-shard MapUpdate tick: events, queues,
+Ported so far: the single-shard MapUpdate tick (events, queues,
 operators, the slate table, both updater paths and the engine loop,
-with the ``slate_update`` and ``slate_lookup`` kernels.  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+with the ``slate_update`` and ``slate_lookup`` kernels) and its in-tick
+telemetry (the count-min sketch and latency histograms on the
+``countmin_update`` / ``histogram_update`` kernel, the windowed
+``TelemetryReport``, tracing, ``/metrics``, the hot-key cache and the
+HTTP slate server).  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``.
 
 Importing this package imports nothing heavy: modules are imported
 where they are used (``from repro_torch.core.engine import Engine``).

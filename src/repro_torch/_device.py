@@ -12,13 +12,18 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raises if CUDA is requested but absent."""
+    """``None`` -> ``cuda``; raises if CUDA is requested but absent.  A
+    CUDA device without an index gets the current one (``cuda`` ->
+    ``cuda:0``), the device its tensors report, so device checks compare
+    like with like."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: CUDA requested (the default device) but "
             "torch.cuda.is_available() is False; pass device='cpu' to "
             "run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

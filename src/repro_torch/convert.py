@@ -1,7 +1,8 @@
 """Carry engine state between the JAX package and the port.
 
 The system has no weights: what must carry across is the engine state —
-queues, slate tables, the tick and the counters.  Both functions speak
+queues, slate tables, the tick, the counters and, with telemetry on, the
+count-min sketch and the latency histograms.  Both functions speak
 the plain nested-dict form that ``dataclasses.asdict`` gives of a JAX
 engine state after ``jax.device_get``: every dataclass (``QueueState``,
 ``EventBatch``, ``SlateTable``) becomes a dict of its fields and every
@@ -87,6 +88,11 @@ def state_from_numpy(tree, device=None) -> Dict[str, Any]:
     for k in ("tick", "throttle_hits", "deferred"):
         out[k] = _t(p[k], dev)
     out["processed"] = {k: _t(v, dev) for k, v in p["processed"].items()}
+    # telemetry state (sketch; per-arc latency histograms) has no sink
+    # rows: carried leaf for leaf
+    for k in ("sketch", "lat_hist"):
+        if k in p:
+            out[k] = _map_leaves(lambda a: _t(a, dev), p[k])
     return out
 
 

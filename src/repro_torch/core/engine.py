@@ -21,10 +21,15 @@ queue buffers and slate tables in place, where the JAX engine donates
 the state: as there, pass a state to ``step`` / ``run_chunk`` / ``run``
 and use the one they return.
 
+With ``EngineConfig.telemetry`` set, each updater's dequeued batch also
+folds its keys into a count-min sketch and its events' ages into a
+per-arc latency histogram (``kernels/countmin``, ``kernels/histogram``),
+state the tick writes and never reads; ``run`` reads both at window
+boundaries into a ``TelemetryReport`` without a host sync inside a tick.
+``StateHandle`` serves slates, ``/status`` and ``/metrics`` over HTTP.
+
 Not in this slice: ``EngineConfig.durability`` (WAL, flush, recovery)
-and ``EngineConfig.telemetry`` (count-min sketch, latency histograms)
-raise ``NotImplementedError``; ``StateHandle`` has no ``serve``,
-``metrics_text`` or ``cache``.
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -42,11 +47,15 @@ from repro_torch.core import apply as apply_mod
 from repro_torch.core import queues as q_mod
 from repro_torch.core.event import EventBatch, concat, tree_map
 from repro_torch.core.operators import (AssociativeUpdater, Mapper,
-                                        SequentialUpdater)
+                                        SequentialUpdater, Updater)
 from repro_torch.core.queues import OverflowPolicy
 from repro_torch.core.workflow import Workflow
 from repro_torch.kernels.slate_lookup import ops as lk_ops
 from repro_torch.slates import table as tbl
+from repro_torch.telemetry import latency as lat_mod
+from repro_torch.telemetry import sketch as sk_mod
+from repro_torch.telemetry.metrics import MetricsRegistry, TelemetryConfig
+from repro_torch.telemetry.trace import Tracer, null_span
 
 
 @dataclass
@@ -67,7 +76,11 @@ class EngineConfig:
     chunk_size: int = 8
     # not in this slice: must stay None
     durability: Any = None
-    telemetry: Any = None
+    # device-side telemetry (DESIGN.md 13, 18): a count-min key-heat
+    # sketch and per-arc latency histograms updated inside the tick + a
+    # windowed metrics registry read at window boundaries.  None = no
+    # telemetry state, no readings.
+    telemetry: Optional[TelemetryConfig] = None
 
     def policy_for(self, op_name: str) -> OverflowPolicy:
         return self.overflow.get(op_name, self.default_policy)
@@ -120,20 +133,33 @@ class StateHandle:
     """Live view of ``(engine, state)`` for concurrent readers.
 
     ``Engine.run(..., handle=h)`` republishes ``h.state`` after every
-    chunk, so a reader thread sees live slates without the caller
-    threading state through it.  Reads hold the engine's ``read_lock``,
-    which ``run`` holds while a chunk updates the state in place."""
+    chunk, so a reader thread (the HTTP slate server of :meth:`serve`)
+    sees live slates without the caller threading state through it.
+    Reads hold the engine's ``read_lock``, which ``run`` holds while a
+    chunk updates the state in place."""
 
-    def __init__(self, engine, state=None):
+    def __init__(self, engine, state=None, cache=None):
         self.engine = engine
         self.state = state
+        # optional slates.replica.HotKeyCache: consulted before touching
+        # device state, warmed from telemetry heavy hitters, invalidated
+        # whenever the flush frontier advances (DESIGN.md section 15)
+        self.cache = cache
 
     def _lock(self):
         return getattr(self.engine, "read_lock", None) or nullcontext()
 
     def read_slate(self, updater: str, key: int):
+        c = self.cache
+        if c is not None:
+            hit, val = c.get(updater, key)
+            if hit:
+                return val
         with self._lock():
-            return self.engine.read_slate(self.state, updater, key)
+            val = self.engine.read_slate(self.state, updater, key)
+        if c is not None and val is not None:
+            c.put(updater, key, val)
+        return val
 
     def read_slates(self, updater: str, keys):
         """Batched point reads; list aligned with ``keys``, ``None`` for
@@ -144,6 +170,38 @@ class StateHandle:
     def stats(self) -> Dict[str, Any]:
         with self._lock():
             return self.engine.stats(self.state)
+
+    # -- run-loop hooks (Engine.run calls these at chunk boundaries) --
+    def on_telemetry(self, report):
+        if self.cache is not None and report is not None:
+            self.cache.warm([k for k, _, _ in report.heavy_hitters])
+
+    def on_frontier_advance(self):
+        """Flush frontier moved: cached rows may now disagree with the
+        durable snapshot — drop them."""
+        if self.cache is not None:
+            self.cache.invalidate()
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of the engine's current counters,
+        latest telemetry window and cumulative latency histograms, from
+        snapshots the registry already holds plus one ``stats()`` read."""
+        from repro_torch.telemetry.prom import render_prometheus
+        reg = self.engine.telemetry
+        return render_prometheus(
+            stats=self.stats(),
+            report=reg.last if reg is not None else None,
+            hist=reg.hist_cum if reg is not None else None,
+            n_buckets=(reg.cfg.latency_buckets
+                       if reg is not None else lat_mod.N_BUCKETS))
+
+    def serve(self, port: int = 0):
+        """Start an HTTP slate server bound to this handle (127.0.0.1;
+        ``port=0`` picks a free port)."""
+        from repro_torch.slates.http import SlateServer
+        return SlateServer(read_fn=self.read_slate, stats_fn=self.stats,
+                           read_many_fn=self.read_slates,
+                           metrics_fn=self.metrics_text, port=port)
 
 
 class Engine:
@@ -158,16 +216,26 @@ class Engine:
             raise NotImplementedError(
                 "EngineConfig.durability (WAL, flush, recovery) is ported "
                 "in slice 3 of the port (ROADMAP queue 1 item 10)")
-        if self.cfg.telemetry is not None:
-            raise NotImplementedError(
-                "EngineConfig.telemetry (count-min sketch, latency "
-                "histograms) is ported in slice 2 of the port (ROADMAP "
-                "queue 1 item 9)")
         self.device = resolve_device(device)
         self.key_dtype = resolve_key_dtype(self.cfg.key_dtype)
         # serializes concurrent readers against run(), which updates the
         # state in place chunk by chunk
         self.read_lock = threading.RLock()
+        self.telemetry: Optional[MetricsRegistry] = None
+        self.tracer: Optional[Tracer] = None
+        if self.cfg.telemetry is not None:
+            self.telemetry = MetricsRegistry(
+                self.cfg.telemetry, batch_size=self.cfg.batch_size)
+            # made on the device once: a copy inside the tick would sync
+            self._salts = sk_mod.salts_tensor(self.telemetry.salts,
+                                              self.device)
+            if self.cfg.telemetry.trace:
+                self.tracer = Tracer()
+
+    def _span(self, name: str, **args):
+        """Tracer span when tracing is on, else a free no-op."""
+        return self.tracer.span(name, **args) if self.tracer \
+            else null_span(**args)
 
     @property
     def key_bits(self) -> int:
@@ -184,7 +252,7 @@ class Engine:
                                           key_dtype=kd, device=dev)
                   for up in self.wf.updaters()}
         z = lambda: torch.zeros((), dtype=torch.int32, device=dev)
-        return {
+        state = {
             "queues": queues,
             "tables": tables,
             "tick": z(),
@@ -192,6 +260,16 @@ class Engine:
             "deferred": z(),
             "processed": {op.name: z() for op in self.wf.operators},
         }
+        tc = self.cfg.telemetry
+        if tc is not None:
+            state["sketch"] = sk_mod.make_sketch(tc.depth, tc.width,
+                                                 tc.sample, key_dtype=kd,
+                                                 device=dev)
+            if tc.latency_buckets > 0:
+                state["lat_hist"] = lat_mod.make_hist(
+                    [u.name for u in self.wf.updaters()],
+                    tc.latency_buckets, device=dev)
+        return state
 
     # ---- one tick ----
     def _tick(self, state, sources: Dict[str, EventBatch]):
@@ -202,6 +280,9 @@ class Engine:
         throttle_hits = state["throttle_hits"]
         deferred_total = state["deferred"]
         tick = state["tick"]
+        sketch = state.get("sketch")
+        lat_hist = dict(state["lat_hist"]) if "lat_hist" in state \
+            else None
         outputs: Dict[str, List[EventBatch]] = {}
         for s, b in sources.items():
             if b.device != self.device:
@@ -244,6 +325,19 @@ class Engine:
         for op in wf.operators:
             queues[op.name], batch = q_mod.dequeue(queues[op.name],
                                                    cfg.batch_size)
+            if sketch is not None and isinstance(op, Updater):
+                # key-heat telemetry on the keys each updater processes:
+                # state the tick never reads (the parity contract)
+                sketch = sk_mod.sketch_update(
+                    sketch, batch.key, batch.valid, self._salts,
+                    impl=cfg.telemetry.impl)
+            if lat_hist is not None and isinstance(op, Updater):
+                # event-latency telemetry (DESIGN.md 18): each event's
+                # age at dequeue, binned into this arc's histogram
+                lat_hist[op.name] = lat_mod.hist_update(
+                    lat_hist[op.name], tick, batch.ts, batch.valid,
+                    n_buckets=cfg.telemetry.latency_buckets,
+                    impl=cfg.telemetry.impl)
             if isinstance(op, Mapper):
                 outs = op.map_batch(batch)
                 for s, b in outs.items():
@@ -286,6 +380,10 @@ class Engine:
             "deferred": deferred_total,
             "processed": processed,
         }
+        if sketch is not None:
+            new_state["sketch"] = sketch
+        if lat_hist is not None:
+            new_state["lat_hist"] = lat_hist
         return new_state, out_batches
 
     # ---- host API ----
@@ -363,10 +461,19 @@ class Engine:
         ``source_fn`` reacts at chunk boundaries.  ``chunk_size=1``
         recovers exact per-tick backpressure.  ``source_offset`` resumes
         a source stream at an absolute index.  ``handle`` is republished
-        with the current state after every chunk."""
+        with the current state after every chunk.
+
+        With ``cfg.telemetry`` set, every ``window`` source ticks the
+        boundary starts a copy of the counters, sketch and histograms to
+        the host and decays the sketch; the report resolves after the
+        next chunk is dispatched (one-chunk lag, so the copy overlaps
+        device work) and goes to ``handle.on_telemetry``.  The run does
+        not return with a report unresolved."""
         chunk = chunk_size or self.cfg.chunk_size
         outputs = []
         ingest = None
+        obs_mark = source_offset    # telemetry window cursor
+        pending_obs = None          # in-flight telemetry transfer
         # throttle_hits is cumulative: resuming from prior state must not
         # read old hits as a fresh backpressure signal
         last_hits = int(state["throttle_hits"].item())
@@ -378,8 +485,12 @@ class Engine:
             # the chunk updates the state in place: hold the read lock
             # until the new state is republished
             with self.read_lock:
-                state, outs, info = self.run_chunk(
-                    state, stack_sources(per_tick), n)
+                with self._span("chunk_dispatch", tick=t, n_ticks=n):
+                    state, outs, info = self.run_chunk(
+                        state, stack_sources(per_tick), n)
+                if pending_obs is not None:
+                    self._finish_observe(pending_obs, handle)
+                    pending_obs = None
                 for i in range(n):
                     outputs.append(tree_map(lambda x, i=i: x[i], outs))
                 hits_trace = info["throttle_hits"].tolist()  # 1 sync
@@ -394,9 +505,26 @@ class Engine:
                             ingest = None
                     last_hits = hits
                 t += n
+                if (self.telemetry is not None
+                        and t - obs_mark >= self.cfg.telemetry.window):
+                    with self._span("observe_begin", tick=t):
+                        pending_obs = self.telemetry.begin_observe(
+                            self, state)
+                    state = dict(state)
+                    state["sketch"] = sk_mod.decay(
+                        state["sketch"], self.cfg.telemetry.decay)
+                    obs_mark = t
                 if handle is not None:
                     handle.state = state
+        if pending_obs is not None:
+            self._finish_observe(pending_obs, handle)
         return state, outputs
+
+    def _finish_observe(self, pending, handle):
+        with self._span("observe_finish"):
+            report = self.telemetry.finish_observe(pending)
+        if handle is not None:
+            handle.on_telemetry(report)
 
     def drain(self, state, max_ticks: int = 64):
         """Run source-less ticks until every queue is empty (or

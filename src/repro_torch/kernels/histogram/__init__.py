@@ -1,0 +1,4 @@
+"""Latency-histogram update: CUDA kernel, plain version and dispatcher."""
+from repro_torch.kernels.histogram.ops import histogram_update
+
+__all__ = ["histogram_update"]

@@ -475,8 +475,11 @@ def test_device_defaults_to_cuda_and_slices_not_ported_raise():
             TBatch.of([1, 2], {"x": np.ones(2, np.int32)})
     with pytest.raises(NotImplementedError, match="slice 3"):
         TEngine(wf, TConfig(durability=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TEngine(wf, TConfig(telemetry=object()), device="cpu")
+    # telemetry is ported (slice 2): the engine builds its registry and
+    # sketch state instead of raising
+    from repro_torch.telemetry import TelemetryConfig
+    eng = TEngine(wf, TConfig(telemetry=TelemetryConfig()), device="cpu")
+    assert eng.telemetry is not None and "sketch" in eng.init_state()
 
 
 def test_state_handle_reads_only_chunk_boundaries():
