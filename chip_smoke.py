@@ -15,12 +15,18 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    the main path's shapes (B=65,536 events, D=8 lanes, C=2**22 slots,
    Q=4,096 reads; a 2 x 2048 count-min sketch over Zipf keys hashed by
    ``telemetry.sketch.columns``; a 128-wide latency histogram row with
-   ages over all 32 buckets), for int32 and int64 keys, and times both
-   on the same inputs by device time from torch.profiler.  No single
-   PyTorch call computes ``slate_update`` or ``slate_lookup`` (a
-   segmented combine fused with a slot read-modify-write; a probe walk
-   fused with a row gather), so they have no library time; the two
-   count updates are timed beside ``torch.bincount``;
+   ages over all 32 buckets), for int32 and int64 keys; the two
+   attention kernels at the serving shapes of phase 7 (flash: 8 x 256
+   tokens, 14 query heads over 2 kv heads of 64, bf16, causal; decode:
+   8 requests over a 512-row bf16 cache, ragged lengths) and cases for
+   a window, q_offset, f32, Dh=128 and Dv != Dh (tolerance 2e-2 bf16,
+   5e-5 f32) — and times kernel and plain version on the same inputs by
+   device time from torch.profiler.  No single PyTorch call computes
+   ``slate_update`` or ``slate_lookup`` (a segmented combine fused with
+   a slot read-modify-write; a probe walk fused with a row gather), so
+   they have no library time; the two count updates are timed beside
+   ``torch.bincount``, the attention kernels beside
+   ``scaled_dot_product_attention``;
 4. checks that a ``run_chunk`` tick never syncs the host (torch's sync
    debug mode set to "error"), on a small engine, with telemetry off
    and on;
@@ -45,8 +51,24 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    report's top heavy hitter (key 0, the Zipf head, estimated at least
    at its true count in that window), each arc's histogram against a
    numpy bucketing of the ages, the ``/metrics`` page, and that all
-   four kernels ran.  Each path's launch counters are set to 0 just
-   before it and read just after.
+   four kernels ran.
+7. drives the serving path: qwen2-0.5b at full width with random weights
+   from ``--seed``, a ``Workflow`` of ``LMServeMapper(max_new=32,
+   cache_len=512, bucket=8)`` and ``RequestSlate`` on
+   ``Engine(EngineConfig(batch_size=16))``, fed by ``request_source`` 64
+   requests (prompts of 32-256 tokens padded to 256) at 16 a tick for 4
+   ticks, then ``drain``.  Every request's slate, read through
+   ``read_slates``, must equal bitwise the tokens of a direct greedy loop
+   over ``lm.prefill`` / ``lm.decode_step`` on the same microbatches;
+   one microbatch's teacher-forced prefill and decode logits with the
+   kernels must lie within 0.125 of those with the plain versions (top-1
+   equal wherever the margin exceeds that); ``flash_attention`` must
+   launch 24 times and ``decode_attention`` 24 x 31 times a microbatch;
+   a reduced-config serving tick runs under torch's sync debug mode.  It
+   prints ms/tick, generated tokens/s and, from one profiled tick,
+   device busy time and the idle share.
+Each path's launch counters are set to 0 just before it and read just
+after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
@@ -60,11 +82,13 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 dense, tensor cores
 SECTOR = 32                      # bytes per random device-memory access
 
 B, D, C, Q = 65536, 8, 2**22, 4096
@@ -393,6 +417,173 @@ def check_histogram(dev, seed):
     log("histogram_update spread and single-bucket ages: bitwise=True")
     e["replaces"] = "src/repro/kernels/histogram/kernel.py:56"
     return e
+
+
+def attn_tol(dtype):
+    """Attention tolerance, as the JAX package's kernel sweep
+    (tests/test_kernels.py:8): 2e-2 for bf16, 5e-5 for f32."""
+    return 2e-2 if "bfloat16" in str(dtype) else 5e-5
+
+
+def attention_bound(nbytes, flops):
+    """(bound ms, what bounds it): bytes over the HBM rate against FLOPs
+    over the bf16 dense tensor-core peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_attention_case(name, kernel, plain, args, kw, tol):
+    """One case: the kernel against its plain version on the card."""
+    import torch
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if not (err < tol and got.dtype == want.dtype
+            and got.shape == want.shape and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{name} {kw} shapes {[tuple(a.shape) for a in args]}"
+                             f": max_abs_err {err} against tolerance {tol}")
+    return err
+
+
+def check_flash_attention(dev, seed):
+    """The prefill shapes of phase 7 (B=8 requests of S=256, 14 query heads
+    over 2 kv heads, Dh=64, bf16, causal) and cases for a window,
+    q_offset, f32, Dh=128 and Dv != Dh."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ref as ar
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def qkv(B, Sq, Skv, H, Hkv, Dh, Dv, dt):
+        r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dt)
+        return r(B, Sq, H, Dh), r(B, Skv, Hkv, Dh), r(B, Skv, Hkv, Dv)
+
+    B, S, H, Hkv, Dh = 8, 256, 14, 2, 64
+    q, k, v = qkv(B, S, S, H, Hkv, Dh, Dh, bf16)
+    err = check_attention_case("flash_attention", fk.flash_attention,
+                               ar.mha, (q, k, v), {"causal": True},
+                               attn_tol(bf16))
+    cases = [((B, S, S, H, Hkv, Dh, Dh, bf16), {"window": 64}),
+             ((2, 64, 256, H, Hkv, Dh, Dh, bf16), {"q_offset": 192}),
+             ((B, S, S, H, Hkv, Dh, Dh, f32), {}),
+             ((2, S, S, 8, 2, 128, 128, bf16), {}),
+             ((2, S, S, H, Hkv, Dh, 32, bf16), {}),
+             ((2, 160, 160, 4, 2, 64, 64, bf16), {"causal": False})]
+    errs = {}
+    for shape, kw in cases:
+        e = check_attention_case("flash_attention", fk.flash_attention,
+                                 ar.mha, qkv(*shape), kw, attn_tol(shape[-1]))
+        errs[f"{shape[:-1]} {str(shape[-1])[6:]} {kw}"] = e
+        if shape[-1] == bf16:
+            err = max(err, e)
+    log(f"flash_attention vs plain, serving shape [8, 256, 14/2, 64] bf16 "
+        f"causal: max_abs_err {err} (tolerance 2e-2 bf16, 5e-5 f32); "
+        f"other cases {errs}")
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True).transpose(1, 2)
+    lib_err = float((lib.float() - ar.mha(q, k, v).float()).abs().max())
+    ms = device_ms(lambda: fk.flash_attention(q, k, v))
+    plain_ms = device_ms(lambda: ar.mha(q, k, v))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    # q, k, v read once, o written once; products 2 (Dh + Dv) per
+    # (query head, row, visible key): S (S + 1) / 2 causal pairs a head
+    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * 2
+    flops = 2 * (Dh + Dh) * B * H * S * (S + 1) // 2
+    bound_ms, bound_by = attention_bound(nbytes, flops)
+    log(f"flash_attention [8, 256, 14/2, 64] bf16 causal: kernel {ms:.5f} "
+        f"ms, plain {plain_ms:.5f} ms, SDPA {library_ms:.5f} ms (device "
+        f"time, torch.profiler, mean of 20; SDPA vs plain max_abs_err "
+        f"{lib_err}); bound {bound_ms:.6f} ms by {bound_by} ({nbytes} bytes "
+        f"at 3.35 TB/s, {flops} FLOPs at 989 TFLOP/s)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:124",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def check_decode_attention(dev, seed):
+    """The decode shapes of phase 7 (B=8 requests, a 512-row bf16 cache,
+    lengths ragged in [1, 512], 14 query heads over 2 kv heads, Dh=64)
+    and cases for a window, an f32 query over bf16 caches, f32, Dh=128
+    and Dv != Dh."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ref as dr
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, S, H, Hkv, Dh, Dv, qdt, cdt, lo=1):
+        r = lambda dt, *sh: torch.randn(sh, generator=gen,
+                                        device=dev).to(dt)
+        lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        return (r(qdt, B, 1, H, Dh), r(cdt, B, S, Hkv, Dh),
+                r(cdt, B, S, Hkv, Dv), lens)
+
+    B, S, H, Hkv, Dh = 8, 512, 14, 2, 64
+    q, kc, vc, lens = inputs(B, S, H, Hkv, Dh, Dh, bf16, bf16)
+    lens[0], lens[1] = 1, S                 # both ends of the range
+    err = check_attention_case("decode_attention", dk.decode_attention,
+                               dr.decode_attend, (q, kc, vc, lens), {},
+                               attn_tol(bf16))
+    cases = [((B, S, H, Hkv, Dh, Dh, bf16, bf16, 65), {"window": 64}),
+             ((B, S, H, Hkv, Dh, Dh, f32, bf16), {}),
+             ((B, S, H, Hkv, Dh, Dh, f32, f32), {}),
+             ((2, S, 8, 2, 128, 128, bf16, bf16), {}),
+             ((2, S, H, Hkv, Dh, 32, bf16, bf16), {})]
+    errs = {}
+    for shape, kw in cases:
+        qdt, cdt = shape[6], shape[7]
+        tol = attn_tol(f32) if (qdt, cdt) == (f32, f32) else attn_tol(bf16)
+        e = check_attention_case("decode_attention", dk.decode_attention,
+                                 dr.decode_attend, inputs(*shape), kw, tol)
+        errs[f"{shape[:6]} {str(qdt)[6:]}/{str(cdt)[6:]} {kw}"] = e
+        if tol == attn_tol(bf16):
+            err = max(err, e)
+    log(f"decode_attention vs plain, serving shape B=8 S=512 14/2 heads "
+        f"Dh=64 bf16, lengths {sorted(lens.tolist())}: max_abs_err {err} "
+        f"(tolerance 2e-2 with bf16, 5e-5 f32; the plain version casts p "
+        f"to bf16 as the JAX oracle does, the kernel keeps it f32); other "
+        f"cases {errs}")
+
+    mask = (torch.arange(S, device=dev)[None, :] < lens[:, None])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True)
+    lib_err = float((sdpa().transpose(1, 2).float() - dr.decode_attend(
+        q, kc, vc, lens).float()).abs().max())
+    ms = device_ms(lambda: dk.decode_attention(q, kc, vc, lens))
+    plain_ms = device_ms(lambda: dr.decode_attend(q, kc, vc, lens))
+    library_ms = device_ms(sdpa)
+    # q read once, the cache rows below each length read once, o written
+    # once, lengths read; products 2 (Dh + Dv) per (query head, visible row)
+    rows = int(lens.sum())
+    nbytes = (q.numel() * 2 + rows * Hkv * (Dh + Dh) * 2 + q.numel() * 2
+              + B * 4)
+    flops = 2 * (Dh + Dh) * H * rows
+    bound_ms, bound_by = attention_bound(nbytes, flops)
+    log(f"decode_attention B=8 S=512 bf16 ({rows} cache rows visible): "
+        f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, SDPA with a length "
+        f"mask {library_ms:.5f} ms (device time, torch.profiler, mean of "
+        f"20; SDPA vs plain max_abs_err {lib_err}); bound {bound_ms:.6f} ms "
+        f"by {bound_by} ({nbytes} bytes at 3.35 TB/s, {flops} FLOPs at 989 "
+        f"TFLOP/s)")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:96",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------- workflow
@@ -878,6 +1069,306 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms):
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+SERVE = {"arch": "qwen2-0.5b", "requests": 64, "per_tick": 16, "bucket": 8,
+         "prompt_len": 256, "min_prompt": 32, "max_new": 32,
+         "cache_len": 512, "ticks": 4}
+
+
+@contextmanager
+def plain_attention():
+    """Route the model's attention to the plain versions (the CUDA tensors'
+    dispatch otherwise takes the kernels), for the teacher-forced check."""
+    import functools
+    from types import SimpleNamespace
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.models.layers import attention as layer
+    saved = layer.attn_ops, layer.dec_ops
+    layer.attn_ops = SimpleNamespace(
+        mha=functools.partial(attn_ops.mha, impl="ref"))
+    layer.dec_ops = SimpleNamespace(
+        decode_attend=functools.partial(dec_ops.decode_attend, impl="ref"))
+    try:
+        yield
+    finally:
+        layer.attn_ops, layer.dec_ops = saved
+
+
+def serving_requests(seed, n, vocab, rid0=1):
+    """``n`` requests with prompt lengths uniform in [min_prompt,
+    prompt_len] and token ids uniform in [1, vocab), from ``seed``."""
+    import numpy as np
+    from types import SimpleNamespace
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(SERVE["min_prompt"], SERVE["prompt_len"] + 1, n)
+    return [SimpleNamespace(rid=rid0 + i, prompt=rng.integers(
+        1, vocab, int(m)).astype(np.int32)) for i, m in enumerate(lens)]
+
+
+def serving_engine(cfg, model, dev, *, batch, cache_len, max_new, bucket,
+                   prompt_len):
+    import torch
+    from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.core.workflow import Workflow
+    from repro_torch.ml import LMServeMapper, RequestSlate
+    mapper = LMServeMapper(cfg, model, max_new=max_new, cache_len=cache_len,
+                           bucket=bucket)
+    mapper.subscribes = ("requests",)
+    mapper.bind({"prompt": ((prompt_len,), torch.int32),
+                 "len": ((), torch.int32)})
+    slate = RequestSlate(max_new=max_new, table_capacity=4096)
+    slate.subscribes = ("generated",)
+    eng = Engine(Workflow([mapper, slate], external_streams=("requests",)),
+                 EngineConfig(batch_size=batch), device=dev)
+    return eng, mapper
+
+
+def direct_greedy(mapper, reqs, dev):
+    """The tokens of each request from a greedy loop over ``lm.prefill`` /
+    ``lm.decode_step`` on the microbatches the engine forms (bucket
+    requests in admission order), in the mapper's compute model."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    S, bucket = SERVE["prompt_len"], SERVE["bucket"]
+    out = {}
+    for i in range(0, len(reqs), bucket):
+        part = reqs[i:i + bucket]
+        toks = np.zeros((bucket, S), np.int32)
+        lens = np.zeros(bucket, np.int32)
+        for j, r in enumerate(part):
+            toks[j, :len(r.prompt)] = r.prompt
+            lens[j] = len(r.prompt)
+        toks = torch.from_numpy(toks).to(dev)
+        lens = torch.from_numpy(lens).to(dev)
+        logits, st = lm.prefill(mapper.model, {"tokens": toks}, mapper.ctx,
+                                SERVE["cache_len"], full_logits=True)
+        rows = torch.arange(bucket, device=dev)
+        tok = torch.argmax(logits[rows, (lens - 1).long()], -1).to(
+            torch.int32)
+        cur, gen = lens.clone(), [tok]
+        for _ in range(SERVE["max_new"] - 1):
+            lg, st = lm.decode_step(mapper.model, tok[:, None], st, cur,
+                                    mapper.ctx)
+            tok = torch.argmax(lg[:, -1], -1).to(torch.int32)
+            gen.append(tok)
+            cur = cur + 1
+        gen = torch.stack(gen, 1).cpu().numpy()
+        out.update((r.rid, gen[j]) for j, r in enumerate(part))
+    return out
+
+
+def teacher_forced(mapper, reqs, dev):
+    """One microbatch's full-width prefill logits and one decode step's
+    logits, kernels against plain versions.  Returns the max abs
+    difference over real positions and the top-1 agreement, and checks
+    the top-1 token wherever the plain run's top-2 margin exceeds the
+    tolerance."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    S, bucket = SERVE["prompt_len"], SERVE["bucket"]
+    toks = np.zeros((bucket, S), np.int32)
+    lens = np.array([len(r.prompt) for r in reqs[:bucket]], np.int32)
+    for j, r in enumerate(reqs[:bucket]):
+        toks[j, :lens[j]] = r.prompt
+    toks = torch.from_numpy(toks).to(dev)
+    lens_t = torch.from_numpy(lens).to(dev)
+    real = (torch.arange(S, device=dev)[None, :] < lens_t[:, None])
+    nxt = torch.from_numpy(np.array([[r.prompt[0]] for r in
+                                     reqs[:bucket]], np.int32)).to(dev)
+
+    def run():
+        lg, st = lm.prefill(mapper.model, {"tokens": toks}, mapper.ctx,
+                            SERVE["cache_len"], full_logits=True)
+        dl, _ = lm.decode_step(mapper.model, nxt, st, lens_t, mapper.ctx)
+        return lg[real].float(), dl[:, 0].float()
+
+    got = run()
+    with plain_attention():
+        want = run()
+    torch.cuda.synchronize()
+    res = {}
+    for name, a, b in (("prefill", got[0], want[0]),
+                       ("decode", got[1], want[1])):
+        err = float((a - b).abs().max())
+        top2 = torch.topk(b, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = torch.argmax(a, -1) == torch.argmax(b, -1)
+        clear = margin > SERVE_LOGIT_TOL
+        if err > SERVE_LOGIT_TOL or not bool(same[clear].all()):
+            raise AssertionError(
+                f"teacher-forced {name} logits: max_abs_err {err}, top-1 "
+                f"disagrees at {int((~same & clear).sum())} positions whose "
+                f"top-2 margin exceeds {SERVE_LOGIT_TOL}")
+        res[name] = {"max_abs_err": err, "top1_agree": float(
+            same.float().mean()), "positions": int(b.shape[0]),
+            "logit_absmax": float(b.abs().max())}
+    return res
+
+
+# the bf16 tolerance of a logit after 24 layers: each layer's attention
+# output may round one bf16 ulp (2**-8 relative) apart between the kernel
+# (f32 p) and the plain version, and the residual stream carries it on
+SERVE_LOGIT_TOL = 0.125
+
+
+def serving_path(dev, seed, card):
+    """LM serving on the MapUpdate engine at full width (qwen2-0.5b, random
+    weights from ``seed``): 64 requests, 16 a tick, 2 microbatches of 8,
+    prefill of 256 then 31 greedy decode steps each, slates read back."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.engine import stack_sources
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.kernels.slate_update import kernel as uk
+    from repro_torch.ml import request_source
+    from repro_torch.models import lm
+
+    cfg = get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    model, _ = lm.init(lm.build(cfg), torch.Generator(device=dev).manual_seed(
+        seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serving: {cfg.name} at full width ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{n_params} parameters initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(batch=SERVE["per_tick"], cache_len=SERVE["cache_len"],
+              max_new=SERVE["max_new"], bucket=SERVE["bucket"],
+              prompt_len=SERVE["prompt_len"])
+    eng, mapper = serving_engine(cfg, model, dev, **kw)
+    del model                    # the mapper keeps its bf16 copy
+    torch.cuda.empty_cache()
+    reqs = serving_requests(seed, SERVE["requests"], cfg.vocab_size)
+    source = request_source(reqs, prompt_len=SERVE["prompt_len"],
+                            capacity=SERVE["per_tick"],
+                            per_tick=SERVE["per_tick"], device=dev)
+    state = eng.init_state()
+    kernels = (fk.flash_attention, dk.decode_attention, uk.slate_update,
+               lk.slate_lookup)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    mapper.microbatches = 0
+    t0 = time.perf_counter()
+    state, _ = eng.run(state, source, SERVE["ticks"])
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, drained = eng.drain(state)
+    torch.cuda.synchronize()
+    t_drain = time.perf_counter() - t0
+    rids = [r.rid for r in reqs]
+    rows = eng.read_slates(state, "requests", rids)
+    launches = {k.__name__: k.launches for k in kernels}
+    mb = mapper.microbatches
+    ticks = SERVE["ticks"] + drained
+    tick_s = (t_run + t_drain) / ticks
+    n_tok = SERVE["requests"] * SERVE["max_new"]
+    log(f"serving end to end: {SERVE['requests']} requests x "
+        f"{SERVE['max_new']} tokens in {ticks} ticks ({SERVE['ticks']} fed "
+        f"+ {drained} drain), {mb} microbatches of {SERVE['bucket']}: "
+        f"{t_run + t_drain:.3f} s = {tick_s * 1e3:.3f} ms/tick, "
+        f"{n_tok / (t_run + t_drain):.2f} generated tokens/s; {card}")
+    log(f"launches on the serving path {launches}; engine stats "
+        f"{eng.stats(state)['processed']}")
+    n_layers = cfg.n_layers
+    if (launches["flash_attention"] != n_layers * mb
+            or launches["decode_attention"]
+            != n_layers * (SERVE["max_new"] - 1) * mb
+            or launches["slate_update"] <= 0 or launches["slate_lookup"] <= 0
+            or mb != ticks * (SERVE["per_tick"] // SERVE["bucket"])):
+        raise AssertionError(f"serving launches {launches} for {mb} "
+                             f"microbatches")
+    if any(r is None for r in rows):
+        raise AssertionError("a request has no slate")
+
+    want = direct_greedy(mapper, reqs, dev)
+    diff = [r.rid for r, row in zip(reqs, rows)
+            if not np.array_equal(row["tokens"].numpy(), want[r.rid])
+            or int(row["n"]) != SERVE["max_new"]]
+    if diff:
+        raise AssertionError(f"requests {diff} differ from the direct greedy "
+                             "loop")
+    toks = np.stack([want[r] for r in rids])
+    log(f"all {len(rids)} request slates (read_slates) equal the direct "
+        f"greedy loop's tokens bitwise; {len(np.unique(toks))} distinct "
+        f"token ids generated")
+    tf = teacher_forced(mapper, reqs, dev)
+    log(f"teacher-forced, one microbatch, kernels vs plain versions "
+        f"(tolerance {SERVE_LOGIT_TOL}): {tf}")
+    profile_serving_tick(eng, state, cfg, dev, seed, tick_s)
+
+    # a serving tick at the reduced config under sync debug mode
+    rcfg = reduced_config(SERVE["arch"])
+    rmodel, _ = lm.init(lm.build(rcfg), torch.Generator(
+        device=dev).manual_seed(seed))
+    reng, _ = serving_engine(rcfg, rmodel, dev, batch=4, cache_len=32,
+                             max_new=4, bucket=2, prompt_len=16)
+    rreqs = [r for r in serving_requests(seed, 8, rcfg.vocab_size)]
+    for r in rreqs:
+        r.prompt = r.prompt[:16]
+    rsrc = request_source(rreqs, prompt_len=16, capacity=4, per_tick=4,
+                          device=dev)
+    rstate = reng.init_state()
+    rstate, _ = reng.step(rstate, rsrc(0, None))      # warm: caches, rope
+    stacked = stack_sources([rsrc(1, None)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rstate, _, _ = reng.run_chunk(rstate, stacked)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"a serving tick at {rcfg.name}'s reduced config under sync debug "
+        f"mode 'error': no host sync ({reng.stats(rstate)['processed']})")
+    return launches
+
+
+def profile_serving_tick(eng, state, cfg, dev, seed, tick_s):
+    """One more serving tick (16 new requests) under torch.profiler: device
+    busy time, device operations, the kernels that take most of it, and
+    the idle share against the unprofiled ms/tick."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.ml import request_source
+    reqs = serving_requests(seed + 1, SERVE["per_tick"], cfg.vocab_size,
+                            rid0=10_000)
+    src = request_source(reqs, prompt_len=SERVE["prompt_len"],
+                         capacity=SERVE["per_tick"],
+                         per_tick=SERVE["per_tick"], device=dev)
+    batch = src(0, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = eng.step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        log("profile of a serving tick: the profiler recorded no device "
+            "events (device busy time not measured)")
+        return
+    busy_us = sum(e.device_time_total for e in dev_events)
+    by_name = {}
+    for e in dev_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profile of one serving tick: device busy {busy_us / 1e3:.4f} "
+        f"ms/tick, {len(dev_events)} device operations/tick, profiled wall "
+        f"{wall * 1e3:.3f} ms; idle share against the unprofiled "
+        f"{tick_s * 1e3:.3f} ms/tick: {1 - busy_us / 1e6 / tick_s:.4f}")
+    for name, us in top:
+        log(f"  {us / 1e3:.4f} ms/tick  {name[:100]}")
+
+
 def profile_ticks(eng, state, source_fn, start, tick_s, n=8):
     """Where a tick's time goes: one chunk of ``n`` more ticks under
     torch.profiler — device busy time per tick (sum of kernel and copy
@@ -940,14 +1431,19 @@ def main(argv=None):
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    libs = _build.build(["slate_update", "slate_lookup", "countmin"])
+    torch.backends.cuda.matmul.allow_tf32 = False    # f32 plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    libs = _build.build(["slate_update", "slate_lookup", "countmin",
+                         "flash_attention", "decode_attention"])
     log(f"built {sorted(libs)} with {_build.nvcc_path()} in "
         f"{time.perf_counter() - t0:.2f} s")
 
     entries = [check_slate_update(dev, args.seed),
                check_slate_lookup(dev, args.seed),
                check_countmin(dev, args.seed),
-               check_histogram(dev, args.seed)]
+               check_histogram(dev, args.seed),
+               check_flash_attention(dev, args.seed),
+               check_decode_attention(dev, args.seed)]
     torch.cuda.empty_cache()
     check_no_host_sync(dev, args.seed)
     torch.cuda.empty_cache()
@@ -957,6 +1453,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     launches = {**telemetry_path(dev, args.ticks, args.seed, card, ref,
                                  off_s), **slice1}
+    torch.cuda.empty_cache()
+    # the attention kernels' launches come from the serving path
+    serving = serving_path(dev, args.seed, card)
+    launches.update(flash_attention=serving["flash_attention"],
+                    decode_attention=serving["decode_attention"])
     for e in entries:
         e["launches"] = launches[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -14,7 +14,10 @@ with the ``slate_update`` and ``slate_lookup`` kernels) and its in-tick
 telemetry (the count-min sketch and latency histograms on the
 ``countmin_update`` / ``histogram_update`` kernel, the windowed
 ``TelemetryReport``, tracing, ``/metrics``, the hot-key cache and the
-HTTP slate server).  Entry points run on ``cuda`` unless the caller
+HTTP slate server), and LM serving on the engine (``ml.serve_app``: the
+dense decoder of ``models/`` — qwen2 / qwen1.5 / gemma-7b — with the
+``flash_attention`` and ``decode_attention`` kernels, feeding a
+per-request slate).  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``.
 
 Importing this package imports nothing heavy: modules are imported

@@ -1,6 +1,7 @@
-"""Carry engine state between the JAX package and the port.
+"""Carry engine state and model weights between the JAX package and the
+port.
 
-The system has no weights: what must carry across is the engine state —
+For the engine, what must carry across is its state —
 queues, slate tables, the tick, the counters and, with telemetry on, the
 count-min sketch and the latency histograms.  Both functions speak
 the plain nested-dict form that ``dataclasses.asdict`` gives of a JAX
@@ -12,6 +13,14 @@ makes that form from either package's state objects.
 The port's queue buffers and tables carry one hidden sink row
 (``core/queues.py``, ``slates/table.py``); ``state_from_numpy`` appends
 it and ``state_to_numpy`` strips it.
+
+For the model stack, ``lm_params_from_numpy`` / ``lm_params_to_numpy``
+carry the JAX parameter tree (layer leaves stacked ``[n_groups, ...]``)
+into an ``lm.Model`` and back, and ``lm_states_from_numpy`` /
+``lm_states_to_numpy`` the decode states (bf16 KV caches).  JAX's bf16
+reaches numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+refuses: both directions go through a ``uint16`` view, so the trip is
+bitwise.
 """
 from __future__ import annotations
 
@@ -38,23 +47,33 @@ def to_plain(tree) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_plain(v) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:      # numpy has no bf16 of its own
+            import ml_dtypes
+            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
     return np.asarray(tree)
 
 
 def _t(a, device, sink=None) -> torch.Tensor:
-    """numpy -> tensor on ``device``; ``sink`` appends one row of that
-    fill value."""
+    """numpy (bf16 as ``ml_dtypes.bfloat16``) -> tensor on ``device``;
+    ``sink`` appends one row of that fill value."""
     arr = np.asarray(a)
     if sink is not None:
         arr = np.concatenate([arr, np.full((1,) + arr.shape[1:], sink,
                                            arr.dtype)])
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr).view(np.uint16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(arr)).to(device)   # owned copy
 
 
 def _map_leaves(fn, tree):
+    """Map over the leaves of nested dicts, lists and tuples."""
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -107,3 +126,32 @@ def state_to_numpy(state) -> Dict[str, Any]:
         for k in ("keys", "ts", "dirty", "vals"):
             t[k] = strip(t[k])
     return p
+
+
+# ---- model weights and decode states ----
+
+def lm_params_from_numpy(tree, cfg, device=None):
+    """A JAX ``lm.init`` parameter tree (numpy or jax arrays) -> an
+    ``lm.Model`` of ``cfg`` on ``device`` (default ``cuda``) holding the
+    same values."""
+    from repro_torch.models import lm
+    dev = resolve_device(device)
+    return lm.build(cfg).load_tree(_map_leaves(lambda a: _t(a, dev), tree))
+
+
+def lm_params_to_numpy(model):
+    """An ``lm.Model``'s parameters -> the JAX parameter tree in numpy."""
+    return to_plain(model.tree())
+
+
+def lm_states_from_numpy(states, device=None):
+    """JAX decode states (``lm.prefill`` / ``lm.decode_states``: a list
+    per segment of tuples per block of ``{"k", "v"}`` caches) -> the
+    port's, on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    return _map_leaves(lambda a: _t(a, dev), states)
+
+
+def lm_states_to_numpy(states):
+    """The port's decode states -> the JAX package's numpy form."""
+    return to_plain(states)

@@ -215,7 +215,7 @@ class Engine:
         if self.cfg.durability is not None:
             raise NotImplementedError(
                 "EngineConfig.durability (WAL, flush, recovery) is ported "
-                "in slice 3 of the port (ROADMAP queue 1 item 10)")
+                "in slice 6 of the port (ROADMAP queue 1)")
         self.device = resolve_device(device)
         self.key_dtype = resolve_key_dtype(self.cfg.key_dtype)
         # serializes concurrent readers against run(), which updates the

@@ -51,17 +51,23 @@ def slate_lookup(table_keys, query, table_vals, *, impl: str = "auto",
 
 def lookup_tree(table_keys, table_vals, query, *, impl: str = "auto",
                 capacity=None):
-    """Batched lookup over a whole slate-value pytree: the kernel path
-    takes a single [N, D] leaf with 4-byte elements (the JAX package's
-    single-leaf condition); otherwise the probe walk runs once and each
-    leaf is gathered by the plain version.  Returns ``(found [Q],
-    rows)`` with ``rows`` leaves [Q, ...], missing keys zeroed."""
+    """Batched lookup over a whole slate-value pytree.  The kernel takes
+    the probe walk and the rows of the first [N, D] leaf with 4-byte
+    elements; the other leaves, if any, are gathered at the slots it
+    found by the plain version.  (The JAX package runs its kernel only
+    for a single such leaf and walks the probe chain in jnp otherwise;
+    the slots and rows are the same.)  A tree with no such leaf takes the
+    plain probe walk.  Returns ``(found [Q], rows)`` with ``rows``
+    leaves [Q, ...], missing keys zeroed."""
     leaves, treedef = flatten_sorted(table_vals)
-    if (len(leaves) == 1 and leaves[0].ndim == 2
-            and leaves[0].element_size() == 4):
-        _, found, rows = slate_lookup(table_keys, query, leaves[0],
-                                      impl=impl, capacity=capacity)
-        return found, unflatten_sorted(treedef, [rows])
+    wide = [i for i, v in enumerate(leaves)
+            if v.ndim == 2 and v.element_size() == 4]
+    if wide:
+        slot, found, rows = slate_lookup(table_keys, query, leaves[wide[0]],
+                                         impl=impl, capacity=capacity)
+        out = [rows if i == wide[0] else _ref.gather_rows(v, slot, found)
+               for i, v in enumerate(leaves)]
+        return found, unflatten_sorted(treedef, out)
     _resolve(impl, leaves[0])
     slot, found = lookup_slots(table_keys, query, capacity)
     return found, _ref.gather_rows(table_vals, slot, found)

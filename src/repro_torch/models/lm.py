@@ -1,0 +1,216 @@
+"""Model-level API: init / forward / prefill / decode (port of
+``repro.models.lm``).
+
+``Model`` is an ``nn.Module`` whose submodules mirror the JAX package's
+parameter tree leaf for leaf (``embed``, ``body.segments[i][j].<block
+params>`` stacked on a leading group axis, ``final_norm``, ``head`` when
+untied), so ``repro_torch.convert`` carries weights across by name.  The
+phase functions are plain functions over it with the JAX signatures
+minus ``params``.  The port serves only: parameters carry no gradients,
+and ``lm_loss`` / ``train_loss`` wait for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import init_utils as iu
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.context import Ctx
+from repro_torch.models.layers import norms
+from repro_torch.models.stack import (StackPlan, apply_stack, init_stack,
+                                      init_states)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as parameters (no gradients) and
+    submodules; ``tree()`` gives the dict back."""
+
+    def __init__(self, tree: Optional[dict] = None):
+        super().__init__()
+        for k, v in (tree or {}).items():
+            self.set(k, v)
+
+    def set(self, name: str, value) -> None:
+        if isinstance(value, torch.Tensor):
+            self.register_parameter(
+                name, nn.Parameter(value, requires_grad=False))
+        elif isinstance(value, dict):
+            self.add_module(name, ParamTree(value))
+        elif isinstance(value, (list, tuple)):
+            self.add_module(name, ParamList(value))
+        else:
+            raise TypeError(f"parameter {name!r}: {type(value)}")
+
+    def tree(self) -> dict:
+        out: Dict[str, Any] = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
+        return out
+
+
+class ParamList(nn.ModuleList):
+    """A list of parameter trees (the stack's segments and patterns)."""
+
+    def __init__(self, items):
+        super().__init__([ParamList(x) if isinstance(x, (list, tuple))
+                          else ParamTree(x) for x in items])
+
+    def tree(self) -> list:
+        return [m.tree() for m in self]
+
+
+class Model(ParamTree):
+    """The config, its stack plan(s), and the parameters (set by
+    :func:`init` or ``convert.lm_params_from_numpy``)."""
+
+    def __init__(self, cfg: ModelConfig, plan: StackPlan,
+                 enc_plan: Optional[StackPlan] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = plan
+        self.enc_plan = enc_plan
+
+    def load_tree(self, params: dict) -> "Model":
+        """Set every parameter from a JAX-shaped tree of tensors."""
+        for k, v in params.items():
+            self.set(k, v)
+        return self
+
+
+def build(cfg: ModelConfig) -> Model:
+    return Model(cfg, transformer.build_plan(cfg),
+                 transformer.build_encoder_plan(cfg))
+
+
+# --------------------------------------------------------------------------
+# params
+# --------------------------------------------------------------------------
+
+def init(model: Model, gen: torch.Generator) -> Tuple[Model, dict]:
+    """Random parameters drawn from ``gen``, on its device.  Returns
+    ``(model, specs)`` with ``specs`` the JAX package's logical partition
+    tree."""
+    cfg = model.cfg
+    embed, embed_spec = iu.dense(gen, (cfg.vocab_size, cfg.d_model),
+                                 ("tp", "fsdp"), scale=0.02)
+    body, body_specs = init_stack(gen, model.plan)
+    fn, fns = norms.init(gen, cfg.d_model,
+                         scale_offset=cfg.norm_scale_offset)
+    params = {"embed": embed, "body": body, "final_norm": fn}
+    specs = {"embed": embed_spec, "body": body_specs, "final_norm": fns}
+    if not cfg.tie_embeddings:
+        params["head"], specs["head"] = iu.dense(
+            gen, (cfg.d_model, cfg.vocab_size), ("fsdp", "tp"), scale=0.02)
+    return model.load_tree(params), specs
+
+
+def for_compute(model: Model, cdtype: torch.dtype) -> Model:
+    """The same model with every weight cast to ``cdtype`` once, norm
+    scales kept f32.  The JAX package casts weights to the compute dtype
+    at every use; casting once gives the same values, and the layers'
+    casts become no-ops."""
+    def cast(tree):
+        if isinstance(tree, list):
+            return [cast(x) for x in tree]
+        return {k: (cast(v) if not isinstance(v, torch.Tensor)
+                    else v if k == "scale" else v.to(cdtype))
+                for k, v in tree.items()}
+
+    out = Model(model.cfg, model.plan, model.enc_plan)
+    return out.load_tree(cast(model.tree()))
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+def _embed(model: Model, tokens, ctx: Ctx):
+    cfg = model.cfg
+    x = model.embed[tokens.to(torch.int64)].to(ctx.cdtype)
+    if cfg.embed_scale:
+        # the scale rounded to the compute dtype first, as in JAX
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=ctx.cdtype))
+    return x
+
+
+def _positions(bs, device):
+    b, s = bs
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(
+        b, s)
+
+
+def forward(model: Model, tokens, ctx: Ctx, states=None):
+    """tokens [B,S] -> (hidden [B,S,D], new_states, aux)."""
+    x = _embed(model, tokens, ctx)
+    x, new_states, aux = apply_stack(model.body.tree(), model.plan, x,
+                                     states, ctx)
+    x = norms.apply(model.final_norm.tree(), x, eps=model.cfg.norm_eps,
+                    scale_offset=model.cfg.norm_scale_offset)
+    return x, new_states, aux
+
+
+def _unembed_matrix(model: Model):
+    if model.cfg.tie_embeddings:
+        return model.embed.T  # [D, V]
+    return model.head
+
+
+def logits_for(model: Model, hidden, ctx: Ctx):
+    w = _unembed_matrix(model).to(ctx.cdtype)
+    return hidden.to(ctx.cdtype) @ w
+
+
+# --------------------------------------------------------------------------
+# phase entry points
+# --------------------------------------------------------------------------
+
+def prefill(model: Model, batch: Dict[str, Any], ctx: Ctx, cache_len: int,
+            *, full_logits: bool = False):
+    """batch["tokens"] [B,S] -> (logits [B,S or 1,V], states with caches
+    padded to ``cache_len``)."""
+    tokens = batch["tokens"]
+    if model.enc_plan is not None or model.cfg.cross_attn_every:
+        raise NotImplementedError("encoder memories and image embeddings "
+                                  "come with their families in slice 4 "
+                                  "(ROADMAP queue 1)")
+    ctx = ctx.replace(phase="prefill",
+                      positions=_positions(tokens.shape, tokens.device),
+                      cache_len=cache_len)
+    hidden, states, _ = forward(model, tokens, ctx)
+    sel = hidden if full_logits else hidden[:, -1:]
+    return logits_for(model, sel, ctx), states
+
+
+def decode_step(model: Model, token, states, cur_index, ctx: Ctx):
+    """token [B,1]; cur_index [B] (write position, below the cache
+    length).  Returns (logits [B,1,V], states) — the caches in ``states``
+    are updated in place and returned."""
+    ctx = ctx.replace(phase="decode", positions=cur_index[:, None],
+                      cur_index=cur_index,
+                      cache_len=_states_cache_len(states))
+    hidden, new_states, _ = forward(model, token, ctx, states)
+    return logits_for(model, hidden, ctx), new_states
+
+
+def _states_cache_len(states) -> int:
+    def leaves(t):
+        if isinstance(t, torch.Tensor):
+            yield t
+        elif isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                yield from leaves(v)
+
+    for lf in leaves(states):
+        if lf.ndim >= 3:
+            return int(lf.shape[2])
+    return 0
+
+
+def decode_states(model: Model, batch: int, cache_len: int, make_leaf):
+    return init_states(model.plan, batch, cache_len, make_leaf)

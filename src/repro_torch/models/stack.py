@@ -1,0 +1,148 @@
+"""Layer stacks (port of ``repro.models.stack``).
+
+A model body is a list of ``Segment``s; each segment repeats a
+``pattern`` of blocks over ``n_groups`` groups, with every parameter
+stacked on a leading group axis.  The JAX package scans the groups with
+``lax.scan``; the port loops over the group axis in Python (eager
+PyTorch has nothing to compile), indexing views of the stacked
+parameters.
+
+Decode threads the (large, mostly unchanged) per-layer caches the way
+the JAX package's scan carry does: each group's block gets a view of
+its slice of the stacked cache and writes the new token into it in
+place, so no cache is copied or re-emitted.  No remat: the port serves
+only, so nothing is kept for a backward pass.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from repro_torch.models.context import Ctx
+
+
+@dataclass(frozen=True)
+class BlockDef:
+    name: str
+    init: Callable    # gen -> (params, specs)
+    apply: Callable   # (params, x, state, ctx) -> (x, state, aux)
+    # (batch, cache_len) -> pytree of (shape, dtype, spec)
+    state_spec: Optional[Callable] = None
+    use_extra: bool = False   # params live in the shared dict
+
+
+@dataclass(frozen=True)
+class Segment:
+    pattern: Sequence[BlockDef]
+    n_groups: int
+
+
+@dataclass(frozen=True)
+class StackPlan:
+    segments: Sequence[Segment]
+    extra_blocks: Sequence[BlockDef] = field(default_factory=tuple)
+
+    @property
+    def n_layers(self) -> int:
+        return sum(len(s.pattern) * s.n_groups for s in self.segments)
+
+
+def _map(fn, *trees):
+    """Map over the leaves of nested dicts of tensors (one structure)."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _is_state_leaf(s) -> bool:
+    return isinstance(s, tuple) and len(s) == 3 and isinstance(s[0], tuple)
+
+
+def _map_spec(fn, spec):
+    if _is_state_leaf(spec):
+        return fn(spec)
+    return {k: _map_spec(fn, v) for k, v in spec.items()}
+
+
+def init_stack(gen: torch.Generator, plan: StackPlan):
+    """Returns (params, specs).  params['segments'][i][j] has leaves with a
+    leading n_groups axis; params['extra'][name] is unstacked.  Groups
+    draw in order from ``gen``."""
+    params = {"segments": [], "extra": {}}
+    specs = {"segments": [], "extra": {}}
+    for seg in plan.segments:
+        seg_params, seg_specs = [], []
+        for blk in seg.pattern:
+            if blk.use_extra:
+                raise NotImplementedError(
+                    "shared (extra) blocks are zamba2's; the hybrid "
+                    "family is ported in slice 4 (ROADMAP queue 1)")
+            groups = [blk.init(gen) for _ in range(seg.n_groups)]
+            sp = groups[0][1]
+            seg_params.append(_map(lambda *xs: torch.stack(xs),
+                                   *[g[0] for g in groups]))
+            seg_specs.append(_map(lambda s: (None,) + tuple(s), sp))
+        params["segments"].append(seg_params)
+        specs["segments"].append(seg_specs)
+    return params, specs
+
+
+def init_states(plan: StackPlan, batch: int, cache_len: int,
+                make_leaf: Callable):
+    """Build the decode-state pytree.  ``make_leaf(shape, dtype, spec)``
+    returns the leaf (e.g. zeros on a device)."""
+    out = []
+    for seg in plan.segments:
+        seg_states = []
+        for blk in seg.pattern:
+            if blk.state_spec is None:
+                seg_states.append(None)
+                continue
+            spec = blk.state_spec(batch, cache_len)
+            seg_states.append(_map_spec(
+                lambda s: make_leaf((seg.n_groups,) + tuple(s[0]), s[1],
+                                    (None,) + tuple(s[2])), spec))
+        out.append(tuple(seg_states))
+    return out
+
+
+def _group(tree, i: int):
+    """Group ``i`` of a stacked tree: views, no copies."""
+    return _map(lambda a: a[i], tree)
+
+
+def apply_stack(params, plan: StackPlan, x, states, ctx: Ctx):
+    """Returns (x, new_states, aux_sum).
+
+    Prefill returns each block's new states stacked on the group axis;
+    decode updates ``states`` in place (see the module docstring) and
+    returns it.  ``aux_sum`` adds the blocks' auxiliary losses; blocks
+    without one return a Python 0.0, which launches nothing."""
+    decode = states is not None and ctx.is_decode
+    extra = params["extra"]
+    aux_total = 0.0
+    new_states_all = []
+    for si, seg in enumerate(plan.segments):
+        seg_params = params["segments"][si]
+        seg_states = states[si] if states is not None else \
+            tuple(None for _ in seg.pattern)
+        per_block = [[] for _ in seg.pattern]
+        for i in range(seg.n_groups):
+            for j, blk in enumerate(seg.pattern):
+                pj = extra[blk.name] if blk.use_extra else \
+                    _group(seg_params[j], i)
+                sj = _group(seg_states[j], i) \
+                    if seg_states[j] is not None else None
+                x, st, a = blk.apply(pj, x, sj, ctx)
+                per_block[j].append(st)
+                aux_total = aux_total + a
+        if decode:
+            new_states_all.append(seg_states)
+        else:
+            new_states_all.append(tuple(
+                None if sts[0] is None
+                else _map(lambda *xs: torch.stack(xs), *sts)
+                for sts in per_block))
+    return x, new_states_all, aux_total

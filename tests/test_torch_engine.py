@@ -473,7 +473,7 @@ def test_device_defaults_to_cuda_and_slices_not_ported_raise():
             TEngine(wf)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TBatch.of([1, 2], {"x": np.ones(2, np.int32)})
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         TEngine(wf, TConfig(durability=object()), device="cpu")
     # telemetry is ported (slice 2): the engine builds its registry and
     # sketch state instead of raising
