@@ -20,13 +20,21 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    tokens, 14 query heads over 2 kv heads of 64, bf16, causal; decode:
    8 requests over a 512-row bf16 cache, ragged lengths) and cases for
    a window, q_offset, f32, Dh=128 and Dv != Dh (tolerance 2e-2 bf16,
-   5e-5 f32) — and times kernel and plain version on the same inputs by
-   device time from torch.profiler.  No single PyTorch call computes
-   ``slate_update`` or ``slate_lookup`` (a segmented combine fused with
-   a slot read-modify-write; a probe walk fused with a row gather), so
-   they have no library time; the two count updates are timed beside
-   ``torch.bincount``, the attention kernels beside
-   ``scaled_dot_product_attention``;
+   5e-5 f32); ``ssd_scan`` at the prefill shape of phase 8 (8 x 256
+   tokens in one chunk, 64 heads, N=P=64, bf16, q and k head-broadcast
+   views), across 8 chunks, on a ragged last chunk and in f32 (y within
+   2e-2 / 5e-5 of max|y| + 1, the state within 5e-4); ``rmsnorm`` at
+   2048 rows of D=2048 and 4096, 8 rows, scale_offset and f32 (bf16
+   within one ulp of each value, f32 within 5e-5); the two new kernels
+   also give the same bits on a second call — and times kernel and plain
+   version on the same inputs by device time from torch.profiler.  No
+   single PyTorch call computes ``slate_update``, ``slate_lookup`` or
+   the chunked SSD recurrence (a segmented combine fused with a slot
+   read-modify-write; a probe walk fused with a row gather; a scan over
+   chunks), so they have no library time; the two count updates are
+   timed beside ``torch.bincount``, the attention kernels beside
+   ``scaled_dot_product_attention``, ``rmsnorm`` beside
+   ``torch.nn.functional.rms_norm``;
 4. checks that a ``run_chunk`` tick never syncs the host (torch's sync
    debug mode set to "error"), on a small engine, with telemetry off
    and on;
@@ -62,15 +70,25 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    over ``lm.prefill`` / ``lm.decode_step`` on the same microbatches;
    one microbatch's teacher-forced prefill and decode logits with the
    kernels must lie within 0.125 of those with the plain versions (top-1
-   equal wherever the margin exceeds that); ``flash_attention`` must
-   launch 24 times and ``decode_attention`` 24 x 31 times a microbatch;
-   a reduced-config serving tick runs under torch's sync debug mode.  It
-   prints ms/tick, generated tokens/s and, from one profiled tick,
-   device busy time and the idle share.
+   equal wherever the margin exceeds that); a microbatch must launch
+   ``flash_attention`` 24 times, ``decode_attention`` 24 x 31 and
+   ``rmsnorm`` (24 x 2 + 1) x 32 times; a reduced-config serving tick
+   runs under torch's sync debug mode.  It prints ms/tick, generated
+   tokens/s and, from one profiled tick, device busy time, the idle share
+   and the top kernels.
+8. drives the same serving path on zamba2-1.2b at full width (38
+   Mamba-2 layers of d_model 2048 with 64 SSD heads of N=P=64, one
+   weight-shared attention block after every 6, vocab 32,000; random
+   weights): the same workflow, feed and checks, with a teacher-forced
+   tolerance of 0.25 (44 rounding layers against qwen2's 24) and a
+   microbatch launching ``ssd_scan`` 38 times, ``flash_attention`` 6,
+   ``decode_attention`` 6 x 31 and ``rmsnorm`` 89 x 32 (38 x 2 + 6 x 2 +
+   1 norms a forward).
 Each path's launch counters are set to 0 just before it and read just
 after.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (``launches`` sums
+the paths, ``launches_by_path`` splits it); the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero and prints no result.  Without a CUDA device, or outside
 a checkout, it exits non-zero at once.
@@ -586,6 +604,178 @@ def check_decode_attention(dev, seed):
             "library_ms": library_ms}
 
 
+def ssd_flops(S, chunk, N, P):
+    """FLOPs the chunked SSD recurrence needs for one (batch, head): the
+    causal half of QK^T and of the masked product with V, the carried
+    state's product (not needed in the first chunk, whose state is 0) and
+    the state update."""
+    total, L = 0, min(chunk, S)
+    for c, t0 in enumerate(range(0, S, L)):
+        n = min(L, S - t0)
+        total += 2 * (N + P) * n * (n + 1) // 2 + 2 * n * N * P
+        if c:
+            total += 2 * n * N * P
+    return total
+
+
+def check_ssd_scan(dev, seed):
+    """The prefill shapes of phase 8 (B=8 requests of S=256 in one chunk,
+    64 heads, N=P=64, bf16, q and k head-broadcast views of [B, S, N] as
+    Mamba-2 passes them), B=2 x S=2048 (8 chunks, which the serving shape
+    never carries across), S=200 with chunk 64 (a ragged last chunk) and
+    f32.  Tolerances are the JAX package's sweep's: y within 2e-2 (bf16)
+    / 5e-5 (f32) of max|y| + 1, the final state within 5e-4 of
+    max|state| + 1."""
+    import torch
+    from repro_torch.kernels.ssd import ref as sr
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, S, H, N, P, dt):
+        r = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+        q = r(B, S, 1, N).to(dt).expand(B, S, H, N)
+        k = (r(B, S, 1, N) * 0.3).to(dt).expand(B, S, H, N)
+        la = -torch.nn.functional.softplus(r(B, S, H))
+        return q, k, r(B, S, H, P).to(dt), la
+
+    def case(B, S, H, N, P, chunk, dt):
+        args = inputs(B, S, H, N, P, dt)
+        y, fin = sk.ssd_scan(*args, chunk=chunk)
+        wy, wfin = sr.ssd(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        ey = float((y.float() - wy.float()).abs().max())
+        ef = float((fin - wfin).abs().max())
+        ok = (y.dtype == dt and y.shape == wy.shape
+              and fin.shape == wfin.shape
+              and bool(torch.isfinite(y.float()).all())
+              and ey / (float(wy.float().abs().max()) + 1) < attn_tol(dt)
+              and ef / (float(wfin.abs().max()) + 1) < 5e-4)
+        if not ok:
+            raise AssertionError(f"ssd_scan B={B} S={S} H={H} N={N} P={P} "
+                                 f"chunk={chunk} {dt}: y max_abs_err {ey}, "
+                                 f"final state {ef}")
+        return args, (y, fin), ey, ef
+
+    B, S, H, N, P, L = 8, 256, 64, 64, 64, 256
+    args, (y, fin), err, ferr = case(B, S, H, N, P, L, bf16)
+    y2, fin2 = sk.ssd_scan(*args, chunk=L)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
+        raise AssertionError("ssd_scan: two calls gave different bits")
+    errs = {}
+    for shape in ((2, 2048, H, N, P, L, bf16), (2, 200, H, N, P, 64, bf16),
+                  (2, S, H, N, P, L, f32)):
+        _, _, e, fe = case(*shape)
+        errs[f"{shape[:6]} {str(shape[6])[6:]}"] = (e, fe)
+        if shape[6] == bf16:
+            err = max(err, e)
+    log(f"ssd_scan vs plain, serving shape B=8 S=256 H=64 N=P=64 bf16 "
+        f"(q, k head-broadcast): y max_abs_err {err}, final state "
+        f"{ferr} (tolerance 2e-2 / 5e-5 of max|y| + 1, 5e-4 of max|S| + "
+        f"1); two calls bitwise equal; other cases (y, state) {errs}")
+    ms = device_ms(lambda: sk.ssd_scan(*args, chunk=L))
+    plain_ms = device_ms(lambda: sr.ssd(*args, chunk=L))
+    # v and log_a read once, q and k once as the [B, S, N] tensors they
+    # view, y and the f32 final state written once
+    nbytes = (2 * B * S * N * 2 + B * S * H * P * 2 + B * S * H * 4
+              + B * S * H * P * 2 + B * H * N * P * 4)
+    flops = B * H * ssd_flops(S, L, N, P)
+    bound_ms, bound_by = attention_bound(nbytes, flops)
+    log(f"ssd_scan B=8 S=256 H=64 N=P=64 bf16: kernel {ms:.5f} ms, plain "
+        f"{plain_ms:.5f} ms (device time, torch.profiler, mean of 20); no "
+        f"single PyTorch call computes the chunked recurrence; bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes at 3.35 TB/s, "
+        f"{flops} FLOPs at 989 TFLOP/s)")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:89",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def rms_close(got, want):
+    """The kernel against its plain version: f32 within 5e-5; bf16 each
+    value within one bf16 ulp (2**-7 of its magnitude), since the two f32
+    sums and rsqrt differ in their last bits and may round an output to
+    its neighbour.  Returns the max abs difference."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    ok = got.dtype == want.dtype and got.shape == want.shape and bool(
+        torch.isfinite(got.float()).all())
+    if got.dtype == torch.bfloat16:
+        ok = ok and bool((err <= 2.0**-7 * want.float().abs()).all())
+    else:
+        ok = ok and float(err.max()) < 5e-5
+    if not ok:
+        raise AssertionError(f"rmsnorm {tuple(got.shape)} {got.dtype}: "
+                             f"max_abs_err {float(err.max())}")
+    return float(err.max())
+
+
+def check_rmsnorm(dev, seed):
+    """The norms of phases 7 and 8: 2048 rows (8 requests x 256 tokens) of
+    D=2048 bf16 (the block norms at prefill), of D=4096 (Mamba-2's gated
+    norm), 8 rows (a decode step), scale_offset, and f32; timed beside
+    ``torch.nn.functional.rms_norm``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rr
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    bf16, f32 = torch.bfloat16, torch.float32
+    eps = 1e-5
+
+    def inputs(rows, D, dt):
+        x = torch.randn(rows, D, generator=gen, device=dev).to(dt)
+        return x, 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+
+    x, w = inputs(2048, 2048, bf16)
+    got = rk.rmsnorm(x, w, eps=eps)
+    again = rk.rmsnorm(x, w, eps=eps)
+    err = rms_close(got, rr.rmsnorm(x, w, eps=eps))
+    if not torch.equal(got, again):
+        raise AssertionError("rmsnorm: two calls gave different bits")
+    errs = {}
+    for rows, D, dt, off in ((2048, 4096, bf16, False), (8, 2048, bf16, False),
+                             (2048, 2048, bf16, True),
+                             (2048, 2048, f32, False)):
+        xc, wc = inputs(rows, D, dt)
+        e = rms_close(rk.rmsnorm(xc, wc, eps=eps, scale_offset=off),
+                      rr.rmsnorm(xc, wc, eps=eps, scale_offset=off))
+        errs[f"{rows}x{D} {str(dt)[6:]} offset={off}"] = e
+        if dt == bf16:
+            err = max(err, e)
+    # F.rms_norm's fused kernel needs the weight in x's dtype (with an
+    # f32 weight it falls back to a composite of ops): the weight is
+    # rounded to bf16 once, outside the timing
+    wx = w.to(x.dtype)
+    lib = lambda: F.rms_norm(x, (x.shape[-1],), wx, eps)
+    lib_err = float((lib().float() - got.float()).abs().max())
+    log(f"rmsnorm vs plain, 2048 x 2048 bf16: max_abs_err {err} (f32 within "
+        f"5e-5, bf16 within one ulp of each value); two calls bitwise "
+        f"equal; other cases {errs}; F.rms_norm (bf16 weight) vs kernel "
+        f"max_abs_err {lib_err}")
+    ms = device_ms(lambda: rk.rmsnorm(x, w, eps=eps))
+    plain_ms = device_ms(lambda: rr.rmsnorm(x, w, eps=eps))
+    library_ms = device_ms(lib)
+    # x read once, w read once, the output written once; ~4 FLOPs an
+    # element (square, add, two products)
+    nbytes = 2 * x.numel() * 2 + w.numel() * 4
+    bound_ms, bound_by = attention_bound(nbytes, 4 * x.numel())
+    log(f"rmsnorm 2048 x 2048 bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f}"
+        f" ms, F.rms_norm (bf16 weight) {library_ms:.5f} ms (device time, "
+        f"torch.profiler, "
+        f"mean of 20); bound {bound_ms:.6f} ms by {bound_by} ({nbytes} "
+        f"bytes at 3.35 TB/s)")
+    return {"name": "rmsnorm", "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm.cu",
+            "replaces": "src/repro/kernels/rmsnorm/kernel.py:40",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------- workflow
 def build_workflow(capacity):
     import torch
@@ -1069,30 +1259,76 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms):
     return launches
 
 
-# ---------------------------------------------------------------- phase 7
-SERVE = {"arch": "qwen2-0.5b", "requests": 64, "per_tick": 16, "bucket": 8,
-         "prompt_len": 256, "min_prompt": 32, "max_new": 32,
-         "cache_len": 512, "ticks": 4}
+# ------------------------------------------------------- phases 7 and 8
+SERVE = {"requests": 64, "per_tick": 16, "bucket": 8, "prompt_len": 256,
+         "min_prompt": 32, "max_new": 32, "cache_len": 512, "ticks": 4}
+# per architecture: (attention blocks, Mamba-2 blocks) a forward runs, and
+# the tolerance of teacher-forced bf16 logits, kernels against plain
+# versions.  qwen2-0.5b: each of 24 layers' attention output may round
+# one bf16 ulp (2**-8 relative) apart between the kernel (f32 p) and the
+# plain version, and the residual stream carries it on: 0.125.  zamba2
+# at random init amplifies a difference from block to block instead of
+# carrying it (``per_block`` prints the growth of the kernel path's
+# distance from the plain path), so no bound derived per layer holds:
+# its tolerance (None) is the distance between the plain path's own bf16
+# and f32 logits, measured in the run, and the block-by-block check of
+# ``per_block`` is the sharp one.
+SERVE_ARCHS = {"qwen2-0.5b": (24, 0, 0.125), "zamba2-1.2b": (6, 38, None)}
+
+
+def serving_blocks(plan):
+    """(attention, Mamba-2) blocks a forward of ``plan`` runs."""
+    attn = mamba = 0
+    for seg in plan.segments:
+        for blk in seg.pattern:
+            if "mamba" in blk.name:
+                mamba += seg.n_groups
+            else:
+                attn += seg.n_groups
+    return attn, mamba
+
+
+def serving_launches(arch):
+    """Launches of each model kernel a microbatch: one prefill and
+    max_new - 1 decode forwards; every forward runs each norm once (two
+    a block and the final norm)."""
+    attn, mamba, _ = SERVE_ARCHS[arch]
+    steps = SERVE["max_new"] - 1
+    out = {"flash_attention": attn, "decode_attention": attn * steps,
+           "rmsnorm": (2 * (attn + mamba) + 1) * (steps + 1)}
+    if mamba:
+        out["ssd_scan"] = mamba
+    return out
 
 
 @contextmanager
-def plain_attention():
-    """Route the model's attention to the plain versions (the CUDA tensors'
-    dispatch otherwise takes the kernels), for the teacher-forced check."""
+def plain_versions():
+    """Route the model's kernels to their plain versions (the CUDA
+    tensors' dispatch otherwise takes the kernels), for the teacher-forced
+    check."""
     import functools
     from types import SimpleNamespace
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
-    from repro_torch.models.layers import attention as layer
-    saved = layer.attn_ops, layer.dec_ops
-    layer.attn_ops = SimpleNamespace(
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models.layers import attention, mamba2, norms
+    saved = (attention.attn_ops, attention.dec_ops, norms.rms_ops,
+             mamba2.ssd_ops)
+    attention.attn_ops = SimpleNamespace(
         mha=functools.partial(attn_ops.mha, impl="ref"))
-    layer.dec_ops = SimpleNamespace(
+    attention.dec_ops = SimpleNamespace(
         decode_attend=functools.partial(dec_ops.decode_attend, impl="ref"))
+    norms.rms_ops = SimpleNamespace(
+        rmsnorm=functools.partial(rms_ops.rmsnorm, impl="ref"))
+    mamba2.ssd_ops = SimpleNamespace(
+        ssd=functools.partial(ssd_ops.ssd, impl="ref"),
+        ssd_step=ssd_ops.ssd_step)
     try:
         yield
     finally:
-        layer.attn_ops, layer.dec_ops = saved
+        (attention.attn_ops, attention.dec_ops, norms.rms_ops,
+         mamba2.ssd_ops) = saved
 
 
 def serving_requests(seed, n, vocab, rid0=1):
@@ -1159,86 +1395,216 @@ def direct_greedy(mapper, reqs, dev):
     return out
 
 
-def teacher_forced(mapper, reqs, dev):
-    """One microbatch's full-width prefill logits and one decode step's
-    logits, kernels against plain versions.  Returns the max abs
-    difference over real positions and the top-1 agreement, and checks
-    the top-1 token wherever the plain run's top-2 margin exceeds the
-    tolerance."""
+def microbatch(reqs, dev):
+    """The first microbatch of ``reqs`` as the engine forms it: tokens
+    [bucket, S] (0-padded), lengths, the real positions, and each
+    request's first prompt token as a next token."""
     import numpy as np
     import torch
-    from repro_torch.models import lm
     S, bucket = SERVE["prompt_len"], SERVE["bucket"]
     toks = np.zeros((bucket, S), np.int32)
     lens = np.array([len(r.prompt) for r in reqs[:bucket]], np.int32)
     for j, r in enumerate(reqs[:bucket]):
         toks[j, :lens[j]] = r.prompt
-    toks = torch.from_numpy(toks).to(dev)
     lens_t = torch.from_numpy(lens).to(dev)
     real = (torch.arange(S, device=dev)[None, :] < lens_t[:, None])
     nxt = torch.from_numpy(np.array([[r.prompt[0]] for r in
                                      reqs[:bucket]], np.int32)).to(dev)
+    return torch.from_numpy(toks).to(dev), lens_t, real, nxt
 
-    def run():
-        lg, st = lm.prefill(mapper.model, {"tokens": toks}, mapper.ctx,
+
+def teacher_forced(mapper, reqs, dev, tol):
+    """One microbatch's full-width prefill logits and one decode step's
+    logits, kernels against plain versions.  Returns the max abs
+    difference over real positions and the top-1 agreement, and checks
+    the top-1 token wherever the plain run's top-2 margin exceeds the
+    tolerance.  ``tol=None`` takes the model's own bf16 sensitivity as
+    the tolerance: the largest distance between the plain versions' bf16
+    logits and the same plain path's at f32 compute (same bf16 weights),
+    which this run measures and returns."""
+    import torch
+    from repro_torch.models import lm
+    toks, lens_t, real, nxt = microbatch(reqs, dev)
+
+    def run(model, ctx):
+        lg, st = lm.prefill(model, {"tokens": toks}, ctx,
                             SERVE["cache_len"], full_logits=True)
-        dl, _ = lm.decode_step(mapper.model, nxt, st, lens_t, mapper.ctx)
+        dl, _ = lm.decode_step(model, nxt, st, lens_t, ctx)
         return lg[real].float(), dl[:, 0].float()
 
-    got = run()
-    with plain_attention():
-        want = run()
+    got = run(mapper.model, mapper.ctx)
+    with plain_versions():
+        want = run(mapper.model, mapper.ctx)
+        floor = None
+        if tol is None:
+            f32 = run(lm.for_compute(mapper.model, torch.float32),
+                      mapper.ctx.replace(cdtype=torch.float32))
+            floor = max(float((a - b).abs().max())
+                        for a, b in zip(want, f32))
+            tol = floor
     torch.cuda.synchronize()
-    res = {}
+    res = {"tolerance": tol, "bf16_vs_f32_plain": floor}
     for name, a, b in (("prefill", got[0], want[0]),
                        ("decode", got[1], want[1])):
         err = float((a - b).abs().max())
         top2 = torch.topk(b, 2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
         same = torch.argmax(a, -1) == torch.argmax(b, -1)
-        clear = margin > SERVE_LOGIT_TOL
-        if err > SERVE_LOGIT_TOL or not bool(same[clear].all()):
+        clear = margin > tol
+        if err > tol or not bool(same[clear].all()):
             raise AssertionError(
                 f"teacher-forced {name} logits: max_abs_err {err}, top-1 "
                 f"disagrees at {int((~same & clear).sum())} positions whose "
-                f"top-2 margin exceeds {SERVE_LOGIT_TOL}")
+                f"top-2 margin exceeds {tol}")
         res[name] = {"max_abs_err": err, "top1_agree": float(
-            same.float().mean()), "positions": int(b.shape[0]),
+            same.float().mean()), "clear_positions": int(clear.sum()),
+            "positions": int(b.shape[0]),
             "logit_absmax": float(b.abs().max())}
     return res
 
 
-# the bf16 tolerance of a logit after 24 layers: each layer's attention
-# output may round one bf16 ulp (2**-8 relative) apart between the kernel
-# (f32 p) and the plain version, and the residual stream carries it on
-SERVE_LOGIT_TOL = 0.125
+# a block's output, kernels against plain versions on the same input and
+# state: within four bf16 ulps of the output's largest magnitude (2**-5 of
+# it), the bf16 tolerance of tests/test_torch_models.py
+BLOCK_TOL = 2.0**-5
 
 
-def serving_path(dev, seed, card):
-    """LM serving on the MapUpdate engine at full width (qwen2-0.5b, random
+def per_block(mapper, reqs, dev):
+    """Teacher forcing block by block, for one microbatch: every block of
+    the stack, and the final norm and unembedding, gets the plain path's
+    input (and, in one decode step, the plain prefill's state), once with
+    the kernels and once with the plain versions; outputs and new states
+    must agree within ``BLOCK_TOL`` of their largest magnitude.  Errors do
+    not compound across blocks here, as they do end to end.  Returns the
+    largest error relative to that magnitude, at prefill and decode."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.layers import norms
+    model, ctx0, cfg = mapper.model, mapper.ctx, mapper.cfg
+    toks, lens_t, _, nxt = microbatch(reqs, dev)
+    body = model.body.tree()
+
+    def group(t, i):
+        return {k: group(v, i) for k, v in t.items()} if isinstance(
+            t, dict) else t[i]
+
+    def flat(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in flat(t[k])]
+        if isinstance(t, tuple):
+            return [x for v in t for x in flat(v)]
+        return [] if t is None else [t]
+
+    worst = {"prefill": 0.0, "decode": 0.0}
+
+    def check(where, phase, got, want):
+        for a, b in zip(flat(got), flat(want)):
+            a, b = a.float(), b.float()
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            if not rel <= BLOCK_TOL:
+                raise AssertionError(f"per-block teacher forcing, {phase}, "
+                                     f"{where}: kernels against plain "
+                                     f"versions {rel} of the largest value")
+            worst[phase] = max(worst[phase], rel)
+
+    blocks = [(f"segment {si} group {i} {blk.name}", blk,
+               body["extra"][blk.name] if blk.use_extra
+               else group(body["segments"][si][j], i))
+              for si, seg in enumerate(model.plan.segments)
+              for i in range(seg.n_groups)
+              for j, blk in enumerate(seg.pattern)]
+
+    def head(x, ctx):
+        x = norms.apply(model.final_norm.tree(), x, eps=cfg.norm_eps,
+                        scale_offset=cfg.norm_scale_offset)
+        return lm.logits_for(model, x, ctx)
+
+    ctx = ctx0.replace(phase="prefill", cache_len=SERVE["cache_len"],
+                       positions=lm._positions(toks.shape, dev))
+    x = xk = lm._embed(model, toks, ctx)
+    states, growth = [], []
+    for n, (name, blk, p) in enumerate(blocks):
+        got, gst, _ = blk.apply(p, x, None, ctx)
+        with plain_versions():
+            want, wst, _ = blk.apply(p, x, None, ctx)
+        check(name, "prefill", (got, gst), (want, wst))
+        states.append(wst)
+        x = want
+        # the kernel path on its own inputs: its distance from the plain
+        # path as the differences compound
+        xk = blk.apply(p, xk, None, ctx)[0]
+        if n in (0, 1, 2, 5) or (n + 1) % 7 == 0 or n == len(blocks) - 1:
+            growth.append((n + 1, float((xk.float() - x.float()).abs().max()),
+                           float(x.float().abs().max())))
+    with plain_versions():
+        want = head(x, ctx)
+    check("final norm and logits", "prefill", head(x, ctx), want)
+
+    ctx = ctx0.replace(phase="decode", positions=lens_t[:, None],
+                       cur_index=lens_t)
+    x = lm._embed(model, nxt, ctx)
+    copy = lambda t: {k: copy(v) for k, v in t.items()} if isinstance(
+        t, dict) else t.clone()
+    for (name, blk, p), st in zip(blocks, states):
+        gst, wst = copy(st), copy(st)
+        got, _, _ = blk.apply(p, x, gst, ctx)
+        with plain_versions():
+            want, _, _ = blk.apply(p, x, wst, ctx)
+        check(name, "decode", (got, gst), (want, wst))
+        x = want
+    with plain_versions():
+        want = head(x, ctx)
+    check("final norm and logits", "decode", head(x, ctx), want)
+    torch.cuda.synchronize()
+    return {"blocks": len(blocks), "max_rel_err": worst,
+            "tolerance": BLOCK_TOL,
+            "compounded (blocks, max abs diff, max abs)": growth}
+
+
+def serving_path(dev, seed, card, arch):
+    """LM serving on the MapUpdate engine at full width (``arch``, random
     weights from ``seed``): 64 requests, 16 a tick, 2 microbatches of 8,
-    prefill of 256 then 31 greedy decode steps each, slates read back."""
+    prefill of 256 then 31 greedy decode steps each, slates read back.
+    Returns the launches of the path's kernels in its run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.core.engine import stack_sources
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.slate_lookup import kernel as lk
     from repro_torch.kernels.slate_update import kernel as uk
+    from repro_torch.kernels.ssd_scan import kernel as sk
     from repro_torch.ml import request_source
     from repro_torch.models import lm
 
-    cfg = get_config(SERVE["arch"])
+    cfg = get_config(arch)
+    tol = SERVE_ARCHS[arch][2]
     t0 = time.perf_counter()
     model, _ = lm.init(lm.build(cfg), torch.Generator(device=dev).manual_seed(
         seed))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"serving: {cfg.name} at full width ({cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
-        f"{n_params} parameters initialised on the card in "
+    blocks = serving_blocks(model.plan)
+    if blocks != SERVE_ARCHS[arch][:2]:
+        raise AssertionError(f"{arch}: a forward runs {blocks} (attention, "
+                             f"Mamba-2) blocks, not {SERVE_ARCHS[arch][:2]}")
+    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+             f"{cfg.vocab_size}")
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        shape += (f"; Mamba-2 d_inner {s.expand * cfg.d_model}, "
+                  f"{s.expand * cfg.d_model // s.head_dim} SSD heads, N "
+                  f"{s.state_dim}, P {s.head_dim}, d_conv {s.d_conv}, chunk "
+                  f"{s.chunk}; one shared attention block every "
+                  f"{cfg.shared_attn_every} Mamba-2 layers")
+    log(f"serving: {cfg.name} at full width ({shape}); a forward runs "
+        f"{blocks[0]} attention and {blocks[1]} Mamba-2 blocks; {n_params} "
+        f"parameters initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     kw = dict(batch=SERVE["per_tick"], cache_len=SERVE["cache_len"],
               max_new=SERVE["max_new"], bucket=SERVE["bucket"],
@@ -1251,8 +1617,8 @@ def serving_path(dev, seed, card):
                             capacity=SERVE["per_tick"],
                             per_tick=SERVE["per_tick"], device=dev)
     state = eng.init_state()
-    kernels = (fk.flash_attention, dk.decode_attention, uk.slate_update,
-               lk.slate_lookup)
+    kernels = (fk.flash_attention, dk.decode_attention, rk.rmsnorm,
+               sk.ssd_scan, uk.slate_update, lk.slate_lookup)
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -1267,47 +1633,53 @@ def serving_path(dev, seed, card):
     t_drain = time.perf_counter() - t0
     rids = [r.rid for r in reqs]
     rows = eng.read_slates(state, "requests", rids)
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
     mb = mapper.microbatches
     ticks = SERVE["ticks"] + drained
     tick_s = (t_run + t_drain) / ticks
     n_tok = SERVE["requests"] * SERVE["max_new"]
-    log(f"serving end to end: {SERVE['requests']} requests x "
+    log(f"serving {arch} end to end: {SERVE['requests']} requests x "
         f"{SERVE['max_new']} tokens in {ticks} ticks ({SERVE['ticks']} fed "
         f"+ {drained} drain), {mb} microbatches of {SERVE['bucket']}: "
         f"{t_run + t_drain:.3f} s = {tick_s * 1e3:.3f} ms/tick, "
         f"{n_tok / (t_run + t_drain):.2f} generated tokens/s; {card}")
-    log(f"launches on the serving path {launches}; engine stats "
+    per_mb = serving_launches(arch)
+    log(f"launches on the {arch} serving path {launches} over {mb} "
+        f"microbatches (expected a microbatch: {per_mb}); engine stats "
         f"{eng.stats(state)['processed']}")
-    n_layers = cfg.n_layers
-    if (launches["flash_attention"] != n_layers * mb
-            or launches["decode_attention"]
-            != n_layers * (SERVE["max_new"] - 1) * mb
-            or launches["slate_update"] <= 0 or launches["slate_lookup"] <= 0
+    want = {k: n * mb for k, n in per_mb.items()}
+    if ({k: launches.get(k, 0) for k in want} != want
+            or launches.get("slate_update", 0) <= 0
+            or launches.get("slate_lookup", 0) <= 0
+            or set(launches) - set(want) - {"slate_update", "slate_lookup"}
             or mb != ticks * (SERVE["per_tick"] // SERVE["bucket"])):
         raise AssertionError(f"serving launches {launches} for {mb} "
-                             f"microbatches")
+                             f"microbatches, expected {want}")
     if any(r is None for r in rows):
         raise AssertionError("a request has no slate")
 
-    want = direct_greedy(mapper, reqs, dev)
+    direct = direct_greedy(mapper, reqs, dev)
     diff = [r.rid for r, row in zip(reqs, rows)
-            if not np.array_equal(row["tokens"].numpy(), want[r.rid])
+            if not np.array_equal(row["tokens"].numpy(), direct[r.rid])
             or int(row["n"]) != SERVE["max_new"]]
     if diff:
         raise AssertionError(f"requests {diff} differ from the direct greedy "
                              "loop")
-    toks = np.stack([want[r] for r in rids])
+    toks = np.stack([direct[r] for r in rids])
     log(f"all {len(rids)} request slates (read_slates) equal the direct "
         f"greedy loop's tokens bitwise; {len(np.unique(toks))} distinct "
         f"token ids generated")
-    tf = teacher_forced(mapper, reqs, dev)
-    log(f"teacher-forced, one microbatch, kernels vs plain versions "
-        f"(tolerance {SERVE_LOGIT_TOL}): {tf}")
+    tf = teacher_forced(mapper, reqs, dev, tol)
+    log(f"teacher-forced, one microbatch, kernels vs plain versions: {tf}")
+    pb = per_block(mapper, reqs, dev)
+    log(f"teacher-forced block by block, one microbatch, kernels vs plain "
+        f"versions on the same input and state: {pb}")
     profile_serving_tick(eng, state, cfg, dev, seed, tick_s)
+    del eng, mapper, state
+    torch.cuda.empty_cache()
 
     # a serving tick at the reduced config under sync debug mode
-    rcfg = reduced_config(SERVE["arch"])
+    rcfg = reduced_config(arch)
     rmodel, _ = lm.init(lm.build(rcfg), torch.Generator(
         device=dev).manual_seed(seed))
     reng, _ = serving_engine(rcfg, rmodel, dev, batch=4, cache_len=32,
@@ -1434,7 +1806,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
     libs = _build.build(["slate_update", "slate_lookup", "countmin",
-                         "flash_attention", "decode_attention"])
+                         "flash_attention", "decode_attention", "ssd_scan",
+                         "rmsnorm"])
     log(f"built {sorted(libs)} with {_build.nvcc_path()} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -1443,25 +1816,32 @@ def main(argv=None):
                check_countmin(dev, args.seed),
                check_histogram(dev, args.seed),
                check_flash_attention(dev, args.seed),
-               check_decode_attention(dev, args.seed)]
+               check_decode_attention(dev, args.seed),
+               check_ssd_scan(dev, args.seed),
+               check_rmsnorm(dev, args.seed)]
     torch.cuda.empty_cache()
     check_no_host_sync(dev, args.seed)
     torch.cuda.empty_cache()
-    # each path's launches: the slate kernels from the slice-1 path, the
-    # telemetry kernels from the telemetry path
-    slice1, ref, off_s = end_to_end(dev, args.ticks, args.seed, card)
+    # each path's launches, counted from 0 just before it runs
+    by_path = {}
+    by_path["main"], ref, off_s = end_to_end(dev, args.ticks, args.seed,
+                                             card)
     torch.cuda.empty_cache()
-    launches = {**telemetry_path(dev, args.ticks, args.seed, card, ref,
-                                 off_s), **slice1}
+    by_path["telemetry"] = telemetry_path(dev, args.ticks, args.seed, card,
+                                          ref, off_s)
     torch.cuda.empty_cache()
-    # the attention kernels' launches come from the serving path
-    serving = serving_path(dev, args.seed, card)
-    launches.update(flash_attention=serving["flash_attention"],
-                    decode_attention=serving["decode_attention"])
+    for arch in SERVE_ARCHS:
+        by_path[f"serving {arch}"] = serving_path(dev, args.seed, card, arch)
+        torch.cuda.empty_cache()
     for e in entries:
-        e["launches"] = launches[e["name"]]
-    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+        e["launches_by_path"] = {path: n[e["name"]] for path, n in
+                                 by_path.items() if n.get(e["name"])}
+        e["launches"] = sum(e["launches_by_path"].values())
+        if e["launches"] <= 0:
+            raise AssertionError(f"{e['name']} never ran on a path")
+    keys = ["name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ it and ``state_to_numpy`` strips it.
 
 For the model stack, ``lm_params_from_numpy`` / ``lm_params_to_numpy``
 carry the JAX parameter tree (layer leaves stacked ``[n_groups, ...]``)
-into an ``lm.Model`` and back, and ``lm_states_from_numpy`` /
-``lm_states_to_numpy`` the decode states (bf16 KV caches).  JAX's bf16
+into an ``lm.Model`` and back (zamba2's ``extra`` dict and the ``None``
+at its shared block's position included), and ``lm_states_from_numpy`` /
+``lm_states_to_numpy`` the decode states (bf16 KV caches, f32 Mamba-2
+conv and SSD states).  JAX's bf16
 reaches numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses: both directions go through a ``uint16`` view, so the trip is
 bitwise.
@@ -38,7 +40,9 @@ from repro_torch.slates.table import EMPTY, SlateTable
 
 def to_plain(tree) -> Any:
     """Dataclasses -> dicts of their fields, arrays and tensors -> numpy,
-    recursively (dicts, lists and tuples kept)."""
+    recursively (dicts, lists, tuples and ``None`` kept)."""
+    if tree is None:
+        return None
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return {f.name: to_plain(getattr(tree, f.name))
                 for f in dataclasses.fields(tree)}
@@ -69,7 +73,10 @@ def _t(a, device, sink=None) -> torch.Tensor:
 
 
 def _map_leaves(fn, tree):
-    """Map over the leaves of nested dicts, lists and tuples."""
+    """Map over the leaves of nested dicts, lists and tuples; ``None``
+    (a shared block's place in the stacked parameters) stays ``None``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -146,8 +153,9 @@ def lm_params_to_numpy(model):
 
 def lm_states_from_numpy(states, device=None):
     """JAX decode states (``lm.prefill`` / ``lm.decode_states``: a list
-    per segment of tuples per block of ``{"k", "v"}`` caches) -> the
-    port's, on ``device`` (default ``cuda``)."""
+    per segment of tuples per block of ``{"k", "v"}`` caches or Mamba-2
+    ``{"conv", "ssd"}`` states) -> the port's, on ``device`` (default
+    ``cuda``), each leaf in its own dtype."""
     dev = resolve_device(device)
     return _map_leaves(lambda a: _t(a, dev), states)
 

@@ -1,0 +1,101 @@
+"""CUDA wrapper for the chunked SSD scan (``csrc/ssd_scan.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan/kernel.py::
+ssd_scan``: the Mamba-2 / mLSTM linear recurrence ``S_t = exp(log_a_t)
+S_{t-1} + k_t^T v_t``, ``y_t = q_t S_t`` over ``q, k [B,S,H,N]``,
+``v [B,S,H,P]``, ``log_a [B,S,H]`` from a zero state, computed chunk by
+chunk; returns ``y [B,S,H,P]`` in v's dtype and the final f32 state
+``[B,H,N,P]``.
+
+What bounds it on the H100, and the design: see the source.  The
+wrapper checks device, dtype, shape and strides (the last dimension
+contiguous, the others any, so q and k may be head-broadcast views),
+allocates the outputs, launches on the current stream and counts
+launches in ``ssd_scan.launches``.  Like the TPU kernel it starts from
+a zero state only (``ssd_step`` carries the state in decode).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+_NAME = "ssd_scan"
+MAX_NP = 128        # state dims the kernel's shared memory holds
+MAX_CHUNK = 2048
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def supported(q, k, v) -> bool:
+    """The JAX package's shape rule (``repro/kernels/ssd_scan/kernel.py::
+    supported``: N and P multiples of 8), within the sizes this kernel
+    holds in shared memory."""
+    N, P = q.shape[-1], v.shape[-1]
+    return N % 8 == 0 and P % 8 == 0 and N <= MAX_NP and P <= MAX_NP
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library with its entry point's signature set (once)."""
+    lib = _build.load(_NAME)
+    fn = lib.ssd_scan_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_a: torch.Tensor, *, chunk: int = 256):
+    """q, k: [B,S,H,N]; v: [B,S,H,P] (one dtype, f32 or bf16); log_a:
+    [B,S,H] f32.  Returns (y [B,S,H,P] in v's dtype, final [B,H,N,P]
+    f32)."""
+    dev = q.device
+
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"ssd_scan kernel: {msg}")
+
+    for name, t in (("q", q), ("k", k), ("v", v), ("log_a", log_a)):
+        require(t.is_cuda and t.device == dev,
+                f"{name} must be on {dev} (a CUDA device)")
+    require(q.ndim == 4 and v.ndim == 4 and log_a.ndim == 3,
+            "q, k, v must be [B, S, H, D] and log_a [B, S, H]")
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    require(k.shape == q.shape and v.shape == (B, S, H, P)
+            and log_a.shape == (B, S, H),
+            f"k must be {tuple(q.shape)}, v [{B}, {S}, {H}, P], log_a "
+            f"[{B}, {S}, {H}]; got {tuple(k.shape)}, {tuple(v.shape)}, "
+            f"{tuple(log_a.shape)}")
+    require(q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
+            f"q, k, v must share float32 or bfloat16, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}")
+    require(log_a.dtype == torch.float32, "log_a must be float32")
+    require(all(t.stride(-1) == 1 for t in (q, k, v)),
+            "q, k, v need a contiguous last dimension")
+    require(0 < N <= MAX_NP and 0 < P <= MAX_NP,
+            f"N and P must be in [1, {MAX_NP}], got {N}, {P}")
+    require(0 < chunk <= MAX_CHUNK, f"chunk must be in [1, {MAX_CHUNK}]")
+    require(S > 0, "need S >= 1")
+    y = torch.empty((B, S, H, P), dtype=v.dtype, device=dev)
+    fin = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y, fin
+    flat = [s for t in (q, k, v, log_a, y) for s in t.stride()[:3]]
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.ssd_scan_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
+        y.data_ptr(), fin.data_ptr(), B, S, H, N, P, int(min(chunk, S)),
+        (ctypes.c_longlong * len(flat))(*flat), DTYPES[q.dtype], stream)
+    ssd_scan.launches += 1
+    _build.check(lib, _NAME, code)
+    return y, fin
+
+
+ssd_scan.launches = 0

@@ -11,9 +11,13 @@ The request slate merges by elementwise max (``monoid="max"``): exactly
 one event per request id ever reaches it and token ids are non-negative
 and < vocab < 2**24, so the fused ``slate_update`` path applies.
 
-Requests pad their prompt to a static ``prompt_len``; pad positions sit
-behind the causal mask at the last real position and past the decode
-frontier afterwards, so they never influence a generated token.
+Requests pad their prompt to a static ``prompt_len``.  In attention
+layers pad positions sit behind the causal mask at the last real
+position and past the decode frontier afterwards, so they never
+influence a generated token there.  A Mamba-2 layer's prefill runs every
+position, so a short prompt's pad tokens are folded into its conv and
+SSD state and do influence its tokens; the JAX package does the same
+(its docstring claims otherwise), and both are compared like with like.
 
 The JAX package's ``lax.map`` over microbatches and ``lax.scan`` over
 decode steps are Python loops here that never read the device from the

@@ -5,7 +5,7 @@ Carries the phase (train/prefill/decode), positions, the decode write
 index and the compute dtype.  The JAX package also carries a
 sharding-constraint hook and a mesh (the port runs on one card), and
 encoder / image memories, which come with the families that read them
-(ROADMAP queue 1, slice 4).
+(ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
 

@@ -27,8 +27,8 @@ from repro_torch.models.context import Ctx
 from repro_torch.models.layers import rope as rope_mod
 
 CROSS_TODO = ("cross-attention (whisper's decoder, llama-3.2-vision's "
-              "image layers) is ported with those families in slice 4 "
-              "(ROADMAP queue 1)")
+              "image layers) is ported with those families by ROADMAP "
+              "queue 1 item 12")
 
 
 def init(gen, cfg: ModelConfig, *, is_cross: bool = False):

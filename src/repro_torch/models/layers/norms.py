@@ -1,10 +1,11 @@
 """RMSNorm, optionally Gemma-style ``(1 + w)`` scaling (port of
 ``repro.models.layers.norms``): computed in f32, cast back to the
-input's dtype, as in the JAX package."""
+input's dtype, as in the JAX package.  ``apply`` runs through
+``kernels/rmsnorm`` (the ``rmsnorm`` kernel on the card, its plain
+version, which is the JAX package's math, on the CPU)."""
 from __future__ import annotations
 
-import torch
-
+from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models import init_utils as iu
 
 
@@ -16,10 +17,5 @@ def init(gen, d: int, *, scale_offset: bool = False):
 
 
 def apply(params, x, *, eps: float = 1e-6, scale_offset: bool = False):
-    dt = x.dtype
-    xf = x.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    xf = xf * torch.rsqrt(var + eps)
-    w = params["scale"].to(torch.float32)
-    w = (1.0 + w) if scale_offset else w
-    return (xf * w).to(dt)
+    return rms_ops.rmsnorm(x, params["scale"], eps=eps,
+                           scale_offset=scale_offset)

@@ -25,6 +25,11 @@ from repro_torch.models.stack import (StackPlan, apply_stack, init_stack,
                                       init_states)
 
 
+# parameters the JAX layers read in f32 whatever the compute dtype: the
+# norm scales, and Mamba-2's decay rate and time-step bias
+F32_PARAMS = frozenset({"scale", "a_log", "dt_bias"})
+
+
 class ParamTree(nn.Module):
     """A nested dict of tensors held as parameters (no gradients) and
     submodules; ``tree()`` gives the dict back."""
@@ -51,11 +56,20 @@ class ParamTree(nn.Module):
         return out
 
 
+class NoParams(nn.Module):
+    """The ``None`` a shared block leaves at its pattern position."""
+
+    def tree(self) -> None:
+        return None
+
+
 class ParamList(nn.ModuleList):
-    """A list of parameter trees (the stack's segments and patterns)."""
+    """A list of parameter trees (the stack's segments and patterns);
+    ``None`` entries are kept."""
 
     def __init__(self, items):
-        super().__init__([ParamList(x) if isinstance(x, (list, tuple))
+        super().__init__([NoParams() if x is None
+                          else ParamList(x) if isinstance(x, (list, tuple))
                           else ParamTree(x) for x in items])
 
     def tree(self) -> list:
@@ -108,15 +122,17 @@ def init(model: Model, gen: torch.Generator) -> Tuple[Model, dict]:
 
 
 def for_compute(model: Model, cdtype: torch.dtype) -> Model:
-    """The same model with every weight cast to ``cdtype`` once, norm
-    scales kept f32.  The JAX package casts weights to the compute dtype
-    at every use; casting once gives the same values, and the layers'
-    casts become no-ops."""
+    """The same model with every weight cast to ``cdtype`` once, those in
+    ``F32_PARAMS`` kept f32.  The JAX package casts weights to the
+    compute dtype at every use and reads those few in f32; casting once
+    gives the same values, and the layers' casts become no-ops."""
     def cast(tree):
+        if tree is None:
+            return None
         if isinstance(tree, list):
             return [cast(x) for x in tree]
         return {k: (cast(v) if not isinstance(v, torch.Tensor)
-                    else v if k == "scale" else v.to(cdtype))
+                    else v if k in F32_PARAMS else v.to(cdtype))
                 for k, v in tree.items()}
 
     out = Model(model.cfg, model.plan, model.enc_plan)
@@ -174,8 +190,8 @@ def prefill(model: Model, batch: Dict[str, Any], ctx: Ctx, cache_len: int,
     tokens = batch["tokens"]
     if model.enc_plan is not None or model.cfg.cross_attn_every:
         raise NotImplementedError("encoder memories and image embeddings "
-                                  "come with their families in slice 4 "
-                                  "(ROADMAP queue 1)")
+                                  "come with their families (ROADMAP queue "
+                                  "1 item 12)")
     ctx = ctx.replace(phase="prefill",
                       positions=_positions(tokens.shape, tokens.device),
                       cache_len=cache_len)

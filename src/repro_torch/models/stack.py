@@ -7,11 +7,21 @@ stacked on a leading group axis.  The JAX package scans the groups with
 PyTorch has nothing to compile), indexing views of the stacked
 parameters.
 
-Decode threads the (large, mostly unchanged) per-layer caches the way
-the JAX package's scan carry does: each group's block gets a view of
-its slice of the stacked cache and writes the new token into it in
-place, so no cache is copied or re-emitted.  No remat: the port serves
-only, so nothing is kept for a backward pass.
+Blocks with ``use_extra=True`` read their parameters from the shared
+(unstacked) ``params["extra"][name]`` — zamba2's shared attention
+block — and hold ``None`` at their pattern position of the stacked
+parameters, as in the JAX package; their *state* (KV caches) stays per
+group.
+
+The decode contract.  Decode threads the (large, mostly unchanged)
+per-layer states the way the JAX package's scan carry does, but in
+place: each group's block gets views of its slice of the stacked state
+and must write its new state into those views (``attention._write_cache``
+writes the new token's k/v; ``mamba2.apply`` ``copy_``s its conv window
+and SSD state), so no state is copied or re-emitted.  ``apply_stack``
+returns the caller's stacked states, which then hold the new values; a
+block that returned new tensors instead would never advance its state.
+No remat: the port serves only, so nothing is kept for a backward pass.
 """
 from __future__ import annotations
 
@@ -68,7 +78,8 @@ def _map_spec(fn, spec):
 
 def init_stack(gen: torch.Generator, plan: StackPlan):
     """Returns (params, specs).  params['segments'][i][j] has leaves with a
-    leading n_groups axis; params['extra'][name] is unstacked.  Groups
+    leading n_groups axis (``None`` at a shared block's position);
+    params['extra'][name] is unstacked.  Groups, then the extra blocks,
     draw in order from ``gen``."""
     params = {"segments": [], "extra": {}}
     specs = {"segments": [], "extra": {}}
@@ -76,9 +87,9 @@ def init_stack(gen: torch.Generator, plan: StackPlan):
         seg_params, seg_specs = [], []
         for blk in seg.pattern:
             if blk.use_extra:
-                raise NotImplementedError(
-                    "shared (extra) blocks are zamba2's; the hybrid "
-                    "family is ported in slice 4 (ROADMAP queue 1)")
+                seg_params.append(None)
+                seg_specs.append(None)
+                continue
             groups = [blk.init(gen) for _ in range(seg.n_groups)]
             sp = groups[0][1]
             seg_params.append(_map(lambda *xs: torch.stack(xs),
@@ -86,6 +97,8 @@ def init_stack(gen: torch.Generator, plan: StackPlan):
             seg_specs.append(_map(lambda s: (None,) + tuple(s), sp))
         params["segments"].append(seg_params)
         specs["segments"].append(seg_specs)
+    for blk in plan.extra_blocks:
+        params["extra"][blk.name], specs["extra"][blk.name] = blk.init(gen)
     return params, specs
 
 
@@ -117,8 +130,8 @@ def apply_stack(params, plan: StackPlan, x, states, ctx: Ctx):
     """Returns (x, new_states, aux_sum).
 
     Prefill returns each block's new states stacked on the group axis;
-    decode updates ``states`` in place (see the module docstring) and
-    returns it.  ``aux_sum`` adds the blocks' auxiliary losses; blocks
+    decode has the blocks update ``states`` in place (the decode
+    contract, in the module docstring) and returns it.  ``aux_sum`` adds the blocks' auxiliary losses; blocks
     without one return a Python 0.0, which launches nothing."""
     decode = states is not None and ctx.is_decode
     extra = params["extra"]

@@ -13,8 +13,13 @@ of that request then follows its own prefix), and counts such steps.  On
 the first case's seed one request of six flips at its first step, where
 JAX's margin is 2**-9 (one bf16 ulp); every other token is equal.
 
+The same holds for the reduced zamba2 (Mamba-2 blocks and a shared
+attention block).  As in the JAX package, a Mamba-2 prefill runs every
+position of the padded prompt, so a short prompt's pad tokens enter its
+SSD and conv state; both packages do so alike.
+
 The f32 teacher-forced logits are held within tolerance in
-``tests/test_torch_models.py``."""
+``tests/test_torch_models.py`` and ``tests/test_torch_mamba.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -25,6 +30,7 @@ import numpy as np
 
 from repro import RuntimeConfig
 from repro.configs import get_config as j_get_config
+from repro.configs import reduced_config as j_reduced_config
 from repro.launch.serve import Request
 from repro.ml.serve_app import LMServeMapper as JServeMapper
 from repro.ml.serve_app import build_serve_app
@@ -32,7 +38,7 @@ from repro.ml.serve_app import request_source as j_request_source
 from repro.models import lm as jlm
 from repro.models.context import Ctx as JCtx
 from repro_torch import convert
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.engine import Engine, EngineConfig
 from repro_torch.core.event import EventBatch, spec_matches
 from repro_torch.core.workflow import Workflow
@@ -101,12 +107,46 @@ def _j_top2_margins(jcfg, params, req):
     return margins
 
 
+@pytest.fixture(scope="module")
+def zamba2_weights():
+    """The reduced zamba2 (8 layers: Mamba-2 blocks with one weight-shared
+    attention block every 3, a tail of 2), with the parameters init sets
+    to 0 or 1 given random values."""
+    jcfg = j_reduced_config("zamba2-1.2b")
+    params = jax.jit(lambda k: jlm.init(jlm.build(jcfg), k)[0])(
+        jax.random.PRNGKey(5))
+    params = jax.tree.map(np.array, params)
+    rng = np.random.default_rng(6)
+    for seg in params["body"]["segments"]:
+        for blk in seg:
+            if blk is not None:
+                mix = blk["mix"]
+                for k in ("a_log", "dt_bias", "conv_b"):
+                    mix[k] = rng.uniform(-1, 1, mix[k].shape).astype(
+                        np.float32)
+    tcfg = reduced_config("zamba2-1.2b")
+    return jcfg, tcfg, params, convert.lm_params_from_numpy(params, tcfg,
+                                                            device="cpu")
+
+
 @pytest.mark.parametrize("n_req,per_tick,batch,bucket", [
     (6, 2, 4, 2),       # the JAX package's serving test shape
     (9, 3, 4, 4),       # odd requests a tick: a padded microbatch
 ])
 def test_serve_app_tokens_equal_jax(weights, n_req, per_tick, batch,
                                     bucket):
+    _serve_both(weights, n_req, per_tick, batch, bucket)
+
+
+def test_serve_app_tokens_equal_jax_zamba2(zamba2_weights):
+    """The hybrid family served on the engine: Mamba-2 prefill and decode
+    with the shared attention block's caches, 8 requests, 4 a tick."""
+    _serve_both(zamba2_weights, 8, 4, 4, 2)
+
+
+def _serve_both(weights, n_req, per_tick, batch, bucket):
+    """Serve ``n_req`` requests through the JAX ``build_serve_app`` and the
+    port's engine; every slate equal, but for JAX near-ties."""
     jcfg, tcfg, params, model = weights
     reqs = _requests(n_req, seed=n_req)
     n_ticks = -(-n_req // per_tick)
@@ -211,3 +251,20 @@ def test_bind_out_streams_equal_jax(weights):
                          "n": ((), np.int32)})
     with pytest.raises(ValueError):
         t.bind({"prompt": ((2, 4), torch.int32), "len": ((), torch.int32)})
+
+
+def test_zamba2_cache_len_checked_up_front(zamba2_weights):
+    """The mapper runs a hybrid model unchanged, its up-front check
+    included: the shared attention block's caches must hold the prompt
+    and every decode step (the Mamba-2 states are O(1) in length)."""
+    _, tcfg, _, model = zamba2_weights
+    mapper = LMServeMapper(tcfg, model, max_new=MAX_NEW,
+                           cache_len=PROMPT_LEN + MAX_NEW - 2, bucket=2)
+    toks = torch.ones((2, PROMPT_LEN), dtype=torch.int32)
+    with pytest.raises(ValueError, match="exceeds cache_len"):
+        mapper.generate(toks, torch.full((2,), PROMPT_LEN,
+                                         dtype=torch.int32))
+    ok = LMServeMapper(tcfg, model, max_new=MAX_NEW,
+                       cache_len=PROMPT_LEN + MAX_NEW - 1, bucket=2)
+    out = ok.generate(toks, torch.full((2,), PROMPT_LEN, dtype=torch.int32))
+    assert out.shape == (2, MAX_NEW) and out.dtype == torch.int32
