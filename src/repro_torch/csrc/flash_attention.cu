@@ -21,16 +21,38 @@
 // What bounds it on the H100: at the serving shapes (S = 256, Dh = 64) the
 // bytes are ~7 MB (q, k, v read once, o written once: ~2 us at 3.35 TB/s)
 // and the products ~1 GFLOP causal (~1 us on the bf16 tensor cores), so a
-// kernel near its bound would be memory-bound.  This first design keeps the
-// arithmetic on the f32 CUDA cores and shared memory instead of the tensor
-// cores: one block per (b, h, 64-row query tile), 8 warps of 8 query rows
-// each.  The block stages its query tile (pre-scaled) and one 64-key K/V
-// tile at a time in shared memory as f32; a lane computes the scores of two
-// keys for its warp's 8 rows, a warp reduces the row max and sum with
-// shuffles, and each lane accumulates Dv/32 value columns of its warp's rows
-// in registers.  K rows are padded to an odd stride so the lanes' reads of
-// 32 different keys fall in 32 banks.  Loads are 16 bytes a thread where the
-// strides allow it.  wgmma, TMA and a pipelined tile ring are later work.
+// kernel near its bound is memory- and latency-bound.  Two routes, chosen
+// by the wrapper before the launch:
+//
+// * wgmma (bf16; Dh and Dv multiples of 16; 16-byte aligned base and
+//   strides).  One warpgroup (128 threads) owns a 64-row query tile.  Q is
+//   staged once and 64-key K/V tiles stream through a two-stage ring, all
+//   bf16 in shared memory, by 16-byte cp.async copies (commit/wait groups):
+//   the next tile's copy overlaps this tile's work.  Tiles are stored as
+//   blocks of 64 columns in the 128-byte swizzle of the wgmma descriptors
+//   (a row's 128 bytes in one shared-memory row, its 16-byte chunks
+//   permuted by the row index), Q and K K-major, V MN-major (Dv contiguous,
+//   the transpose bit); eight neighbouring threads copy one row, so the
+//   reads are coalesced and the writes conflict-free.  S = Q K^T is Dh/16
+//   `wgmma m64n64k16` from shared memory into f32 registers; it is scaled
+//   in f32 after the product (in log2 units, so each p is one exp2), and
+//   the masks (only on tiles some row does not see whole) and the online
+//   softmax run on the accumulator fragment (a row's values sit in a quad
+//   of lanes: two-step shuffles).  P is rounded to bf16 in registers, where
+//   the accumulator layout of one product is the register-A layout of the
+//   next, and O += P V runs as `wgmma` with A from registers.  The row sums
+//   use the f32 p, in a fixed order.
+// * simt (f32, Dh or Dv not a multiple of 16, unaligned views).  The f32
+//   CUDA cores from shared memory: one block per (b, h, 64-row query tile),
+//   8 warps of 8 query rows each; the query tile (pre-scaled) and one
+//   64-key K/V tile at a time staged as f32; a lane scores two keys for its
+//   warp's rows, a warp reduces the row max and sum with shuffles, and each
+//   lane accumulates Dv/32 value columns in registers.  K rows are padded to
+//   an odd stride so the lanes' reads of 32 keys fall in 32 banks.  f32
+//   stays here because the tensor cores would round it to TF32.
+//
+// Both routes sum in a fixed order with no atomics: two calls give the same
+// bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,13 +60,419 @@
 
 namespace {
 
-constexpr int kRows = 64;                  // query rows per block
-constexpr int kKeys = 64;                  // keys per K/V tile
+constexpr int kRows = 64;   // query rows per block
+constexpr int kKeys = 64;   // keys per K/V tile
+constexpr int kMaxD = 256;
+constexpr float kNegInf = -1e30f;
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int B, Sq, Skv, H, Hkv, Dh, Dv;
+  long long qs[3], ks[3], vs[3], os[3];  // element strides of b, s, head
+  int causal, window, q_offset, vec;
+  float scale;
+};
+
+// The key tiles [t_lo, t_hi) that some query row of [q0, q0 + kRows) needs.
+__device__ __forceinline__ void tile_range(const Args& a, int q0, int* t_lo,
+                                           int* t_hi) {
+  const int last = (q0 + kRows < a.Sq ? q0 + kRows : a.Sq) - 1;
+  const int pos_lo = q0 + a.q_offset, pos_hi = last + a.q_offset;
+  int hi = (a.Skv + kKeys - 1) / kKeys;
+  if (a.causal) {
+    const int c = pos_hi < 0 ? 0 : pos_hi / kKeys + 1;
+    hi = c < hi ? c : hi;
+  }
+  int lo = 0;
+  if (a.window) {
+    const int first = pos_lo - a.window + 1;  // the first row's first key
+    lo = first > 0 ? first / kKeys : 0;
+  }
+  *t_lo = lo;
+  *t_hi = hi;
+}
+
+__device__ __forceinline__ bool key_visible(const Args& a, int key, int pos) {
+  return key < a.Skv && (!a.causal || key <= pos) &&
+         (!a.window || key > pos - a.window);
+}
+
+// ------------------------------------------------------------ wgmma route
+namespace wg {
+
+constexpr int kThreads = 128;  // one warpgroup
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor for the 128-byte swizzle: start address
+// (16-byte units), leading byte offset 16 (unused: no product here spans
+// two 64-element atoms along its contiguous dimension), stride byte offset
+// 1024 (the next group of 8 rows of 128 bytes), layout type 1 (B128).  An
+// atom (8 rows of 128 bytes, the 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8)) starts on a 1024-byte boundary.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator accesses across the products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define F8(a, i) F4(a, i), F4(a, i + 4)
+#define F16(a, i) F8(a, i), F8(a, i + 8)
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, K-major
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x N] += A[64 x 16] (registers, bf16 pairs) B[16 x N] (shared
+// memory, MN-major: the transpose bit)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : F16(d, 0), F16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : F16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void mma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef F16
+#undef F8
+#undef F4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// Copy rows [row0, row0 + 64) x columns [0, 64 nb) of one head of a
+// [B, S, heads, D] bf16 tensor into nb blocks of [64 rows][64 columns] in
+// the 128-byte swizzle: the 16-byte chunk c of row r in block cb goes to
+// byte cb * 8192 + r * 128 + (c ^ (r % 8)) * 16.  Eight neighbouring
+// threads read one row's 128 bytes and fill one 128-byte row of shared
+// memory.  Rows at or past `rows` and columns at or past D are zero-filled.
+__device__ __forceinline__ void stage(uint32_t dst, const __nv_bfloat16* src,
+                                      long long s_row, int row0, int rows,
+                                      int nb, int D) {
+  for (int i = threadIdx.x; i < nb * 512; i += kThreads) {
+    const int c = i & 7, r = (i >> 3) & 63, cb = i >> 9;
+    const int col = cb * 64 + c * 8;
+    const bool ok = row0 + r < rows && col < D;
+    cp_async16(dst + cb * 8192 + r * 128 + ((c ^ (r & 7)) << 4),
+               ok ? src + (long long)(row0 + r) * s_row + col : src, ok);
+  }
+}
+
+// op over v[0..16), as a balanced tree (short dependency chains; a fixed
+// order, so the same bits every call)
+struct Max {
+  __device__ float operator()(float x, float y) const { return fmaxf(x, y); }
+};
+struct Sum {
+  __device__ float operator()(float x, float y) const { return x + y; }
+};
+template <typename Op>
+__device__ __forceinline__ float tree16(const float (&v)[16], Op op) {
+  float a[8], b[4];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) a[x] = op(v[x], v[x + 8]);
+#pragma unroll
+  for (int x = 0; x < 4; ++x) b[x] = op(a[x], a[x + 4]);
+  return op(op(b[0], b[2]), op(b[1], b[3]));
+}
+
+// Shared memory of the wgmma route: Q [64][Dh], and two stages of K [64][Dh]
+// and V [64][DVP], each as blocks of 64 columns (8 KB, zero-padded), plus
+// room to align the first block to 1024 bytes.
+__host__ __device__ inline int smem_bytes(int Dh, int DVP) {
+  const int kb = (Dh + 63) / 64, vb = (DVP + 63) / 64;
+  return 8192 * (3 * kb + 2 * vb) + 1024;
+}
+
+// DVP: Dv rounded up to 16, 32, 64, 128 or 256; O is DVP / NW products of
+// width NW = min(DVP, 64), one for each 64-column block of V.
+template <int DVP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_wgmma(Args a) {
+  constexpr int NW = DVP < 64 ? DVP : 64;
+  constexpr int NCH = DVP / NW;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int Dh = a.Dh, kb = (Dh + 63) / 64, vb = NCH;
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t k_stage = 8192 * kb, v_stage = 8192 * vb;
+  const uint32_t k_s = q_s + k_stage;            // [2][kb][64][64]
+  const uint32_t v_s = k_s + 2 * k_stage;        // [2][vb][64][64]
+
+  const int q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = h / (a.H / a.Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const __nv_bfloat16* qp =
+      static_cast<const __nv_bfloat16*>(a.q) + b * a.qs[0] + h * a.qs[2];
+  const __nv_bfloat16* kp =
+      static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + g * a.ks[2];
+  const __nv_bfloat16* vp =
+      static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + g * a.vs[2];
+
+  int t_lo, t_hi;
+  tile_range(a, q0, &t_lo, &t_hi);
+
+  stage(q_s, qp, a.qs[1], q0, a.Sq, kb, Dh);
+  if (t_lo < t_hi) {
+    stage(k_s, kp, a.ks[1], t_lo * kKeys, a.Skv, kb, Dh);
+    stage(v_s, vp, a.vs[1], t_lo * kKeys, a.Skv, vb, a.Dv);
+  }
+  cp_async_commit();
+
+  // the thread's two rows in the tile (r and r + 8) and first column
+  const int row_a = warp * 16 + (lane >> 2);
+  const int col0 = (lane & 3) * 2;
+  const int pos_a = q0 + row_a + a.q_offset;
+  // the tile's first and last rows' positions, and scale * log2 e
+  const int pos_lo = q0 + a.q_offset, pos_last = pos_lo + kRows - 1;
+  const float c2 = a.scale * 1.4426950408889634f;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[NCH][NW / 2];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int x = 0; x < NW / 2; ++x) o[c][x] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int st = (t - t_lo) & 1;
+    if (t + 1 < t_hi) {  // the next tile's copies overlap this tile's work
+      stage(k_s + (st ^ 1) * k_stage, kp, a.ks[1], (t + 1) * kKeys, a.Skv,
+            kb, Dh);
+      stage(v_s + (st ^ 1) * v_stage, vp, a.vs[1], (t + 1) * kKeys, a.Skv,
+            vb, a.Dv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // this thread's copies, visible to the tensor cores' (async) proxy,
+    // then everyone's
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S = Q K^T: k-step kk reads 32 bytes at (kk % 4) * 32 in the rows of
+    // column block kk / 4 (Q and K are K-major)
+    float s[32] = {};
+    const uint32_t kt = k_s + st * k_stage;
+    fence_regs(s);
+    wg_fence();
+    for (int kk = 0; kk < Dh / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * 8192 + (kk & 3) * 32;
+      mma_ss_n64(s, desc_b128(q_s + off), desc_b128(kt + off), kk > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+
+    // masks and the online softmax on the fragment: s[n * 4 + i * 2 + j]
+    // is row row_a + 8 i, key k0 + 8 n + col0 + j.  Scores are kept in
+    // log2 units (scale * log2 e folded into one multiply) so that each p
+    // is one exp2.  A tile that every row of the block sees whole skips
+    // the masks.
+    const int k0 = t * kKeys;
+    const bool whole =
+        k0 + kKeys <= a.Skv && (!a.causal || k0 + kKeys - 1 <= pos_lo) &&
+        (!a.window || k0 > pos_last - a.window);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int pos = pos_a + 8 * i;
+      // the row's visible keys are [kmin, kmax]
+      const int kmax = a.causal && pos < a.Skv - 1 ? pos : a.Skv - 1;
+      const int kmin = a.window ? pos - a.window + 1 : 0;
+      // the row's 16 values here: v[2 n + j] = s[n * 4 + i * 2 + j]
+      float v[16];
+      uint32_t vis = 0xffffu;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          v[2 * n + j] = s[n * 4 + i * 2 + j];
+          if (!whole) {
+            const int key = k0 + 8 * n + col0 + j;
+            if (key < kmin || key > kmax) {
+              vis &= ~(1u << (n * 2 + j));
+              v[2 * n + j] = kNegInf;
+            }
+          }
+        }
+      float mx = tree16(v, Max());
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * c2);
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const float p = exp2f(fmaf(v[x], c2, -m_new));
+        v[x] = (vis >> x) & 1u ? p : 0.f;
+        s[(x >> 1) * 4 + i * 2 + (x & 1)] = v[x];
+      }
+      float ps = tree16(v, Sum());
+      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+      const float corr = exp2f(m[i] - m_new);
+      l[i] = l[i] * corr + ps;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int n = 0; n < NW / 8; ++n) {
+          o[c][n * 4 + i * 2] *= corr;
+          o[c][n * 4 + i * 2 + 1] *= corr;
+        }
+    }
+
+    // P (bf16) as the A operand: keys 16 kk .. 16 kk + 15 are the fragment
+    // columns n = 2 kk (a[0], a[1]) and n = 2 kk + 1 (a[2], a[3])
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+
+    // O += P V: V is MN-major; k-step kk reads keys 16 kk .. 16 kk + 15
+    // (two groups of 8 rows, 2048 bytes on), product c column block c
+    const uint32_t vt = v_s + st * v_stage;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) fence_regs(o[c]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        mma_rs(o[c], pa[kk], desc_b128(vt + c * 8192 + kk * 2048));
+    wg_commit();
+    wg_wait0();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) fence_regs(o[c]);
+    __syncthreads();  // this stage is free for the copy two tiles on
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* op =
+      static_cast<__nv_bfloat16*>(a.o) + b * a.os[0] + h * a.os[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row_a + 8 * i;
+    if (row >= a.Sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = op + (long long)row * a.os[1];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int n = 0; n < NW / 8; ++n) {
+        const int col = c * NW + n * 8 + col0;
+        if (col < a.Dv)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o[c][n * 4 + i * 2] * inv,
+                                    o[c][n * 4 + i * 2 + 1] * inv);
+      }
+  }
+}
+
+template <int DVP>
+int launch(const Args& a, cudaStream_t s) {
+  // raise the dynamic shared-memory ceiling once per instance
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_wgmma<DVP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(kMaxD, DVP));
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((unsigned)((a.Sq + kRows - 1) / kRows), (unsigned)a.H,
+                  (unsigned)a.B);
+  flash_attention_wgmma<DVP>
+      <<<grid, kThreads, smem_bytes(a.Dh, DVP), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch_dv(const Args& a, cudaStream_t s) {
+  if (a.Dv <= 16) return launch<16>(a, s);
+  if (a.Dv <= 32) return launch<32>(a, s);
+  if (a.Dv <= 64) return launch<64>(a, s);
+  if (a.Dv <= 128) return launch<128>(a, s);
+  return launch<256>(a, s);
+}
+
+}  // namespace wg
+
+// ------------------------------------------------------------- simt route
+namespace simt {
+
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kRows / kWarps;
-constexpr int kMaxD = 256;
-constexpr float kNegInf = -1e30f;
 // Q [64][Dh] + K [64][Dh | 1] + V [64][Dv], f32, at Dh = Dv = 256
 constexpr int kMaxSmemBytes =
     4 * (kRows * kMaxD + kKeys * (kMaxD + 1) + kKeys * kMaxD);
@@ -57,17 +485,6 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int B, Sq, Skv, H, Hkv, Dh, Dv;
-  long long qs[3], ks[3], vs[3], os[3];  // element strides of b, s, head
-  int causal, window, q_offset, vec;
-  float scale;
-};
 
 // Stage rows [row0, row0 + n) of one head of a [B, S, heads, D] tensor as f32
 // into dst[n][ld], times mul; rows at or past `rows` read as 0.  With `vec`
@@ -106,7 +523,7 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
 // NC = value columns per lane (Dv <= 32 * NC)
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(Args a) {
+flash_attention_simt(Args a) {
   extern __shared__ float smem[];
   const int ks_ld = a.Dh | 1;  // odd stride: conflict-free key reads
   float* Qs = smem;
@@ -134,13 +551,11 @@ flash_attention_kernel(Args a) {
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
   const int wr0 = warp * kRowsPerWarp;  // the warp's first row in the tile
-  // absolute positions of the block's first and last real query rows
-  const int last = (q0 + kRows < a.Sq ? q0 + kRows : a.Sq) - 1;
-  const int pos_lo = q0 + a.q_offset, pos_hi = last + a.q_offset;
+  int t_lo, t_hi;
+  tile_range(a, q0, &t_lo, &t_hi);
 
-  for (int k0 = 0; k0 < a.Skv; k0 += kKeys) {
-    if (a.causal && k0 > pos_hi) break;                            // above
-    if (a.window && k0 + kKeys - 1 <= pos_lo - a.window) continue;  // before
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * kKeys;
     __syncthreads();  // the previous tile is consumed
     stage(Ks, ks_ld, kp, a.ks[1], k0, a.Skv, a.Dh, kKeys, 1.f, vec);
     stage(Vs, a.Dv, vp, a.vs[1], k0, a.Skv, a.Dv, kKeys, 1.f, vec);
@@ -166,15 +581,7 @@ flash_attention_kernel(Args a) {
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int pos = q0 + wr0 + r + a.q_offset;
-      bool v0 = c0 < a.Skv, v1 = c1 < a.Skv;
-      if (a.causal) {
-        v0 = v0 && c0 <= pos;
-        v1 = v1 && c1 <= pos;
-      }
-      if (a.window) {
-        v0 = v0 && c0 > pos - a.window;
-        v1 = v1 && c1 > pos - a.window;
-      }
+      const bool v0 = key_visible(a, c0, pos), v1 = key_visible(a, c1, pos);
       const float x0 = v0 ? s0[r] : kNegInf, x1 = v1 ? s1[r] : kNegInf;
       float mx = fmaxf(x0, x1);
 #pragma unroll
@@ -234,15 +641,15 @@ template <typename T, int NC>
 int launch(const Args& a, cudaStream_t s) {
   // raise the dynamic shared-memory ceiling once per instance
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+      flash_attention_simt<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmemBytes);
   if (attr != cudaSuccess) return (int)attr;
   const size_t smem =
       4 * ((size_t)kRows * a.Dh + (size_t)kKeys * (a.Dh | 1) +
            (size_t)kKeys * a.Dv);
   const dim3 grid((unsigned)((a.Sq + kRows - 1) / kRows), (unsigned)a.H,
                   (unsigned)a.B);
-  flash_attention_kernel<T, NC><<<grid, kThreads, smem, s>>>(a);
+  flash_attention_simt<T, NC><<<grid, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -254,18 +661,24 @@ int launch_t(const Args& a, cudaStream_t s) {
   return launch<T, 8>(a, s);
 }
 
+}  // namespace simt
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and o alike).  strides: 12 element
-// strides, (batch, seq, head) of q, k, v, o in turn.  Sizes are checked by
-// the Python wrapper (1 <= Dh, Dv <= 256, H % Hkv == 0).  Returns
-// cudaGetLastError() after the launch.
+// strides, (batch, seq, head) of q, k, v, o in turn.  route: 0 = simt,
+// 1 = wgmma (bf16, Dh and Dv multiples of 16, vec).  Sizes are checked by
+// the Python wrapper (1 <= Dh, Dv <= 256, H % Hkv == 0), which also picks
+// the route; a wgmma route the shape cannot take returns
+// cudaErrorInvalidValue without a launch.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int Hkv, int Dh, int Dv,
                                       const long long* strides, int causal,
                                       int window, int q_offset, float scale,
-                                      int dtype, int vec, void* stream) {
+                                      int dtype, int vec, int route,
+                                      void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   Args a;
   a.q = q;
@@ -291,7 +704,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.vec = vec;
   a.scale = scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch_t<__nv_bfloat16>(a, s) : launch_t<float>(a, s);
+  if (route == 1) {
+    if (dtype != 1 || !vec || Dh % 16 || Dv % 16 || Dh > kMaxD || Dv > kMaxD)
+      return (int)cudaErrorInvalidValue;
+    return wg::launch_dv(a, s);
+  }
+  return dtype == 1 ? simt::launch_t<__nv_bfloat16>(a, s)
+                    : simt::launch_t<float>(a, s);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -6,12 +6,14 @@ Replaces the Pallas TPU kernel ``repro/kernels/decode_attention/kernel.py
 an optional sliding ``window`` and GQA; scores, probabilities and the
 accumulator in f32; tiles past a request's length skipped.
 
-What bounds it on the H100, and the design: see the source.  The
-wrapper checks device, dtype, shape and strides, allocates the output in
-q's dtype, launches on the current stream and counts launches in
-``decode_attention.launches``.  It reads ``lengths`` on the device: no
-host sync.  Any shape the TPU kernel's ``supported()`` takes is taken
-(and any ``S`` >= 1, head dims 1-256); anything else raises.
+What bounds it on the H100, and the design (split-cache flash
+decoding): see the source.  The wrapper checks device, dtype, shape and
+strides, allocates the output in q's dtype, splits each request's cache
+over :func:`plan_splits` blocks, launches on the current stream and
+counts launches in ``decode_attention.launches``.  The kernel reads
+``lengths`` on the device: no host sync.  Any shape the TPU kernel's
+``supported()`` takes is taken (and any ``S`` >= 1, head dims 1-256);
+anything else raises.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ from repro_torch.kernels.flash_attention.kernel import (DTYPES,
                                                         strides_of, vec_ok)
 
 _NAME = "decode_attention"
+TILE = 64          # cache rows a block stages at a time
+MAX_SPLITS = 8     # the splits of one (b, kv head) form one cluster
 
 
 @functools.cache
@@ -37,9 +41,23 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                       ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
+
+
+def plan_splits(B: int, Hkv: int, S: int, sms: int = 132) -> int:
+    """Blocks each (request, kv head) gets: enough for about two blocks
+    an SM across the ``B * Hkv`` groups, no more than the cache has
+    tiles, at most :data:`MAX_SPLITS`.  A function of shapes alone, never
+    of ``lengths`` (reading them would sync the host)."""
+    want = -(-2 * sms // max(B * Hkv, 1))
+    return max(1, min(-(-S // TILE), want, MAX_SPLITS))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -81,7 +99,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         lengths.data_ptr(), o.data_ptr(), B, Sq, S, H, Hkv, Dh, Dv,
         strides_of(q, k_cache, v_cache, o), int(window), float(Dh ** -0.5),
         DTYPES[q.dtype], DTYPES[k_cache.dtype],
-        int(vec_ok(k_cache, v_cache)), stream)
+        int(vec_ok(k_cache, v_cache)),
+        plan_splits(B, Hkv, S, _sm_count(dev.index)), stream)
     decode_attention.launches += 1
     _build.check(lib, _NAME, code)
     return o

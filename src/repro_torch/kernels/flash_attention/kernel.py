@@ -8,10 +8,14 @@ online softmax, and key tiles no row needs skipped.
 
 What bounds it on the H100, and the design: see the source.  The
 wrapper checks device, dtype, shape and strides (the last dimension
-contiguous; the others any), allocates the output, launches on the
-current stream and counts launches in ``flash_attention.launches``.  It
-takes every shape the TPU kernel's ``supported()`` takes (and more:
-any ``Sq``, ``Skv`` >= 1, head dims 1-256); anything else raises.
+contiguous; the others any), allocates the output, picks the route
+(:func:`route`: ``"wgmma"``, the tensor cores, for bf16 with head dims
+that are multiples of 16 read 16 bytes at a time; ``"simt"``, the f32
+CUDA cores, for the rest), launches on the current stream and counts
+launches in ``flash_attention.launches`` and, by route, in
+``flash_attention.launches_by_route``.  It takes every shape the TPU
+kernel's ``supported()`` takes (and more: any ``Sq``, ``Skv`` >= 1,
+head dims 1-256); anything else raises.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.kernels import _build
 _NAME = "flash_attention"
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"simt": 0, "wgmma": 1}   # the C entry point's route codes
 
 
 @functools.cache
@@ -34,7 +39,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
-                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -56,6 +61,22 @@ def vec_ok(*ts: torch.Tensor) -> bool:
                 or any(s % unit for s in t.stride()[:3])):
             return False
     return True
+
+
+def route_of(dtype: torch.dtype, Dh: int, Dv: int, aligned: bool) -> str:
+    """The kernel route for a dtype, head dims and alignment: "wgmma"
+    (tensor cores) for bf16 with Dh and Dv multiples of 16 up to 256 and
+    16-byte aligned tensors, else "simt" (f32 CUDA cores; f32 stays
+    there, the tensor cores would round it to TF32)."""
+    if (dtype == torch.bfloat16 and aligned and Dh % 16 == 0
+            and Dv % 16 == 0 and Dh <= MAX_HEAD_DIM and Dv <= MAX_HEAD_DIM):
+        return "wgmma"
+    return "simt"
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The route :func:`flash_attention` takes for these tensors."""
+    return route_of(q.dtype, q.shape[-1], v.shape[-1], vec_ok(q, k, v))
 
 
 def check_layout(who: str, dev, **ts: torch.Tensor) -> None:
@@ -101,14 +122,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    vec = vec_ok(q, k, v)
+    path = route_of(q.dtype, Dh, Dv, vec)
     code = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv,
         H, Hkv, Dh, Dv, strides_of(q, k, v, o), int(causal), int(window),
-        int(q_offset), float(Dh ** -0.5), DTYPES[q.dtype],
-        int(vec_ok(q, k, v)), stream)
+        int(q_offset), float(Dh ** -0.5), DTYPES[q.dtype], int(vec),
+        ROUTES[path], stream)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[path] += 1
     _build.check(lib, _NAME, code)
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {r: 0 for r in ROUTES}
