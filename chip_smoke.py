@@ -26,11 +26,17 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    decode rows and a 4096-row cache whose splits are empty, partial and
    full (tolerance 2e-2 bf16, 5e-5 f32); ``ssd_scan`` at the prefill
    shape of phase 8 (8 x 256 tokens in one chunk, 64 heads, N=P=64,
-   bf16, q and k head-broadcast views), across 8 chunks, on a ragged
-   last chunk and in f32 (y within 2e-2 / 5e-5 of max|y| + 1, the state
-   within 5e-4); ``rmsnorm`` at 2048 rows of D=2048 and 4096, 8 rows,
-   scale_offset and f32 (bf16 within one ulp of each value, f32 within
-   5e-5); ``ssd_scan`` and ``rmsnorm``
+   bf16, q and k head-broadcast views), which must take its tensor-core
+   route ("mma"), the same shape with q and k per head, across 8
+   chunks, on a ragged last chunk, with P != N, and on the CUDA-core
+   route ("simt") at N = P = 24 and in f32 (every route asserted; y
+   within 2e-2 / 5e-5 of max|y| + 1, the state within 5e-4), both routes
+   timed on the serving values; ``rmsnorm`` at the six shapes of the
+   serving paths (prefill 2048 rows, x from HBM, and decode 8 rows, of
+   D = 896, 2048 and 4096, on its register route) each beside
+   ``F.rms_norm``, scale_offset, f32
+   and an odd D (its loop route; bf16 within one ulp of each value, f32
+   within 5e-5); ``ssd_scan`` and ``rmsnorm``
    also give the same bits on a second call — and times kernel and plain
    version on the same inputs by device time from torch.profiler.  No
    single PyTorch call computes ``slate_update``, ``slate_lookup`` or
@@ -41,7 +47,8 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    ``scaled_dot_product_attention`` at both serving shapes (the
    kernel line holds qwen2-0.5b's; zamba2-1.2b's are logged on their
    own line), ``rmsnorm`` beside
-   ``torch.nn.functional.rms_norm``;
+   ``torch.nn.functional.rms_norm`` (the kernel line holds 2048 x 2048;
+   the other shapes are logged on their own lines);
 4. checks that a ``run_chunk`` tick never syncs the host (torch's sync
    debug mode set to "error"), on a small engine, with telemetry off
    and on;
@@ -90,7 +97,9 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    tolerance of 0.25 (44 rounding layers against qwen2's 24) and a
    microbatch launching ``ssd_scan`` 38 times, ``flash_attention`` 6,
    ``decode_attention`` 6 x 31 and ``rmsnorm`` 89 x 32 (38 x 2 + 6 x 2 +
-   1 norms a forward).
+   1 norms a forward), every ``ssd_scan`` launch on "mma" and every
+   ``rmsnorm`` launch on "regs" in both serving phases; its profiled tick
+   also gives ``ssd_scan``'s and ``rmsnorm``'s device ms by route.
 Each path's launch counters are set to 0 just before it and read just
 after.
 
@@ -103,6 +112,7 @@ a checkout, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -112,6 +122,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+L2_BYTES = 50 * 2**20            # H100 SXM L2 cache
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 dense, tensor cores
 SECTOR = 32                      # bytes per random device-memory access
@@ -703,74 +714,107 @@ def ssd_flops(S, chunk, N, P):
 
 
 def check_ssd_scan(dev, seed):
-    """The prefill shapes of phase 8 (B=8 requests of S=256 in one chunk,
+    """The prefill shape of phase 8 (B=8 requests of S=256 in one chunk,
     64 heads, N=P=64, bf16, q and k head-broadcast views of [B, S, N] as
-    Mamba-2 passes them), B=2 x S=2048 (8 chunks, which the serving shape
-    never carries across), S=200 with chunk 64 (a ragged last chunk) and
-    f32.  Tolerances are the JAX package's sweep's: y within 2e-2 (bf16)
-    / 5e-5 (f32) of max|y| + 1, the final state within 5e-4 of
-    max|state| + 1."""
+    Mamba-2 passes them), which must take the tensor-core ("mma") route
+    and give the same bits on a second call; the same shape with q and k
+    per head; B=2 x S=2048 (8 chunks, which the serving shape never
+    carries across), S=200 with chunk 64 (a ragged last chunk), P=32 !=
+    N, and on the CUDA-core ("simt") route N=P=24 in bf16 (a width the
+    tensor-core route is not compiled for) and f32.  Tolerances are the
+    JAX package's sweep's: y within 2e-2 (bf16) / 5e-5 (f32) of max|y| +
+    1, the final state within 5e-4 of max|state| + 1.  Both routes are
+    timed at the serving shape (the "simt" route in f32)."""
     import torch
     from repro_torch.kernels.ssd import ref as sr
     from repro_torch.kernels.ssd_scan import kernel as sk
     gen = torch.Generator(device=dev).manual_seed(seed + 8)
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def inputs(B, S, H, N, P, dt):
+    def inputs(B, S, H, N, P, dt, shared):
         r = lambda *sh: torch.randn(sh, generator=gen, device=dev)
-        q = r(B, S, 1, N).to(dt).expand(B, S, H, N)
-        k = (r(B, S, 1, N) * 0.3).to(dt).expand(B, S, H, N)
+        Hq = 1 if shared else H
+        q = r(B, S, Hq, N).to(dt).expand(B, S, H, N)
+        k = (r(B, S, Hq, N) * 0.3).to(dt).expand(B, S, H, N)
         la = -torch.nn.functional.softplus(r(B, S, H))
         return q, k, r(B, S, H, P).to(dt), la
 
-    def case(B, S, H, N, P, chunk, dt):
-        args = inputs(B, S, H, N, P, dt)
+    def case(B, S, H, N, P, chunk, dt, route, shared=True):
+        args = inputs(B, S, H, N, P, dt, shared)
+        before = dict(sk.ssd_scan.launches_by_route)
         y, fin = sk.ssd_scan(*args, chunk=chunk)
         wy, wfin = sr.ssd(*args, chunk=chunk)
         torch.cuda.synchronize()
+        moved = {r: n - before[r]
+                 for r, n in sk.ssd_scan.launches_by_route.items()}
         ey = float((y.float() - wy.float()).abs().max())
         ef = float((fin - wfin).abs().max())
         ok = (y.dtype == dt and y.shape == wy.shape
               and fin.shape == wfin.shape
               and bool(torch.isfinite(y.float()).all())
               and ey / (float(wy.float().abs().max()) + 1) < attn_tol(dt)
-              and ef / (float(wfin.abs().max()) + 1) < 5e-4)
+              and ef / (float(wfin.abs().max()) + 1) < 5e-4
+              and moved == {r: int(r == route) for r in moved})
         if not ok:
             raise AssertionError(f"ssd_scan B={B} S={S} H={H} N={N} P={P} "
-                                 f"chunk={chunk} {dt}: y max_abs_err {ey}, "
-                                 f"final state {ef}")
-        return args, (y, fin), ey, ef
+                                 f"chunk={chunk} {dt} shared={shared}: "
+                                 f"y max_abs_err {ey}, final state {ef}, "
+                                 f"routes {moved} (expected {route})")
+        same_bits(f"ssd_scan {route}",
+                  lambda: torch.cat([t.float().flatten() for t in
+                                     sk.ssd_scan(*args, chunk=chunk)]))
+        return args, ey, ef
 
     B, S, H, N, P, L = 8, 256, 64, 64, 64, 256
-    args, (y, fin), err, ferr = case(B, S, H, N, P, L, bf16)
-    y2, fin2 = sk.ssd_scan(*args, chunk=L)
-    torch.cuda.synchronize()
-    if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
-        raise AssertionError("ssd_scan: two calls gave different bits")
+    args, err, ferr = case(B, S, H, N, P, L, bf16, "mma")
     errs = {}
-    for shape in ((2, 2048, H, N, P, L, bf16), (2, 200, H, N, P, 64, bf16),
-                  (2, S, H, N, P, L, f32)):
-        _, _, e, fe = case(*shape)
-        errs[f"{shape[:6]} {str(shape[6])[6:]}"] = (e, fe)
+    for shape, route, shared in (
+            ((B, S, H, N, P, L, bf16), "mma", False),
+            ((2, 2048, H, N, P, L, bf16), "mma", True),
+            ((2, 200, H, N, P, 64, bf16), "mma", True),
+            ((2, S, 8, N, 32, L, bf16), "mma", False),
+            ((2, S, 8, 24, 24, L, bf16), "simt", True),
+            ((2, S, H, N, P, L, f32), "simt", True)):
+        _, e, fe = case(*shape, route, shared)
+        errs[f"{shape[:6]} {str(shape[6])[6:]} {route} "
+             f"{'shared q/k' if shared else 'q/k per head'}"] = (e, fe)
         if shape[6] == bf16:
             err = max(err, e)
     log(f"ssd_scan vs plain, serving shape B=8 S=256 H=64 N=P=64 bf16 "
-        f"(q, k head-broadcast): y max_abs_err {err}, final state "
-        f"{ferr} (tolerance 2e-2 / 5e-5 of max|y| + 1, 5e-4 of max|S| + "
-        f"1); two calls bitwise equal; other cases (y, state) {errs}")
+        f"(q, k head-broadcast) on the mma route: y max_abs_err {err}, "
+        f"final state {ferr} (tolerance 2e-2 / 5e-5 of max|y| + 1, 5e-4 of "
+        f"max|S| + 1); every case's route asserted and two calls bitwise "
+        f"equal; other cases (y, state) {errs}")
     ms = device_ms(lambda: sk.ssd_scan(*args, chunk=L))
     plain_ms = device_ms(lambda: sr.ssd(*args, chunk=L))
+    fargs = tuple(t.float() if t.dtype == bf16 else t for t in args)
+    f32_ms = device_ms(lambda: sk.ssd_scan(*fargs, chunk=L))
+
+    def unaligned(t, heads):     # the same values one element into a buffer
+        src = t[:, :, :heads]
+        buf = torch.empty(*src.shape[:-1], src.shape[-1] + 8, dtype=t.dtype,
+                          device=dev)
+        buf[..., 1:1 + src.shape[-1]] = src
+        return buf[..., 1:1 + src.shape[-1]].expand(t.shape)
+
+    uargs = (unaligned(args[0], 1), unaligned(args[1], 1),
+             unaligned(args[2], H), args[3])
+    if sk.route(*uargs[:3], L) != "simt":
+        raise AssertionError("ssd_scan: an unaligned view took the mma route")
+    simt_ms = device_ms(lambda: sk.ssd_scan(*uargs, chunk=L))
     # v and log_a read once, q and k once as the [B, S, N] tensors they
     # view, y and the f32 final state written once
     nbytes = (2 * B * S * N * 2 + B * S * H * P * 2 + B * S * H * 4
               + B * S * H * P * 2 + B * H * N * P * 4)
     flops = B * H * ssd_flops(S, L, N, P)
     bound_ms, bound_by = attention_bound(nbytes, flops)
-    log(f"ssd_scan B=8 S=256 H=64 N=P=64 bf16: kernel {ms:.5f} ms, plain "
+    log(f"ssd_scan B=8 S=256 H=64 N=P=64 bf16: kernel {ms:.5f} ms on the "
+        f"mma route, the simt route on the same values (unaligned views) "
+        f"{simt_ms:.5f} ms and in f32 {f32_ms:.5f} ms, plain "
         f"{plain_ms:.5f} ms (device time, torch.profiler, mean of 20); no "
-        f"single PyTorch call computes the chunked recurrence; bound "
-        f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes at 3.35 TB/s, "
-        f"{flops} FLOPs at 989 TFLOP/s)")
+        f"single PyTorch call computes the "
+        f"chunked recurrence; bound {bound_ms:.6f} ms by {bound_by} "
+        f"({nbytes} bytes at 3.35 TB/s, {flops} FLOPs at 989 TFLOP/s)")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:89",
@@ -797,11 +841,22 @@ def rms_close(got, want):
     return float(err.max())
 
 
+# the rows and widths the serving paths normalise: prefill (8 requests x
+# 256 tokens) and decode (8 requests) at qwen2-0.5b's d_model 896,
+# zamba2-1.2b's 2048 and Mamba-2's gated norm over d_inner 4096
+RMS_SHAPES = ((2048, 896), (2048, 2048), (2048, 4096), (8, 896), (8, 2048),
+              (8, 4096))
+
+
 def check_rmsnorm(dev, seed):
-    """The norms of phases 7 and 8: 2048 rows (8 requests x 256 tokens) of
-    D=2048 bf16 (the block norms at prefill), of D=4096 (Mamba-2's gated
-    norm), 8 rows (a decode step), scale_offset, and f32; timed beside
-    ``torch.nn.functional.rms_norm``."""
+    """The norms of phases 7 and 8 at the six ``RMS_SHAPES`` (bf16, the
+    register route asserted, two calls bitwise equal), each timed beside
+    ``torch.nn.functional.rms_norm`` (bf16 weight) in turns; and
+    scale_offset, f32 and an odd D (the loop route).  The prefill shapes
+    are timed over copies of x that together hold over four times the
+    H100's 50 MB L2, one copy a call in turn, so that x comes from HBM as
+    the byte bound assumes; decode's 8 rows are timed on one x, as the
+    serving path finds a row the previous operation has just written."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import kernel as rk
@@ -814,44 +869,71 @@ def check_rmsnorm(dev, seed):
         x = torch.randn(rows, D, generator=gen, device=dev).to(dt)
         return x, 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
 
-    x, w = inputs(2048, 2048, bf16)
-    got = rk.rmsnorm(x, w, eps=eps)
-    again = rk.rmsnorm(x, w, eps=eps)
-    err = rms_close(got, rr.rmsnorm(x, w, eps=eps))
-    if not torch.equal(got, again):
-        raise AssertionError("rmsnorm: two calls gave different bits")
-    errs = {}
-    for rows, D, dt, off in ((2048, 4096, bf16, False), (8, 2048, bf16, False),
-                             (2048, 2048, bf16, True),
-                             (2048, 2048, f32, False)):
-        xc, wc = inputs(rows, D, dt)
-        e = rms_close(rk.rmsnorm(xc, wc, eps=eps, scale_offset=off),
-                      rr.rmsnorm(xc, wc, eps=eps, scale_offset=off))
-        errs[f"{rows}x{D} {str(dt)[6:]} offset={off}"] = e
+    def case(x, w, off, route):
+        before = dict(rk.rmsnorm.launches_by_route)
+        got = same_bits("rmsnorm", lambda: rk.rmsnorm(x, w, eps=eps,
+                                                      scale_offset=off))
+        moved = {r: n - before[r]
+                 for r, n in rk.rmsnorm.launches_by_route.items()}
+        if moved != {r: 2 * int(r == route) for r in moved}:
+            raise AssertionError(f"rmsnorm {tuple(x.shape)} {x.dtype}: "
+                                 f"routes {moved}, expected {route}")
+        return got, rms_close(got, rr.rmsnorm(x, w, eps=eps,
+                                              scale_offset=off))
+
+    err, times, errs = 0.0, {}, {}
+    for rows, D in RMS_SHAPES:
+        x, w = inputs(rows, D, bf16)
+        got, e = case(x, w, False, "regs")
+        err = max(err, e)
+        # F.rms_norm's fused kernel needs the weight in x's dtype (with an
+        # f32 weight it falls back to a composite of ops): the weight is
+        # rounded to bf16 once, outside the timing
+        wx = w.to(bf16)
+        lib_err = float((F.rms_norm(x, (D,), wx, eps).float()
+                         - got.float()).abs().max())
+        copies = [x]
+        if rows > rk.DECODE_ROWS:
+            copies += [x.clone() for _ in range(L2_BYTES * 4
+                                                // (x.numel() * 2))]
+        turn = itertools.cycle(copies)
+        lib = lambda: F.rms_norm(next(turn), (D,), wx, eps)
+        kern = lambda: rk.rmsnorm(next(turn), w, eps=eps)
+        k1, l1, k2, l2 = (device_ms(f) for f in (kern, lib, kern, lib))
+        del copies, turn
+        ms, library_ms = (k1 + k2) / 2, (l1 + l2) / 2
+        # x read once, w read once, the output written once; ~4 FLOPs an
+        # element (square, add, two products)
+        nbytes = 2 * x.numel() * 2 + w.numel() * 4
+        bound_ms, bound_by = attention_bound(nbytes, 4 * x.numel())
+        times[(rows, D)] = (x, w, ms, library_ms, bound_ms, bound_by)
+        log(f"rmsnorm {rows} x {D} bf16 ({tuple(rk.plan(rows, D, bf16))}: "
+            f"threads a row, rows a block, elements a vector, vectors a "
+            f"thread): kernel {ms:.5f} ms ({k1:.5f}, {k2:.5f}), F.rms_norm "
+            f"(bf16 weight) {library_ms:.5f} ms ({l1:.5f}, {l2:.5f}), "
+            f"kernel / F.rms_norm {ms / library_ms:.3f} (device time, "
+            f"torch.profiler, mean of 20, in turns, x "
+            f"{'from HBM' if rows > rk.DECODE_ROWS else 'warm in L2'}); "
+            f"bound {bound_ms:.6f} ms"
+            f" by {bound_by} ({nbytes} bytes at 3.35 TB/s); max_abs_err vs "
+            f"plain {e}, F.rms_norm vs kernel {lib_err}")
+    for rows, D, dt, off, route in ((8, 4096, bf16, True, "regs"),
+                                    (2048, 2048, f32, False, "regs"),
+                                    (37, 1000, f32, True, "regs"),
+                                    (5, 99, bf16, False, "loop")):
+        x, w = inputs(rows, D, dt)
+        _, e = case(x, w, off, route)
+        errs[f"{rows}x{D} {str(dt)[6:]} offset={off} {route}"] = e
         if dt == bf16:
             err = max(err, e)
-    # F.rms_norm's fused kernel needs the weight in x's dtype (with an
-    # f32 weight it falls back to a composite of ops): the weight is
-    # rounded to bf16 once, outside the timing
-    wx = w.to(x.dtype)
-    lib = lambda: F.rms_norm(x, (x.shape[-1],), wx, eps)
-    lib_err = float((lib().float() - got.float()).abs().max())
-    log(f"rmsnorm vs plain, 2048 x 2048 bf16: max_abs_err {err} (f32 within "
-        f"5e-5, bf16 within one ulp of each value); two calls bitwise "
-        f"equal; other cases {errs}; F.rms_norm (bf16 weight) vs kernel "
-        f"max_abs_err {lib_err}")
-    ms = device_ms(lambda: rk.rmsnorm(x, w, eps=eps))
+    log(f"rmsnorm vs plain, the six serving shapes bf16 on the register "
+        f"route: max_abs_err {err} (f32 within 5e-5, bf16 within one ulp of "
+        f"each value); routes asserted, two calls bitwise equal; other "
+        f"cases {errs}")
+    x, w, ms, library_ms, bound_ms, bound_by = times[(2048, 2048)]
     plain_ms = device_ms(lambda: rr.rmsnorm(x, w, eps=eps))
-    library_ms = device_ms(lib)
-    # x read once, w read once, the output written once; ~4 FLOPs an
-    # element (square, add, two products)
-    nbytes = 2 * x.numel() * 2 + w.numel() * 4
-    bound_ms, bound_by = attention_bound(nbytes, 4 * x.numel())
-    log(f"rmsnorm 2048 x 2048 bf16: kernel {ms:.5f} ms, plain {plain_ms:.5f}"
-        f" ms, F.rms_norm (bf16 weight) {library_ms:.5f} ms (device time, "
-        f"torch.profiler, "
-        f"mean of 20); bound {bound_ms:.6f} ms by {bound_by} ({nbytes} "
-        f"bytes at 3.35 TB/s)")
+    log(f"rmsnorm 2048 x 2048 bf16 (the kernel line): plain {plain_ms:.5f} "
+        f"ms (device time, torch.profiler, mean of 20)")
     return {"name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:40",
@@ -1703,9 +1785,12 @@ def serving_path(dev, seed, card, arch):
     state = eng.init_state()
     kernels = (fk.flash_attention, dk.decode_attention, rk.rmsnorm,
                sk.ssd_scan, uk.slate_update, lk.slate_lookup)
+    routed = (rk.rmsnorm, sk.ssd_scan)
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
+    for k in routed:
+        k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
     mapper.microbatches = 0
     t0 = time.perf_counter()
     state, _ = eng.run(state, source, SERVE["ticks"])
@@ -1718,6 +1803,7 @@ def serving_path(dev, seed, card, arch):
     rids = [r.rid for r in reqs]
     rows = eng.read_slates(state, "requests", rids)
     launches = {k.__name__: k.launches for k in kernels if k.launches}
+    routes = {k.__name__: dict(k.launches_by_route) for k in routed}
     mb = mapper.microbatches
     ticks = SERVE["ticks"] + drained
     tick_s = (t_run + t_drain) / ticks
@@ -1729,9 +1815,16 @@ def serving_path(dev, seed, card, arch):
         f"{n_tok / (t_run + t_drain):.2f} generated tokens/s; {card}")
     per_mb = serving_launches(arch)
     log(f"launches on the {arch} serving path {launches} over {mb} "
-        f"microbatches (expected a microbatch: {per_mb}); engine stats "
-        f"{eng.stats(state)['processed']}")
+        f"microbatches (expected a microbatch: {per_mb}), by route "
+        f"{routes}; engine stats {eng.stats(state)['processed']}")
     want = {k: n * mb for k, n in per_mb.items()}
+    # every serving shape takes the tensor cores / the register route
+    for name, route in (("rmsnorm", "regs"), ("ssd_scan", "mma")):
+        n = want.get(name, 0)
+        if routes[name] != {r: n * (r == route) for r in routes[name]}:
+            raise AssertionError(f"{name} routes {routes[name]} on the "
+                                 f"{arch} serving path, expected all {n} "
+                                 f"on {route!r}")
     if ({k: launches.get(k, 0) for k in want} != want
             or launches.get("slate_update", 0) <= 0
             or launches.get("slate_lookup", 0) <= 0
@@ -1823,16 +1916,31 @@ def profile_serving_tick(eng, state, cfg, dev, seed, tick_s):
         f"{tick_s * 1e3:.3f} ms/tick: {1 - busy_us / 1e6 / tick_s:.4f}")
     for name, us in top:
         log(f"  {us / 1e3:.4f} ms/tick  {name[:100]}")
-    # the attention kernels' share; the earlier decode_attention design (one
-    # block a (request, kv head), f32 tiles) took 33.0 ms of a qwen2-0.5b
-    # tick over 1,488 launches on an H100 80GB HBM3 at 700 W
-    for kname in ("flash_attention", "decode_attention"):
-        hits = [e.device_time_total for e in dev_events if kname in e.name]
-        was = (" (the earlier one-block-a-group design: 33.0 ms)"
-               if kname == "decode_attention" and cfg.name == "qwen2-0.5b"
-               else "")
+    # the model kernels' share; on an H100 80GB HBM3 at 700 W the earlier
+    # decode_attention design (one block a (request, kv head), f32 tiles)
+    # took 33.0 ms of a qwen2-0.5b tick over 1,488 launches, and the
+    # earlier ssd_scan (f32 CUDA cores only) and rmsnorm (a 256-thread
+    # block a row) 31.8 ms over 76 and 16.1 ms over 5,696 of a zamba2-1.2b
+    # tick
+    was = {("decode_attention", "qwen2-0.5b"): 33.0,
+           ("ssd_scan", "zamba2-1.2b"): 31.8,
+           ("rmsnorm", "zamba2-1.2b"): 16.1}
+    names = {"flash_attention": ("flash_attention",),
+             "decode_attention": ("decode_attention",),
+             "ssd_scan": ("ssd_scan_kernel", "ssd_mma_kernel"),
+             "ssd_scan mma": ("ssd_mma_kernel",),
+             "ssd_scan simt": ("ssd_scan_kernel",),
+             "rmsnorm": ("rmsnorm_regs", "rmsnorm_loop"),
+             "rmsnorm regs": ("rmsnorm_regs",),
+             "rmsnorm loop": ("rmsnorm_loop",)}
+    for kname, parts in names.items():
+        hits = [e.device_time_total for e in dev_events
+                if any(p in e.name for p in parts)]
+        if not hits:
+            continue
+        old = was.get((kname, cfg.name))
         log(f"  {kname}: {sum(hits) / 1e3:.4f} ms/tick over {len(hits)} "
-            f"launches{was}")
+            f"launches" + (f" (the earlier design: {old} ms)" if old else ""))
 
 
 def profile_ticks(eng, state, source_fn, start, tick_s, n=8):

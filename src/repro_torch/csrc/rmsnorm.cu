@@ -8,15 +8,33 @@
 // f32, w is f32 (the norm scales stay f32 in every compute dtype); any
 // D >= 1.
 //
-// What bounds it on the H100: bytes.  The row is read once for the sum of
-// squares and once more for the output (the second read hits L1/L2: a row
-// is at most a few KB), and o is written once; the arithmetic is ~4 FLOPs
-// an element.  At 2048 rows x 2048 bf16 that is 16.8 MB through HBM,
-// ~5 us at 3.35 TB/s.  Design: one block of 256 threads per row, 16-byte
-// loads and stores where the row is aligned.  The sum of squares is taken
-// in f32 in a fixed order (each thread its strided elements, then a
-// shuffle tree in each warp, then warp 0 over the warps' sums): no
-// atomics, so two calls give the same bits.
+// What bounds it on the H100.  At prefill (2048 rows of D = 896-4096,
+// bf16) bytes: x read once, o written once, ~4 FLOPs an element; 2048 x
+// 2048 bf16 is 16.8 MB, ~5 us at 3.35 TB/s.  In decode (8 rows, 31 of
+// every 32 calls on the serving paths) the bytes are a few KB and the
+// time is the kernel's chain of dependent latencies: load, reduce, store.
+//
+// Design (two routes; the wrapper's plain-Python plan,
+// kernels/rmsnorm/kernel.py::plan, picks one and its sizes):
+//
+// * regs (D a multiple of 16 bytes, 16-byte aligned x): a row, or a slice
+//   of it, stays in registers.  Each of the row's `tpr` threads (a
+//   multiple of 32) loads its VPT 16-byte vectors of x and the matching
+//   16-byte vectors of w, all issued together before the reduction, so
+//   the two latencies overlap; x is read from memory once.  A row of one
+//   warp (tpr = 32, several rows a block) reduces by a shuffle tree alone:
+//   no shared memory and no barrier.  A wider row (a small block per row)
+//   adds one barrier: each warp's sum goes to shared memory and every
+//   thread adds its row's warp sums in warp order.  The plan gives decode
+//   rows more threads (one vector each, more loads in flight) and prefill
+//   rows fewer (four vectors each, more rows a wave).
+// * loop (odd D, unaligned x, or D past the register budget): one block
+//   of 256 threads per row, x read element by element, twice (the second
+//   read hits L1/L2).
+//
+// The sum of squares is f32 in a fixed order on both routes (each thread
+// its elements in turn, a shuffle tree in each warp, then the warps' sums
+// in order): no atomics, so two calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -24,8 +42,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;   // the loop route's block
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBlock = 1024;
+// threads a block may have with VPT vectors a thread: four or more take
+// more than the 64 registers a thread of a 1024-thread block gets
+__host__ __device__ constexpr int max_block(int vpt) {
+  return vpt >= 4 ? 256 : kMaxBlock;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -43,34 +67,91 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ------------------------------------------------------------ regs route
+// rpb rows a block, tpr threads a row (tpr a multiple of 32, rpb * tpr <=
+// max_block(VPT); tpr == 32 means one warp a row and no barrier).  Each
+// thread holds VPT 16-byte vectors of its row: t, t + tpr, t + 2 tpr, ...
+template <typename T, int VPT>
+__global__ void __launch_bounds__(max_block(VPT))
+rmsnorm_regs(const T* __restrict__ x, const float* __restrict__ w,
+             T* __restrict__ o, long long rows, int D, float eps, int offset,
+             int tpr, int rpb) {
+  constexpr int kVec = 16 / sizeof(T);        // elements a vector
+  constexpr int kW = kVec / 4;                // float4s of w a vector
+  __shared__ float red[kMaxBlock / 32];
+  const int t = threadIdx.x % tpr;
+  const long long row = (long long)blockIdx.x * rpb + threadIdx.x / tpr;
+  const bool live = row < rows;
+  const int nv = D / kVec;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + row * D);
+  const float4* wv = reinterpret_cast<const float4*>(w);
+
+  uint4 xv[VPT];
+  float4 wr[VPT][kW];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = t + k * tpr;
+    const bool ok = live && i < nv;
+    xv[k] = ok ? __ldg(xr + i) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int c = 0; c < kW; ++c)
+      wr[k][c] = i < nv ? __ldg(wv + i * kW + c)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const T* e = reinterpret_cast<const T*>(&xv[k]);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float f = to_f32(e[j]);
+      ss = fmaf(f, f, ss);
+    }
+  }
+  ss = warp_sum(ss);
+  if (tpr > 32) {              // one barrier: the row's warp sums in order
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = ss;
+    __syncthreads();
+    const int w0 = (threadIdx.x / tpr) * (tpr >> 5);
+    ss = 0.f;
+    for (int i = 0; i < (tpr >> 5); ++i) ss += red[w0 + i];
+  }
+  if (!live) return;
+  const float inv = rsqrtf(ss / (float)D + eps);
+  uint4* orow = reinterpret_cast<uint4*>(o + row * D);
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = t + k * tpr;
+    if (i >= nv) continue;
+    const T* e = reinterpret_cast<const T*>(&xv[k]);
+    const float* wk = reinterpret_cast<const float*>(&wr[k][0]);
+    uint4 res;
+    T* r = reinterpret_cast<T*>(&res);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float s = offset ? 1.f + wk[j] : wk[j];
+      from_f32(r + j, (to_f32(e[j]) * inv) * s);
+    }
+    orow[i] = res;
+  }
+}
+
+// ------------------------------------------------------------ loop route
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               T* __restrict__ o, int D, float eps, int offset, int vec) {
+rmsnorm_loop(const T* __restrict__ x, const float* __restrict__ w,
+             T* __restrict__ o, int D, float eps, int offset) {
   __shared__ float red[kWarps];
   const long long row = blockIdx.x;
   const T* xr = x + row * D;
   T* orow = o + row * D;
-  constexpr int kVec = 16 / sizeof(T);
   const int tid = threadIdx.x;
 
   float ss = 0.f;
-  if (vec) {
-    const int nv = D / kVec;
-    for (int i = tid; i < nv; i += kThreads) {
-      const uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const float f = to_f32(e[k]);
-        ss = fmaf(f, f, ss);
-      }
-    }
-  } else {
-    for (int i = tid; i < D; i += kThreads) {
-      const float f = to_f32(xr[i]);
-      ss = fmaf(f, f, ss);
-    }
+  for (int i = tid; i < D; i += kThreads) {
+    const float f = to_f32(xr[i]);
+    ss = fmaf(f, f, ss);
   }
   ss = warp_sum(ss);
   if ((tid & 31) == 0) red[tid >> 5] = ss;
@@ -82,52 +163,68 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
   __syncthreads();
   const float inv = rsqrtf(red[0] / (float)D + eps);
-
-  if (vec) {
-    const int nv = D / kVec;
-    for (int i = tid; i < nv; i += kThreads) {
-      const uint4 raw = reinterpret_cast<const uint4*>(xr)[i];
-      const T* e = reinterpret_cast<const T*>(&raw);
-      uint4 res;
-      T* r = reinterpret_cast<T*>(&res);
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        float wk = w[i * kVec + k];
-        if (offset) wk = 1.f + wk;
-        from_f32(r + k, (to_f32(e[k]) * inv) * wk);
-      }
-      reinterpret_cast<uint4*>(orow)[i] = res;
-    }
-  } else {
-    for (int i = tid; i < D; i += kThreads) {
-      float wk = w[i];
-      if (offset) wk = 1.f + wk;
-      from_f32(orow + i, (to_f32(xr[i]) * inv) * wk);
-    }
+  for (int i = tid; i < D; i += kThreads) {
+    float wk = w[i];
+    if (offset) wk = 1.f + wk;
+    from_f32(orow + i, (to_f32(xr[i]) * inv) * wk);
   }
 }
 
 template <typename T>
 int launch(const void* x, const float* w, void* o, long long rows, int D,
-           float eps, int offset, int vec, cudaStream_t s) {
-  rmsnorm_kernel<T><<<(unsigned)rows, kThreads, 0, s>>>(
-      static_cast<const T*>(x), w, static_cast<T*>(o), D, eps, offset, vec);
+           float eps, int offset, int tpr, int rpb, int vpt, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(o);
+  if (vpt == 0) {
+    rmsnorm_loop<T><<<(unsigned)rows, kThreads, 0, s>>>(xt, w, ot, D, eps,
+                                                        offset);
+    return (int)cudaGetLastError();
+  }
+  const unsigned grid = (unsigned)((rows + rpb - 1) / rpb);
+  const int block = tpr * rpb;
+  switch (vpt) {
+    case 1:
+      rmsnorm_regs<T, 1><<<grid, block, 0, s>>>(xt, w, ot, rows, D, eps,
+                                                offset, tpr, rpb);
+      break;
+    case 2:
+      rmsnorm_regs<T, 2><<<grid, block, 0, s>>>(xt, w, ot, rows, D, eps,
+                                                offset, tpr, rpb);
+      break;
+    case 4:
+      rmsnorm_regs<T, 4><<<grid, block, 0, s>>>(xt, w, ot, rows, D, eps,
+                                                offset, tpr, rpb);
+      break;
+    case 8:
+      rmsnorm_regs<T, 8><<<grid, block, 0, s>>>(xt, w, ot, rows, D, eps,
+                                                offset, tpr, rpb);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x_dtype: 0 = f32, 1 = bf16 (x and o); w is f32.  x and o are [rows, D]
-// contiguous; vec = 1 when x, o and D allow 16-byte accesses (checked by
-// the Python wrapper).  Returns cudaGetLastError() after the launch.
+// contiguous.  vpt = 0 takes the loop route; vpt in {1, 2, 4, 8} the regs
+// route with tpr threads
+// a row and rpb rows a block (x, o and w 16-byte aligned, D a whole number
+// of 16-byte vectors).  The plan is the Python wrapper's.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int rmsnorm_launch(const void* x, const float* w, void* o,
                               long long rows, int D, float eps, int offset,
-                              int x_dtype, int vec, void* stream) {
+                              int x_dtype, int tpr, int rpb, int vpt,
+                              void* stream) {
   if (rows <= 0 || D <= 0) return 0;
+  if (vpt != 0 && (tpr % 32 != 0 || tpr * rpb > max_block(vpt) || rpb < 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return x_dtype == 1
-             ? launch<__nv_bfloat16>(x, w, o, rows, D, eps, offset, vec, s)
-             : launch<float>(x, w, o, rows, D, eps, offset, vec, s);
+  return x_dtype == 1 ? launch<__nv_bfloat16>(x, w, o, rows, D, eps, offset,
+                                              tpr, rpb, vpt, s)
+                      : launch<float>(x, w, o, rows, D, eps, offset, tpr,
+                                      rpb, vpt, s);
 }
 
 extern "C" const char* rmsnorm_error_string(int code) {

@@ -7,14 +7,19 @@ x's dtype; one launch for what the plain version does in ~7.
 
 What bounds it on the H100, and the design: see the source.  The
 wrapper checks device, dtype, shape and contiguity, allocates the
-output, launches on the current stream and counts launches in
-``rmsnorm.launches``.  It takes any D >= 1 (the TPU kernel's
+output, picks the route and its sizes (:func:`plan`, plain Python:
+``"regs"``, a row held in registers by one warp or a small block, for
+rows of whole 16-byte vectors; ``"loop"``, a 256-thread block walking
+the row, for the rest), launches on the current stream and counts
+launches in ``rmsnorm.launches`` and, by route, in
+``rmsnorm.launches_by_route``.  It takes any D >= 1 (the TPU kernel's
 ``supported()`` asks D % 8 == 0); anything else raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +27,66 @@ from repro_torch.kernels import _build
 
 _NAME = "rmsnorm"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("regs", "loop")
+MAX_BLOCK = 1024       # threads a block
+WARP_VECTORS = 4       # 16-byte vectors a lane holds on the one-warp route
+DECODE_ROWS = 64       # at most this many rows: one vector a thread
+
+
+class Plan(NamedTuple):
+    """A launch: ``threads_per_row`` (a multiple of 32) and
+    ``rows_per_block`` threads and rows, ``vec`` elements a 16-byte
+    vector (1 on the loop route, which reads element by element) and
+    ``per_thread`` vectors a thread holds (0: the loop route)."""
+    threads_per_row: int
+    rows_per_block: int
+    vec: int
+    per_thread: int
+
+    @property
+    def route(self) -> str:
+        return "regs" if self.per_thread else "loop"
+
+
+def max_block(per_thread: int) -> int:
+    """Threads a block may have on the register route: a thread holding
+    four or more vectors needs more than the 64 registers a thread of a
+    1024-thread block gets (``csrc/rmsnorm.cu::max_block``)."""
+    return 256 if per_thread >= 4 else MAX_BLOCK
+
+
+def plan(rows: int, D: int, dtype: torch.dtype, aligned: bool = True) -> Plan:
+    """The launch for ``rows`` rows of ``D`` elements of ``dtype``.
+
+    A row of whole 16-byte vectors on 16-byte aligned tensors stays in
+    registers ("regs"): one warp a row, 4 rows a block, while a lane
+    holds at most ``WARP_VECTORS`` vectors (D <= 1024 bf16, 512 f32);
+    past that a small block a row with one barrier, one vector a thread
+    for at most ``DECODE_ROWS`` rows (decode: the most loads in flight)
+    and for more rows (prefill) as many as keep the row to ~128 threads,
+    doubled until the row fits a block (:func:`max_block`); sizes chosen
+    among those timed on the H100 at D = 896, 2048 and 4096.  Everything
+    else (odd D, unaligned, D past 8 vectors x 1024 threads) takes the
+    256-thread loop."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    if not aligned or D % vec:
+        return Plan(256, 1, 1, 0)
+    nv = D // vec
+    if nv <= 32 * WARP_VECTORS:
+        per = 1
+        while 32 * per < nv:
+            per *= 2
+        return Plan(32, 4, vec, per)
+    per = 1
+    if rows > DECODE_ROWS:          # about 128 threads a row
+        while 128 * per < nv:
+            per *= 2
+    while per <= 8:
+        tpr = 32 * -(-nv // (32 * per))
+        if tpr <= max_block(per):
+            return Plan(tpr, 1, vec, per)
+        per *= 2
+    return Plan(256, 1, 1, 0)
 
 
 @functools.cache
@@ -31,7 +96,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.rmsnorm_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -61,16 +126,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    vec = (x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-           and D % (16 // x.element_size()) == 0)
+    aligned = (x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+               and w.data_ptr() % 16 == 0)
+    p = plan(rows, D, x.dtype, aligned)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.rmsnorm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                               rows, D, float(eps), int(scale_offset),
-                              DTYPES[x.dtype], int(vec), stream)
+                              DTYPES[x.dtype], p.threads_per_row,
+                              p.rows_per_block, p.per_thread, stream)
     rmsnorm.launches += 1
+    rmsnorm.launches_by_route[p.route] += 1
     _build.check(lib, _NAME, code)
     return out
 
 
 rmsnorm.launches = 0
+rmsnorm.launches_by_route = {r: 0 for r in ROUTES}

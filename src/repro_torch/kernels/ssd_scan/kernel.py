@@ -10,9 +10,12 @@ chunk; returns ``y [B,S,H,P]`` in v's dtype and the final f32 state
 What bounds it on the H100, and the design: see the source.  The
 wrapper checks device, dtype, shape and strides (the last dimension
 contiguous, the others any, so q and k may be head-broadcast views),
-allocates the outputs, launches on the current stream and counts
-launches in ``ssd_scan.launches``.  Like the TPU kernel it starts from
-a zero state only (``ssd_step`` carries the state in decode).
+allocates the outputs, picks the route (:func:`route_of`: ``"mma"``, the
+tensor cores, for bf16 with N and P of 16, 32, 64 or 128 and a chunk
+whose tiles fit shared memory; ``"simt"``, the f32 CUDA cores, for the rest),
+launches on the current stream and counts launches in ``ssd_scan.launches`` and, by route, in
+``ssd_scan.launches_by_route``.  Like the TPU kernel it starts from a
+zero state only (``ssd_step`` carries the state in decode).
 """
 from __future__ import annotations
 
@@ -22,11 +25,55 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.kernel import vec_ok
 
 _NAME = "ssd_scan"
 MAX_NP = 128        # state dims the kernel's shared memory holds
 MAX_CHUNK = 2048
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"simt": 0, "mma": 1}   # the C entry point's route codes
+MMA_MAX_CHUNK = 256  # rows a chunk on the tensor-core route (one a thread)
+MMA_DIMS = (16, 32, 64, 128)   # N and P the tensor-core route takes
+MMA_SMEM = 232448 - 1024   # dynamic shared memory a block may ask
+PAD = 8              # bf16 of padding a staged row
+
+
+def smem_bytes(L: int, N: int, P: int, carry: bool = True) -> int:
+    """Shared memory of the "mma" route for an L-row chunk
+    (``csrc/ssd_scan.cu::mma::smem_bytes``): Q, K [L, N + 8] and V
+    [L, P + 8] in bf16, cum and wend [L] in f32, and, when a chunk
+    follows another (``carry``), the bf16 state [N, P + 8]."""
+    return (2 * L * (2 * (N + PAD) + P + PAD) + 4 * 2 * L
+            + (2 * N * (P + PAD) if carry else 0))
+
+
+def route_of(dtype: torch.dtype, N: int, P: int, chunk: int,
+             aligned: bool) -> str:
+    """The kernel route: "mma" (tensor cores) for bf16 with N and P each
+    one of ``MMA_DIMS`` (the kernel is compiled for each, so that its
+    loops over N and P unroll), a chunk that is a multiple of 16 up to
+    ``MMA_MAX_CHUNK`` whose tiles fit shared memory, and
+    16-byte aligned tensors; else "simt" (f32 CUDA cores; f32 stays
+    there, the tensor cores would round it)."""
+    if (dtype == torch.bfloat16 and aligned and N in MMA_DIMS
+            and P in MMA_DIMS and chunk % 16 == 0
+            and 0 < chunk <= MMA_MAX_CHUNK
+            and smem_bytes(chunk, N, P) <= MMA_SMEM):
+        return "mma"
+    return "simt"
+
+
+def mma_chunk(S: int, chunk: int) -> int:
+    """The chunk the "mma" route runs: ``chunk``, or S rounded up to 16
+    when the sequence fits one chunk (rows past S read as 0)."""
+    return chunk if S > chunk else -(-S // 16) * 16
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          chunk: int = 256) -> str:
+    """The route :func:`ssd_scan` takes for these tensors."""
+    return route_of(q.dtype, q.shape[-1], v.shape[-1],
+                    mma_chunk(q.shape[1], chunk), vec_ok(q, k, v))
 
 
 def supported(q, k, v) -> bool:
@@ -43,8 +90,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_NAME)
     fn = lib.ssd_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                      ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -87,15 +134,20 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if y.numel() == 0:
         return y, fin
     flat = [s for t in (q, k, v, log_a, y) for s in t.stride()[:3]]
+    path = route(q, k, v, chunk)
+    L = mma_chunk(S, chunk) if path == "mma" else min(chunk, S)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.ssd_scan_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
-        y.data_ptr(), fin.data_ptr(), B, S, H, N, P, int(min(chunk, S)),
-        (ctypes.c_longlong * len(flat))(*flat), DTYPES[q.dtype], stream)
+        y.data_ptr(), fin.data_ptr(), B, S, H, N, P, L,
+        (ctypes.c_longlong * len(flat))(*flat), DTYPES[q.dtype],
+        ROUTES[path], stream)
     ssd_scan.launches += 1
+    ssd_scan.launches_by_route[path] += 1
     _build.check(lib, _NAME, code)
     return y, fin
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_route = {r: 0 for r in ROUTES}

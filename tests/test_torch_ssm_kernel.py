@@ -1,8 +1,9 @@
 """The SSM-serving kernels (``csrc/ssd_scan.cu``, ``csrc/rmsnorm.cu``)
 against their plain versions on the card — at the serving shapes of
 ``chip_smoke.py`` phase 3, across chunks, on the pad path, with q and k
-as head-broadcast views, in f32 — and the port's serving ``Engine`` on
-the card against the same run on the CPU for the reduced zamba2.  Every
+as head-broadcast views, in f32, on each route (``ssd_scan``: "mma" and
+"simt"; ``rmsnorm``: "regs" and "loop"; the route asserted) — and the
+port's serving ``Engine`` on the card against the same run on the CPU for the reduced zamba2.  Every
 case needs a CUDA card and skips without one; the file imports no JAX,
 so it runs wherever the port does.
 
@@ -46,31 +47,75 @@ def _ssd_inputs(gen, B, S, H, N, P, dt, dev, shared_qk):
     return q, k, v, la
 
 
-@pytest.mark.parametrize("B,S,H,N,P,chunk,dt,shared_qk", [
-    (8, 256, 64, 64, 64, 256, torch.bfloat16, True),    # serving prefill
-    (1, 1024, 8, 64, 64, 256, torch.bfloat16, True),    # 4 chunks
-    (1, 200, 3, 32, 16, 64, torch.bfloat16, False),     # pad path
-    (2, 130, 4, 64, 64, 256, torch.float32, True),      # f32, S < chunk
-    (2, 256, 2, 8, 128, 128, torch.float32, False),     # N 8, P 128
-    (1, 96, 2, 128, 32, 32, torch.bfloat16, False),     # N 128, chunk 32
+@pytest.mark.parametrize("B,S,H,N,P,chunk,dt,shared_qk,route", [
+    (8, 256, 64, 64, 64, 256, torch.bfloat16, True, "mma"),  # serving
+    (8, 256, 64, 64, 64, 256, torch.bfloat16, False, "mma"), # q, k per head
+    (1, 1024, 8, 64, 64, 256, torch.bfloat16, True, "mma"),  # 4 chunks
+    (1, 200, 3, 32, 16, 64, torch.bfloat16, False, "mma"),   # pad path
+    (2, 256, 4, 64, 32, 256, torch.bfloat16, False, "mma"),  # P != N
+    (2, 130, 4, 64, 64, 256, torch.float32, True, "simt"),   # f32, S < chunk
+    (2, 256, 2, 8, 128, 128, torch.float32, False, "simt"),  # N 8, P 128
+    (1, 96, 2, 128, 32, 32, torch.bfloat16, False, "mma"),   # N 128, chunk 32
+    (1, 100, 2, 24, 16, 64, torch.bfloat16, False, "simt"),  # N 24
 ])
 def test_ssd_scan_matches_plain_on_card(B, S, H, N, P, chunk, dt,
-                                        shared_qk):
+                                        shared_qk, route):
     dev = _card()
     from repro_torch.kernels.ssd_scan import kernel as sk
     gen = torch.Generator(device=dev).manual_seed(S + N + P)
     q, k, v, la = _ssd_inputs(gen, B, S, H, N, P, dt, dev, shared_qk)
+    assert sk.route(q, k, v, chunk) == route
     n = sk.ssd_scan.launches
+    by_route = sk.ssd_scan.launches_by_route[route]
     y, fin = sk.ssd_scan(q, k, v, la, chunk=chunk)
     y2, fin2 = sk.ssd_scan(q, k, v, la, chunk=chunk)
     wy, wfin = ssd_ref.ssd(q, k, v, la, chunk=chunk)
     torch.cuda.synchronize()
     assert sk.ssd_scan.launches == n + 2
+    assert sk.ssd_scan.launches_by_route[route] == by_route + 2
     assert y.dtype == dt and y.shape == wy.shape
     assert fin.dtype == torch.float32 and fin.shape == wfin.shape
     assert torch.equal(y, y2) and torch.equal(fin, fin2)     # deterministic
     ey = float((y.float() - wy.float()).abs().max())
     assert ey / (float(wy.float().abs().max()) + 1.0) < TOL[dt], ey
+    ef = float((fin - wfin).abs().max())
+    assert ef / (float(wfin.abs().max()) + 1.0) < 5e-4, ef
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ssd_scan_routes_on_the_serving_values_on_card(offset):
+    """The serving shape's bf16 values, as aligned views (the tensor-core
+    route) and as views one element into their buffers (the CUDA-core
+    route): each within the tolerances of the plain version, bitwise
+    repeatable, and counted under its route alone."""
+    dev = _card()
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, S, H, N, P = 8, 256, 64, 64, 64
+
+    def view(*shape, scale=1.0):    # rows of 16-byte units, then offset
+        buf = (torch.randn(*shape[:-1], shape[-1] + 8, generator=gen,
+                           device=dev) * scale).to(torch.bfloat16)
+        return buf[..., offset:offset + shape[-1]]
+
+    q = view(B, S, 1, N).expand(B, S, H, N)
+    k = view(B, S, 1, N, scale=0.3).expand(B, S, H, N)
+    v = view(B, S, H, P)
+    la = -torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device=dev))
+    route = ("simt", "mma")[offset == 0]
+    assert sk.route(q, k, v) == route
+    before = dict(sk.ssd_scan.launches_by_route)
+    y, fin = sk.ssd_scan(q, k, v, la)
+    y2, fin2 = sk.ssd_scan(q, k, v, la)
+    wy, wfin = ssd_ref.ssd(q, k, v, la)
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in
+            sk.ssd_scan.launches_by_route.items()} == {
+        r: 2 * int(r == route) for r in sk.ROUTES}
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    ey = float((y.float() - wy.float()).abs().max())
+    assert ey / (float(wy.float().abs().max()) + 1.0) < 2e-2, ey
     ef = float((fin - wfin).abs().max())
     assert ef / (float(wfin.abs().max()) + 1.0) < 5e-4, ef
 
@@ -104,6 +149,8 @@ def test_ssd_dispatch_takes_the_kernel_by_the_shape_rule():
     (2048, 2048, False, torch.float32),      # f32
     (37, 1000, True, torch.float32),         # D not a multiple of 8
     (5, 99, False, torch.bfloat16),          # odd D: scalar loads
+    (8, 896, False, torch.bfloat16),         # qwen2 decode: a warp a row
+    (2048, 896, False, torch.bfloat16),      # qwen2 prefill
 ])
 def test_rmsnorm_matches_plain_on_card(rows, D, offset, dt):
     dev = _card()
@@ -112,11 +159,15 @@ def test_rmsnorm_matches_plain_on_card(rows, D, offset, dt):
     x = (torch.randn(rows, D, generator=gen, device=dev) * 3).to(dt)
     w = torch.randn(D, generator=gen, device=dev)
     n = rk.rmsnorm.launches
+    route = rk.plan(rows, D, dt).route
+    by_route = rk.rmsnorm.launches_by_route[route]
     got = rk.rmsnorm(x, w, eps=1e-5, scale_offset=offset)
     again = rk.rmsnorm(x, w, eps=1e-5, scale_offset=offset)
     want = rms_ref.rmsnorm(x, w, eps=1e-5, scale_offset=offset)
     torch.cuda.synchronize()
     assert rk.rmsnorm.launches == n + 2
+    assert rk.rmsnorm.launches_by_route[route] == by_route + 2
+    assert route == ("loop" if D % 8 else "regs")
     assert got.dtype == dt and got.shape == x.shape
     assert torch.equal(got, again)
     err = (got.float() - want.float()).abs()
@@ -127,6 +178,24 @@ def test_rmsnorm_matches_plain_on_card(rows, D, offset, dt):
         assert float(err.max()) < TOL[dt]
     with pytest.raises(ValueError):
         rk.rmsnorm(x.t(), w[:rows])             # not contiguous
+
+
+def test_rmsnorm_unaligned_view_takes_the_loop_on_card():
+    """A row view one element into its buffer cannot be read 16 bytes at
+    a time: the loop route, the same values as the plain version."""
+    dev = _card()
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(8 * 2049, generator=gen, device=dev).to(
+        torch.bfloat16)[1:1 + 8 * 2048].view(8, 2048)
+    w = torch.randn(2048, generator=gen, device=dev)
+    before = rk.rmsnorm.launches_by_route["loop"]
+    got = rk.rmsnorm(x, w)
+    want = rms_ref.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rk.rmsnorm.launches_by_route["loop"] == before + 1
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= 2.0**-7 * want.float().abs()).all())
 
 
 def test_zamba2_serving_engine_on_card_equals_cpu():
