@@ -15,7 +15,20 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    the main path's shapes (B=65,536 events, D=8 lanes, C=2**22 slots,
    Q=4,096 reads; a 2 x 2048 count-min sketch over Zipf keys hashed by
    ``telemetry.sketch.columns``; a 128-wide latency histogram row with
-   ages over all 32 buckets), for int32 and int64 keys; the two
+   ages over all 32 buckets), for int32 and int64 keys.
+   ``slate_update`` runs three key mixes: Zipf(1.2) over 1,048,576 keys
+   (the main path's), uniform over them (short runs) and one key for
+   the whole batch; each for sum and max, int32 and int64 keys, bitwise
+   on integer deltas, within 2*(n+1)*2**-24*(|table|+sum|d|) on float
+   deltas and bitwise on a second call; each timed beside its plain
+   version, ``index_add_`` (sum) and ``index_reduce_`` (amax) on each
+   row's run slot, which must give the plain version's table first.
+   The count kernels' fused routes (keys hashed in the kernel; ages
+   bucketed in it, the tick read on the card or passed as an int) are
+   held bitwise against their plain compositions at Zipf keys, int32
+   and int64 extremes, and ages on every bucket edge, int32 max and
+   negative, and timed beside the unfused kernel with its helper ops.
+   The two
    attention kernels at the serving shapes of phases 7 and 8 (flash:
    8 x 256 tokens, heads of 64, bf16, causal; decode: 8 requests over a
    512-row bf16 cache, ragged lengths; 14 query heads over 2 kv heads
@@ -39,9 +52,8 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    within 5e-5); ``ssd_scan`` and ``rmsnorm``
    also give the same bits on a second call — and times kernel and plain
    version on the same inputs by device time from torch.profiler.  No
-   single PyTorch call computes ``slate_update``, ``slate_lookup`` or
-   the chunked SSD recurrence (a segmented combine fused with a slot
-   read-modify-write; a probe walk fused with a row gather; a scan over
+   single PyTorch call computes ``slate_lookup`` or the chunked SSD
+   recurrence (a probe walk fused with a row gather; a scan over
    chunks), so they have no library time; the two count updates are
    timed beside ``torch.bincount``, the attention kernels beside
    ``scaled_dot_product_attention`` at both serving shapes (the
@@ -61,7 +73,8 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    is 1 (a count) and lanes 1-7 integers in [0, 8), so every lane is
    exact in f32.  Every slate is held against an independent numpy
    reference (bincounts and maxima over every event fed), the launch
-   counters must show both kernels ran, and no queue may drop.
+   counters must show both kernels ran, and no queue may drop.  Its
+   profiled ticks give ``slate_update``'s device ms under its own name.
 6. drives the telemetry path: the same workflow and feed with
    ``EngineConfig(telemetry=TelemetryConfig())`` (depth 2, width 2048,
    sample 128, window 8, 32 latency buckets), event times lagged by
@@ -72,8 +85,10 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    against the same reference (telemetry on vs off parity), the last
    report's top heavy hitter (key 0, the Zipf head, estimated at least
    at its true count in that window), each arc's histogram against a
-   numpy bucketing of the ages, the ``/metrics`` page, and that all
-   four kernels ran.
+   numpy bucketing of the ages, the ``/metrics`` page, that all four
+   kernels ran and that every count launch took its fused route (keys,
+   ages); its profiled ticks give the device operations a tick beside
+   phase 5's.
 7. drives the serving path: qwen2-0.5b at full width with random weights
    from ``--seed``, a ``Workflow`` of ``LMServeMapper(max_new=32,
    cache_len=512, bucket=8)`` and ``RequestSlate`` on
@@ -103,8 +118,12 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
 Each path's launch counters are set to 0 just before it and read just
 after.
 
-The line before the last is the kernel table as JSON (``launches`` sums
-the paths, ``launches_by_path`` splits it); the last line is
+The line before the last is the kernel table as JSON, a row for each
+TPU kernel (``slate_lookup_wide``, the int64 instance of
+``slate_lookup``, runs on no path: the paths have int32 keys);
+``launches`` sums the paths, ``launches_by_path`` splits it,
+``slate_update``'s ``by_mix`` holds its three mixes and the count
+kernels' ``fused`` their fused routes.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero and prints no result.  Without a CUDA device, or outside
 a checkout, it exits non-zero at once.
@@ -140,24 +159,28 @@ def sectors(nbytes: int) -> int:
     return -(-nbytes // SECTOR) * SECTOR
 
 
-def device_ms(fn, reps=20, warmup=3):
+def device_ms(fn, reps=20, warmup=3, sessions=3):
     """Mean device time of ``fn()`` in ms: the sum of the kernels and
     copies it runs, from torch.profiler, with no host gaps between them.
-    Raises when the profiler records no device events."""
+    A profiler session that records no device events (it happens, rarely,
+    after many sessions) is run again, up to ``sessions`` in all; then it
+    raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(sessions):
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / reps / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+        log("torch.profiler recorded no device time; profiling again")
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def zipf_cdf(device):
@@ -182,51 +205,68 @@ def tick_values(n, gen, device):
 
 
 # ---------------------------------------------------------------- phase 3
-def check_slate_update(dev, seed):
+SLATE_MIXES = ("zipf", "uniform", "one key")
+
+
+def slate_keys(mix, gen, dev):
+    """[B] sorted int32 keys: Zipf(1.2) over N_KEYS (the main path's),
+    uniform over N_KEYS (short runs), or one key for the whole batch."""
+    import torch
+    if mix == "zipf":
+        keys = zipf_keys(zipf_cdf(dev), B, gen)
+    elif mix == "uniform":
+        keys = torch.randint(0, N_KEYS, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    else:
+        keys = torch.full((B,), 7, dtype=torch.int32, device=dev)
+    return torch.sort(keys).values
+
+
+def slate_update_mix(mix, dev, gen):
+    """One key mix: the kernel against its plain version for sum and max,
+    int32 and int64 keys, bitwise on integer deltas and within the
+    rounding of two orders on float deltas, bitwise on a second call;
+    ``index_add_`` / ``index_reduce_`` against the plain version; then
+    device times and the byte bound.  Returns (times, max_abs_err)."""
     import torch
     from repro_torch.kernels.slate_update import kernel as uk
     from repro_torch.kernels.slate_update import ref as ur
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cdf = zipf_cdf(dev)
-    keys32 = torch.sort(zipf_keys(cdf, B, gen)).values
+    keys32 = slate_keys(mix, gen, dev)
     last = torch.ones(B, dtype=torch.bool, device=dev)
     last[:-1] = keys32[1:] != keys32[:-1]
     n_runs = int(last.sum())
     slots = torch.full((B,), -1, dtype=torch.int32, device=dev)
     slots[last] = torch.randperm(C, generator=gen, device=dev)[:n_runs].to(
         torch.int32)
-    runs = torch.unique_consecutive(keys32, return_counts=True)[1]
-    hot = int(runs.max())
+    seg = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.int64,
+                                             device=dev), last[:-1].long()]),
+                       0) - 1
+    hot = int(torch.bincount(seg).max())
     table = torch.randint(0, 1000, (C + 1, D), generator=gen,
                           device=dev).to(torch.float32)
     ints = tick_values(B, gen, dev)
     floats = torch.randn(B, D, generator=gen, device=dev)
-    log(f"slate_update inputs: B={B} D={D} C={C} runs={n_runs} "
+    log(f"slate_update {mix}: B={B} D={D} C={C} runs={n_runs} "
         f"longest_run={hot} ({hot / B:.3f} of the batch)")
 
     max_err = 0.0
     for kd in (torch.int32, torch.int64):
-        # int64 keys beyond 2**33 keep the int32 keys' order
+        # int64 keys beyond 2**33, negative ones too, keep the int32 order
         keys = keys32 if kd == torch.int32 else \
             keys32.to(torch.int64) * (2**33 + 1) - 2**40
         for op in ("sum", "max"):
             a = uk.slate_update(keys, ints, slots, table.clone(), op=op)
             b = ur.slate_update(keys, ints, slots, table.clone(), op=op)
             torch.cuda.synchronize()
-            ok = torch.equal(a, b)
-            log(f"slate_update {op} keys={str(kd)[6:]} integer deltas: "
-                f"bitwise={ok}")
-            if not ok:
-                raise AssertionError(f"slate_update {op} {kd} differs from "
-                                     f"its plain version")
+            if not torch.equal(a, b):
+                raise AssertionError(f"slate_update {mix} {op} {kd} differs "
+                                     f"from its plain version")
         # float deltas: both sides are within (n + 1) * 2**-24 * mass of
         # the exact sum of a run of n terms plus the table value, in any
         # order; their difference is within twice that
         a = uk.slate_update(keys, floats, slots, table.clone(), op="sum")
+        again = uk.slate_update(keys, floats, slots, table.clone(), op="sum")
         b = ur.slate_update(keys, floats, slots, table.clone(), op="sum")
-        seg = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.int64,
-                                                 device=dev),
-                                      (keys[1:] != keys[:-1]).long()]), 0) - 1
         mass = torch.zeros(n_runs, D, device=dev).index_add_(
             0, seg, floats.abs())
         nrun = torch.bincount(seg, minlength=n_runs).float()[:, None]
@@ -237,29 +277,70 @@ def check_slate_update(dev, seed):
         err = (a - b).abs()
         torch.cuda.synchronize()
         if not bool((err <= tol).all()):
-            raise AssertionError("slate_update float sum outside tolerance")
+            raise AssertionError(f"slate_update {mix} float sum outside "
+                                 "tolerance")
+        if not torch.equal(a, again):
+            raise AssertionError(f"slate_update {mix}: two calls on float "
+                                 "deltas differ")
         max_err = max(max_err, float(err.max()))
-        log(f"slate_update sum keys={str(kd)[6:]} float deltas: max_abs_err="
-            f"{float(err.max())} within 2*(n+1)*2**-24*(|table|+sum|d|)")
+        log(f"slate_update {mix} keys={str(kd)[6:]}: sum and max bitwise on "
+            f"integer deltas; float sum max_abs_err={float(err.max())} "
+            f"within 2*(n+1)*2**-24*(|table|+sum|d|), a second call "
+            f"bitwise")
 
+    # the library yardstick: each row scattered to its run's slot (the
+    # sink row C for rows of unslotted runs), built outside the timing
+    seg_slot = torch.full((n_runs,), C, dtype=torch.int64, device=dev)
+    seg_slot[seg[last]] = slots[last].long()
+    ev_slot = seg_slot[seg]
+    lib_sum = lambda t: t.index_add_(0, ev_slot, ints)
+    lib_max = lambda t: t.index_reduce_(0, ev_slot, ints, "amax",
+                                        include_self=True)
+    for op, lib in (("sum", lib_sum), ("max", lib_max)):
+        want = ur.slate_update(keys32, ints, slots, table.clone(), op=op)
+        if not torch.equal(lib(table.clone())[:C], want[:C]):
+            raise AssertionError(f"the library call for {op} differs from "
+                                 f"slate_update's plain version ({mix})")
     scratch = table.clone()
-    ms = device_ms(lambda: uk.slate_update(keys32, ints, slots, scratch))
-    plain_ms = device_ms(lambda: ur.slate_update(keys32, ints, slots,
-                                                 scratch))
+    t = {"ms": device_ms(lambda: uk.slate_update(keys32, ints, slots,
+                                                 scratch)),
+         "max_ms": device_ms(lambda: uk.slate_update(keys32, ints, slots,
+                                                     scratch, op="max")),
+         "plain_ms": device_ms(lambda: ur.slate_update(keys32, ints, slots,
+                                                       scratch)),
+         "library_ms": device_ms(lambda: lib_sum(scratch)),
+         "library_max_ms": device_ms(lambda: lib_max(scratch))}
     # keys, int32 slots and deltas read once; one row read and written
     # per run
     nbytes = (B * 4 + B * 4 + B * D * 4
               + n_runs * 2 * sectors(D * 4))
     ops = B * D
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    log(f"slate_update sum int32: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms (device time, torch.profiler, mean of 20), bound "
-        f"{bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s)")
+    t["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    log(f"slate_update {mix} int32: kernel sum {t['ms']:.5f} ms, max "
+        f"{t['max_ms']:.5f} ms; plain {t['plain_ms']:.5f} ms; index_add_ "
+        f"{t['library_ms']:.5f} ms, index_reduce_ amax "
+        f"{t['library_max_ms']:.5f} ms (device time, torch.profiler, mean "
+        f"of 20); bound {t['bound_ms']:.6f} ms ({nbytes} bytes at 3.35 "
+        f"TB/s)")
+    return t, max_err
+
+
+def check_slate_update(dev, seed):
+    """Three key mixes at the main path's shape; the kernel line holds
+    the Zipf mix (the main path's), ``by_mix`` all three."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    by_mix, max_err = {}, 0.0
+    for mix in SLATE_MIXES:
+        by_mix[mix], err = slate_update_mix(mix, dev, gen)
+        max_err = max(max_err, err)
+    z = by_mix["zipf"]
     return {"name": "slate_update", "route": "cuda",
             "source": "src/repro_torch/csrc/slate_update.cu",
             "replaces": "src/repro/kernels/slate_update/kernel.py:83",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": max_err, "ms": z["ms"], "plain_ms": z["plain_ms"],
+            "bound_ms": z["bound_ms"], "bound_by": "bytes",
+            "library_ms": z["library_ms"], "by_mix": by_mix}
 
 
 def check_slate_lookup(dev, seed):
@@ -268,8 +349,7 @@ def check_slate_lookup(dev, seed):
     from repro_torch.kernels.slate_lookup import ref as lr
     from repro_torch.slates import table as tbl
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    entry = None
-    max_err = 0.0
+    entries = []
     for kd in (torch.int32, torch.int64):
         draw = torch.randint(0, 2**30, (N_KEYS + N_KEYS // 8,),
                              generator=gen, device=dev)
@@ -303,7 +383,7 @@ def check_slate_lookup(dev, seed):
         b = lr.slate_lookup(t.keys, query, cand, t.vals["v"])
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip(a, b))
-        max_err = max(max_err, float((a[2] - b[2]).abs().max()),
+        max_err = max(float((a[2] - b[2]).abs().max()),
                       float((a[0] - b[0]).abs().max()))
         n_found = int(a[1].sum())
         log(f"slate_lookup keys={str(kd)[6:]} Q={Q} found={n_found} "
@@ -341,17 +421,18 @@ def check_slate_lookup(dev, seed):
             f"mean of 20); with the probe chain hashed on the card "
             f"kernel {path_ms:.5f} ms, plain {plain_path_ms:.5f} ms; bound "
             f"{bound_ms:.6f} ms ({nbytes} bytes at 3.35 TB/s)")
-        if kd == torch.int32:       # the main path's key type
-            entry = {"name": "slate_lookup", "route": "cuda",
-                     "source": "src/repro_torch/csrc/slate_lookup.cu",
-                     "replaces": "src/repro/kernels/slate_lookup/"
-                                 "kernel.py:124",
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes", "library_ms": None}
+        wide = kd == torch.int64
+        entries.append({
+            "name": "slate_lookup_wide" if wide else "slate_lookup",
+            "route": "cuda", "source": "src/repro_torch/csrc/slate_lookup.cu",
+            "replaces": "src/repro/kernels/slate_lookup/kernel.py:"
+                        + ("160" if wide else "124"),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": max_err})
         del t
         torch.cuda.empty_cache()
-    entry["max_abs_err"] = max_err
-    return entry
+    return entries
 
 
 def check_count_update(name, update, plain, counts, cols, add, extra=()):
@@ -394,20 +475,52 @@ def check_count_update(name, update, plain, counts, cols, add, extra=()):
             "library_ms": library_ms}
 
 
+def check_fused(name, route, fused, unfused, plain, state, cases,
+                nbytes):
+    """Hold a fused count route against its plain composition bitwise on
+    each of ``cases`` (argument tuples after the ``state`` tensors, which
+    each call updates in place), then time it beside the unfused kernel
+    with its helper ops and the plain composition, on the first case."""
+    import torch
+    for args in cases:
+        got = [t.clone() for t in state]
+        want = [t.clone() for t in state]
+        fused(*got, *args)
+        plain(*want, *args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} {route} route differs from its "
+                                 "plain composition")
+    t = {"route": route,
+         "ms": device_ms(lambda: fused(*state, *cases[0])),
+         "unfused_ms": device_ms(lambda: unfused(*state, *cases[0])),
+         "plain_ms": device_ms(lambda: plain(*state, *cases[0])),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"{name} {route} route: bitwise against its plain composition on "
+        f"{len(cases)} inputs; fused kernel {t['ms']:.5f} ms, unfused "
+        f"kernel with its helper ops {t['unfused_ms']:.5f} ms, plain "
+        f"composition {t['plain_ms']:.5f} ms (device time, torch.profiler, "
+        f"mean of 20); bound {t['bound_ms']:.6f} ms ({nbytes} bytes at "
+        f"3.35 TB/s)")
+    return t
+
+
 def check_countmin(dev, seed):
     """The engine's default sketch (2 x 2048) at B=65,536 Zipf keys
     hashed by ``columns``, about a tenth of the events masked, int32 and
-    int64 keys."""
+    int64 keys; then the fused route (keys hashed in the kernel) at the
+    same keys with the key types' extremes."""
     import torch
     from repro_torch.kernels.countmin import kernel as ck
     from repro_torch.kernels.countmin import ref as cr
     from repro_torch.telemetry import sketch as sk_mod
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     keys = zipf_keys(zipf_cdf(dev), B, gen)
-    salts = sk_mod.salts_tensor(sk_mod.make_salts(2), dev)
+    salts_np = sk_mod.make_salts(2)
+    salts = sk_mod.salts_tensor(salts_np, dev)
+    keys64 = keys.to(torch.int64) * (2**33 + 1) - 2**40
     cols = sk_mod.columns(keys, salts, 2048)
-    cols64 = sk_mod.columns(keys.to(torch.int64) * (2**33 + 1) - 2**40,
-                            salts, 2048)
+    cols64 = sk_mod.columns(keys64, salts, 2048)
     add = (torch.rand(B, generator=gen, device=dev) >= 0.1).to(torch.int32)
     counts = torch.randint(0, 1000, (2, 2048), generator=gen, device=dev,
                            dtype=torch.int32)
@@ -420,12 +533,25 @@ def check_countmin(dev, seed):
                            extra=((cols64, add),))
     log("countmin_update int32 and int64 keys: bitwise=True")
     e["replaces"] = "src/repro/kernels/countmin/kernel.py:59"
+    edge32, edge64 = keys.clone(), keys64.clone()
+    edge32[:4] = torch.tensor([0, -1, 2**31 - 1, -2**31], device=dev)
+    edge64[:7] = torch.tensor([-2**63, 2**63 - 1, -1, 0, 2**32, 2**32 - 1,
+                               -2**32], device=dev)
+    cases = [(k, add, salts_np) for k in (keys, edge32, keys64, edge64)]
+    e["fused"] = check_fused(
+        "countmin_update", "keys", ck.countmin_update_keys,
+        lambda c, k, a, s: ck.countmin_update(
+            c, sk_mod.columns(k, salts, 2048), a),
+        cr.countmin_update_keys, (counts,), cases,
+        B * 4 + B * 4 + 2 * counts.numel() * 4)
     return e
 
 
 def check_histogram(dev, seed):
     """One 128-wide histogram row at B=65,536 with ages spread over all
-    32 buckets, bucketed by ``latency.bucketize``."""
+    32 buckets, bucketed by ``latency.bucketize``; then the fused route
+    (ages bucketed in the kernel, the tick read on the card) at the same
+    ages and at every bucket edge, int32 max and negative ages."""
     import torch
     from repro_torch.kernels.histogram import kernel as hk
     from repro_torch.kernels.histogram import ref as hr
@@ -452,6 +578,32 @@ def check_histogram(dev, seed):
                            extra=((one, add),))
     log("histogram_update spread and single-bucket ages: bitwise=True")
     e["replaces"] = "src/repro/kernels/histogram/kernel.py:56"
+    top = 2**31 - 1
+    tick = torch.tensor(top, dtype=torch.int32, device=dev)
+    edges = [0, 1] + [v for k in range(1, 31)
+                      for v in ((1 << k) - 1, 1 << k, (1 << k) + 1)]
+    edges = torch.tensor([v for v in edges if v <= top]
+                         + [top, -1, -5, -top], device=dev)
+    edge_ts = (top - edges.repeat(B // edges.numel() + 1)[:B] + 2**31) \
+        % 2**32 - 2**31
+    cases = [(tick, (top - ages).to(torch.int32), add),
+             (tick, edge_ts.to(torch.int32), add),
+             (5, edge_ts.to(torch.int32), add)]
+    def unfused(c, s, t, ts, a):       # the telemetry path before
+        lat = hr.ages(t, ts)
+        hk.histogram_update(c, hr.bucketize(lat, 32)[None, :], a)
+        s.add_(torch.where(a > 0, lat, 0).sum(dtype=torch.int32))
+
+    # the arc's int32 latency sum too, its ages summing past 2**32
+    lat_sum = torch.zeros((), dtype=torch.int32, device=dev)
+    e["fused"] = check_fused(
+        "histogram_update", "ages",
+        lambda c, s, t, ts, a: hk.histogram_update_ages(
+            c, t, ts, a, n_buckets=32, lat_sum=s),
+        unfused,
+        lambda c, s, t, ts, a: hr.histogram_update_ages(
+            c, t, ts, a, n_buckets=32, lat_sum=s),
+        (counts, lat_sum), cases, B * 4 + B * 4 + 2 * counts.numel() * 4)
     return e
 
 
@@ -1201,8 +1353,8 @@ def end_to_end(dev, ticks, seed, card):
                 raise AssertionError(f"read_slate {name} {k} differs")
             if not counts[k] and row is not None:
                 raise AssertionError(f"read_slate {name} {k}: never fed")
-    profile_ticks(eng, state, source_fn, ticks, t_run / ticks)
-    return launches, ref, t_run / ticks
+    prof = profile_ticks(eng, state, source_fn, ticks, t_run / ticks)
+    return launches, ref, t_run / ticks, prof
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1298,7 +1450,7 @@ def check_metrics_page(text):
                                  f"_count series for arc {arc}")
 
 
-def telemetry_path(dev, ticks, seed, card, ref, off_ms):
+def telemetry_path(dev, ticks, seed, card, ref, off_ms, off_prof):
     import numpy as np
     import torch
     from repro_torch.core.engine import Engine, EngineConfig, StateHandle
@@ -1339,6 +1491,8 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms):
         torch.cuda.synchronize()
         for k in kernels:
             k.launches = 0
+        for k in kernels[2:]:
+            k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
         reader.start()
         t0 = time.perf_counter()
         state, _ = eng.run(handle.state, source_fn, ticks, handle=handle)
@@ -1353,6 +1507,8 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms):
         # the page after the last window (the live ones may predate it)
         metrics = reader.get("/metrics")
         launches = {k.__name__: k.launches for k in kernels}
+        routes = {k.__name__: dict(k.launches_by_route)
+                  for k in kernels[2:]}
     finally:
         reader.stop()
         server.close()
@@ -1365,11 +1521,16 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms):
         f"while the HTTP reader made {reader.rounds} rounds of 4 requests "
         f"(key 0's count as read live: {reader.hot_counts}); "
         f"drain {drained} ticks; {card}")
-    log(f"launches on the telemetry path {launches}; hot-key cache "
-        f"{cache.stats()}")
+    log(f"launches on the telemetry path {launches}, by route {routes}; "
+        f"hot-key cache {cache.stats()}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never ran on the telemetry path: "
                              f"{launches}")
+    fused = {"countmin_update": "keys", "histogram_update": "ages"}
+    for name, route in fused.items():
+        if routes[name][route] != launches[name] or routes[name]["cols"]:
+            raise AssertionError(f"{name}: a telemetry launch missed the "
+                                 f"fused {route} route: {routes[name]}")
     c = reader.hot_counts
     if reader.rounds == 0 or not c or c != sorted(c):
         raise AssertionError(f"the HTTP reader made {reader.rounds} rounds "
@@ -1421,7 +1582,12 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms):
     log(f"/metrics after the run: {len(metrics.splitlines())} lines parse, "
         f"with _bucket/_sum/_count for both arcs; the last live page had "
         f"{len(reader.metrics.splitlines())} lines")
-    profile_ticks(eng, state, source_fn, ticks, t_run / ticks)
+    prof = profile_ticks(eng, state, source_fn, ticks, t_run / ticks)
+    if prof and off_prof:
+        log(f"telemetry on against off in the profiled ticks: "
+            f"{prof[1]:.1f} against {off_prof[1]:.1f} device operations a "
+            f"tick (+{prof[1] - off_prof[1]:.1f}), busy {prof[0]:.4f} "
+            f"against {off_prof[0]:.4f} ms (+{prof[0] - off_prof[0]:.4f})")
     return launches
 
 
@@ -1946,9 +2112,11 @@ def profile_serving_tick(eng, state, cfg, dev, seed, tick_s):
 def profile_ticks(eng, state, source_fn, start, tick_s, n=8):
     """Where a tick's time goes: one chunk of ``n`` more ticks under
     torch.profiler — device busy time per tick (sum of kernel and copy
-    time), device operations per tick, and the kernels that take most
-    of the device time.  The idle share compares the busy time with the
-    unprofiled tick time of the main run."""
+    time), device operations per tick, the kernels that take most of the
+    device time, and the port's own kernels of this path by name.  The
+    idle share compares the busy time with the unprofiled tick time of
+    the main run.  Returns (busy ms, operations) a tick, or None when the
+    profiler recorded no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1963,18 +2131,26 @@ def profile_ticks(eng, state, source_fn, start, tick_s, n=8):
     if not dev_events:
         log(f"profile of {n} ticks: the profiler recorded no device "
             f"events (device busy time not measured)")
-        return
+        return None
     busy_us = sum(e.device_time_total for e in dev_events) / n
+    ops = len(dev_events) / n
     by_name = {}
     for e in dev_events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"profile of {n} ticks: device busy {busy_us / 1e3:.4f} ms/tick, "
-        f"{len(dev_events) / n:.1f} device operations/tick, profiled wall "
+        f"{ops:.1f} device operations/tick, profiled wall "
         f"{wall / n * 1e3:.3f} ms/tick; idle share against the unprofiled "
         f"{tick_s * 1e3:.3f} ms/tick: {1 - busy_us / 1e6 / tick_s:.4f}")
     for name, us in top:
         log(f"  {us / 1e3:.4f} ms/tick  {name[:100]}")
+    for kname in ("slate_update_kernel", "slate_lookup", "countmin_kernel"):
+        hits = [e.device_time_total for e in dev_events if kname in e.name]
+        if hits:
+            log(f"  {kname}: {sum(hits) / n / 1e3:.4f} ms/tick over "
+                f"{len(hits) / n:.1f} launches a tick, "
+                f"{sum(hits) / len(hits) / 1e3:.5f} ms a launch")
+    return busy_us / 1e3, ops
 
 
 def main(argv=None):
@@ -2014,7 +2190,7 @@ def main(argv=None):
         f"{time.perf_counter() - t0:.2f} s")
 
     entries = [check_slate_update(dev, args.seed),
-               check_slate_lookup(dev, args.seed),
+               *check_slate_lookup(dev, args.seed),
                check_countmin(dev, args.seed),
                check_histogram(dev, args.seed),
                check_flash_attention(dev, args.seed),
@@ -2026,11 +2202,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     # each path's launches, counted from 0 just before it runs
     by_path = {}
-    by_path["main"], ref, off_s = end_to_end(dev, args.ticks, args.seed,
-                                             card)
+    by_path["main"], ref, off_s, off_prof = end_to_end(
+        dev, args.ticks, args.seed, card)
     torch.cuda.empty_cache()
     by_path["telemetry"] = telemetry_path(dev, args.ticks, args.seed, card,
-                                          ref, off_s)
+                                          ref, off_s, off_prof)
     torch.cuda.empty_cache()
     for arch in SERVE_ARCHS:
         by_path[f"serving {arch}"] = serving_path(dev, args.seed, card, arch)
@@ -2039,12 +2215,14 @@ def main(argv=None):
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}
         e["launches"] = sum(e["launches_by_path"].values())
-        if e["launches"] <= 0:
+        # the int64 instance of slate_lookup: no path has int64 keys
+        if e["launches"] <= 0 and e["name"] != "slate_lookup_wide":
             raise AssertionError(f"{e['name']} never ran on a path")
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms"]
-    log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+            "bound_by", "library_ms", "by_mix", "fused"]
+    log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
+                                for e in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

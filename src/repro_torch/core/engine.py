@@ -226,9 +226,6 @@ class Engine:
         if self.cfg.telemetry is not None:
             self.telemetry = MetricsRegistry(
                 self.cfg.telemetry, batch_size=self.cfg.batch_size)
-            # made on the device once: a copy inside the tick would sync
-            self._salts = sk_mod.salts_tensor(self.telemetry.salts,
-                                              self.device)
             if self.cfg.telemetry.trace:
                 self.tracer = Tracer()
 
@@ -329,7 +326,7 @@ class Engine:
                 # key-heat telemetry on the keys each updater processes:
                 # state the tick never reads (the parity contract)
                 sketch = sk_mod.sketch_update(
-                    sketch, batch.key, batch.valid, self._salts,
+                    sketch, batch.key, batch.valid, self.telemetry.salts,
                     impl=cfg.telemetry.impl)
             if lat_hist is not None and isinstance(op, Updater):
                 # event-latency telemetry (DESIGN.md 18): each event's

@@ -1,4 +1,5 @@
 """Latency-histogram update: CUDA kernel, plain version and dispatcher."""
-from repro_torch.kernels.histogram.ops import histogram_update
+from repro_torch.kernels.histogram.ops import (histogram_update,
+                                               histogram_update_ages)
 
-__all__ = ["histogram_update"]
+__all__ = ["histogram_update", "histogram_update_ages"]

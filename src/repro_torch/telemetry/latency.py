@@ -16,7 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels.histogram import histogram_update
+from repro_torch.kernels.histogram import histogram_update_ages
+# the plain bucketing, kept here under its JAX package name
+from repro_torch.kernels.histogram.ref import bucketize  # noqa: F401
 
 # Logical power-of-two buckets; 32 covers the full int32 latency range.
 # The device row keeps the JAX package's width (padded to 128) so state
@@ -42,33 +44,16 @@ def make_hist(arcs: Sequence[str], n_buckets: int,
             for a in arcs}
 
 
-def bucketize(lat: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """[B] int32 latencies -> [B] int32 bucket indices: 0 -> 0, 1 -> 1,
-    [2,4) -> 2, ... [2^(b-1), 2^b) -> b, clamped to the top bucket.
-
-    The JAX package takes ``32 - clz(lat)``; torch has no clz, so the
-    bit-length is the count of powers of two ``2^0 .. 2^30`` at or below
-    ``lat`` (``searchsorted``), exact for every int32 — float ``log2``
-    would misplace ``2^k - 1`` above 2^24."""
-    lat = torch.clamp(lat, min=0).to(torch.int32)
-    pow2 = torch.bitwise_left_shift(
-        torch.ones(31, dtype=torch.int32, device=lat.device),
-        torch.arange(31, dtype=torch.int32, device=lat.device))
-    b = torch.searchsorted(pow2, lat, right=True)
-    return torch.clamp(b, max=n_buckets - 1).to(torch.int32)
-
-
 def hist_update(h, tick, ts, valid, *, n_buckets: int, impl: str = "auto"):
     """Fold one dequeued batch into one arc's histogram inside the tick:
-    fixed shapes, no host sync; ``counts`` is updated in place.  ``tick -
-    ts`` is the event's age at dequeue, clamped at 0."""
-    lat = torch.clamp(tick - ts, min=0).to(torch.int32)
-    cols = bucketize(lat, n_buckets)[None, :]          # [1, B]
-    add = valid.to(torch.int32)
-    return {
-        "counts": histogram_update(h["counts"], cols, add, impl=impl),
-        "sum": h["sum"] + torch.where(valid, lat, 0).sum(dtype=torch.int32),
-    }
+    fixed shapes, no host sync; ``counts`` and the int32 ``sum`` are
+    updated in place (the tick state is, and window reads copy it).
+    ``tick - ts`` is the event's age at dequeue, clamped at 0; on the card
+    one kernel buckets the ages and sums them (``tick`` read on the
+    device)."""
+    histogram_update_ages(h["counts"], tick, ts, valid.to(torch.int32),
+                          n_buckets=n_buckets, lat_sum=h["sum"], impl=impl)
+    return {"counts": h["counts"], "sum": h["sum"]}
 
 
 # ---- host-side readout (window-boundary snapshots) -------------------

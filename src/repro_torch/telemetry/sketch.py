@@ -9,7 +9,8 @@ small key-sample ring, from which ``heavy_hitters`` takes its
 candidates.
 
 ``sketch_update`` runs inside the tick on the keys each updater
-dequeues (``kernels/countmin``); ``estimate`` / ``heavy_hitters`` read a
+dequeues (``kernels/countmin``; on the card its kernel hashes the
+columns itself); ``estimate`` / ``heavy_hitters`` read a
 host snapshot taken at window boundaries only.  ``decay`` ages the
 counters at those boundaries; ``total`` stays monotone.
 """
@@ -21,8 +22,11 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device, torch_dtype
-from repro_torch.core.hashing import _mix32_np, fold_u32, fold_u32_np, mix32
-from repro_torch.kernels.countmin import countmin_update
+from repro_torch.core.hashing import _mix32_np, fold_u32_np
+from repro_torch.kernels.countmin import countmin_update_keys
+# the plain column hash, kept here under its JAX package name
+from repro_torch.kernels.countmin.ref import (  # noqa: F401
+    columns, salts_tensor)
 
 
 def make_salts(depth: int, seed: int = 0x7E1E) -> np.ndarray:
@@ -46,36 +50,19 @@ def make_sketch(depth: int, width: int, sample: int,
     }
 
 
-def salts_tensor(salts: np.ndarray, device) -> torch.Tensor:
-    """Salts as the int64 tensor ``columns`` takes (uint32 values).  Make
-    it once per device: a host-to-device copy inside the tick would sync
-    the host."""
-    return torch.as_tensor(np.asarray(salts, np.int64), device=device)
-
-
-def columns(keys: torch.Tensor, salts, width: int) -> torch.Tensor:
-    """[B] integer keys -> [depth, B] int32 hashed columns, bitwise the
-    JAX package's (64-bit keys enter through the same xor-fold).
-    ``salts``: numpy uint32 or the tensor of :func:`salts_tensor`."""
-    s = salts if isinstance(salts, torch.Tensor) \
-        else salts_tensor(salts, keys.device)
-    h = mix32(fold_u32(keys)[None, :] ^ s[:, None])
-    return (h % width).to(torch.int32)
-
-
 def sketch_update(sk, keys, valid, salts, *, impl: str = "auto"):
     """Fold one batch of (keys, valid) into the sketch inside the tick:
-    fixed shapes, no host sync.  ``counts`` is updated in place; the
+    fixed shapes, no host sync.  ``salts``: the numpy uint32 row salts of
+    :func:`make_salts` (kernel arguments on the card, a tensor made once
+    per device on the plain route).  ``counts`` is updated in place; the
     other leaves are new tensors.
 
     The sample ring update is an elementwise select: batch row ``i``
     overwrites ring slot ``i`` when valid, so a key enters only via the
     first ``S`` rows — enough to discover heavy hitters; the counters
     are the exact part."""
-    width = sk["counts"].shape[1]
     add = valid.to(torch.int32)
-    counts = countmin_update(sk["counts"], columns(keys, salts, width),
-                             add, impl=impl)
+    counts = countmin_update_keys(sk["counts"], keys, add, salts, impl=impl)
     S = sk["sample"].shape[0]
     B = keys.shape[0]
     if B >= S:

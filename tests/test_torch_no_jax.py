@@ -1,6 +1,8 @@
 """The port stands alone: nothing in ``src/repro_torch/`` or
 ``chip_smoke.py`` imports JAX or the JAX package (``repro``; any
-``repro.*`` import pulls in the whole JAX stack)."""
+``repro.*`` import pulls in the whole JAX stack).  Nor do the card-only
+test files (``tests/test_torch_*_kernel.py``): the machine with the card
+has no JAX, so a file that imports it cannot be collected there."""
 import re
 from pathlib import Path
 
@@ -15,7 +17,7 @@ BAD = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    return files
+    return files + sorted((ROOT / "tests").glob("test_torch_*_kernel.py"))
 
 
 def test_pattern_catches_what_it_must():

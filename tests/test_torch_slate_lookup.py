@@ -108,20 +108,3 @@ def test_int64_and_int32_tables_read_alike():
     assert torch.equal(lf, f)
     assert torch.equal(r[f], t.vals["v"][s[f]])
     assert torch.all(r[~f] == 0) and torch.all(s[~f] == -1)
-
-
-@pytest.mark.parametrize("key_dtype", [np.int32, np.int64])
-def test_kernel_matches_ref_on_card(key_dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from repro_torch.kernels.slate_lookup import kernel as k
-    C = 1 << 14
-    t, live, dead = _populated(C, 6000, 6, key_dtype=key_dtype)
-    q = torch.from_numpy(_queries(live, dead, 6, key_dtype)).cuda()
-    tk, tv = t.keys.cuda(), t.vals["v"].cuda()
-    cand = ttbl._probe_seq(q, C).to(torch.int32)
-    a = k.slate_lookup(tk, q, cand, tv)
-    b = tref.slate_lookup(tk, q, cand, tv)
-    torch.cuda.synchronize()
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)

@@ -2,8 +2,8 @@
 (``kernels/slate_update/ref.py``) is held against the JAX package's
 oracle: bitwise for the sum monoid under the counter contract
 (integer-valued f32) and for max, within a stated tolerance for float
-sums.  The CUDA kernel is held against the plain version where a card
-is present."""
+sums.  The CUDA kernel is held against the plain version on the card in
+``tests/test_torch_slate_kernel.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -132,23 +132,6 @@ def test_cpu_tensor_never_reaches_the_kernel():
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
-@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
-def test_kernel_matches_ref_on_card(op, key_dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from repro_torch.kernels.slate_update import kernel as k
-    keys, deltas, slots, table = _case(8, B=4096, D=16, C=1 << 14,
-                                       n_keys=600)
-    dev = torch.device("cuda")
-    kt = torch.from_numpy(keys).to(dev, key_dtype)
-    dt, st = torch.from_numpy(deltas).to(dev), torch.from_numpy(slots).to(dev)
-    a = k.slate_update(kt, dt, st, torch.from_numpy(table).to(dev), op=op)
-    b = tref.slate_update(kt, dt, st, torch.from_numpy(table).to(dev), op=op)
-    torch.cuda.synchronize()
-    assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("op", ["sum", "max"])
 def test_ref_rows_without_slot_leave_table_bitwise(op):
     """Rows with no slot write nothing the JAX oracle would not: a table
     of -0.0 keeps its sign bits where no run lands, also when no row of
@@ -160,3 +143,48 @@ def test_ref_rows_without_slot_leave_table_bitwise(op):
         got = _port(keys, deltas, s, table, op)
         assert np.array_equal(np.signbit(want), np.signbit(got))
         assert np.array_equal(want, got)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("seed", [11, 12])
+def test_ref_slots_inside_runs_fold_inclusive_prefixes(op, seed):
+    """The kernel's contract: a slot on a row that is not its run's last
+    folds the run's prefix up to that row (the TPU kernel's segmented
+    scan; the JAX oracle's run totals agree on run-last rows).  Held
+    against a loop, and on run-last rows against the JAX oracle."""
+    rng = np.random.default_rng(seed)
+    B, D, C = 700, 8, 2048
+    keys = _zipf_sorted(rng, B, 30)
+    deltas = rng.integers(-3, 8, size=(B, D)).astype(np.float32)
+    table = rng.integers(0, 100, size=(C, D)).astype(np.float32)
+    slots = np.full(B, -1, np.int32)
+    rows = np.flatnonzero(rng.random(B) < 0.4)
+    slots[rows] = rng.choice(C, size=rows.size, replace=False)
+    want = table.copy()
+    acc = np.zeros(D, np.float32)
+    for i in range(B):
+        d = deltas[i] if op == "sum" else np.maximum(deltas[i], 0)
+        if i == 0 or keys[i] != keys[i - 1]:
+            acc = d
+        else:
+            acc = acc + d if op == "sum" else np.maximum(acc, d)
+        if slots[i] >= 0:
+            r = slots[i]
+            want[r] = want[r] + acc if op == "sum" \
+                else np.maximum(want[r], acc)
+    assert np.array_equal(_port(keys, deltas, slots, table, op), want)
+    last = np.append(keys[1:] != keys[:-1], True)
+    only_last = np.where(last, slots, -1)
+    assert np.array_equal(_port(keys, deltas, only_last, table, op),
+                          _jax(keys, deltas, only_last, table, op))
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_run_prefixes_end_in_run_totals(op):
+    keys, deltas, _, _ = _case(13)
+    pre = tref.run_prefixes(torch.from_numpy(keys), torch.from_numpy(deltas),
+                            op=op)
+    tot = tref.run_totals(torch.from_numpy(keys), torch.from_numpy(deltas),
+                          op=op)
+    last = torch.from_numpy(np.append(keys[1:] != keys[:-1], True))
+    assert torch.equal(pre[last], tot[last])

@@ -186,6 +186,119 @@ def test_decay_matches_jax_bitwise(factor):
     assert np.array_equal(np.asarray(jd["counts"]), td["counts"].numpy())
 
 
+# ---- the fused routes' plain compositions ----
+I32 = (-2**31, 2**31 - 1)
+
+
+def _edge_keys(rng, dtype):
+    """Random keys over the whole key type plus its extremes: for int64,
+    negative keys and keys above 2**32 (they reach the xor-fold)."""
+    if dtype == np.int64:
+        return np.concatenate([
+            rng.integers(-2**62, 2**62, 400), [2**32, 2**32 - 1, -2**32,
+                                                2**33 + 5, -1, 0,
+                                                2**63 - 1, -2**63],
+            np.full(30, 2**40 + 3)]).astype(np.int64)
+    return np.concatenate([rng.integers(I32[0], I32[1], 400),
+                           [0, -1, I32[1], I32[0]],
+                           np.full(30, 77)]).astype(np.int32)
+
+
+def _edge_ages():
+    vals = [0, 1]
+    for k in range(1, 31):
+        vals += [(1 << k) - 1, 1 << k, (1 << k) + 1]
+    return [v for v in vals if v <= I32[1]] + [I32[1], -1, -5, I32[0] + 1]
+
+
+@pytest.mark.parametrize("depth,width", [(2, 2048), (4, 1000)])
+def test_keys_route_plain_composition_matches_jax_sketch_update(depth,
+                                                                width):
+    """``countmin_update_keys`` on the CPU (the fused route's plain
+    version) gives the JAX ``sketch_update``'s counters bitwise at int32
+    keys over the whole range; int64 keys against the JAX package's host
+    hash (its device path needs x64)."""
+    from repro_torch.kernels.countmin import countmin_update_keys
+    from repro_torch.kernels.countmin import kernel as k
+    rng = np.random.default_rng(depth)
+    salts = jsk.make_salts(depth)
+    counts = rng.integers(0, 50, (depth, width)).astype(np.int32)
+    for dtype in (np.int32, np.int64):
+        keys = _edge_keys(rng, dtype)
+        valid = rng.random(keys.size) < 0.85
+        before = k.countmin_update.launches
+        got = countmin_update_keys(
+            torch.from_numpy(counts.copy()), torch.from_numpy(keys),
+            torch.from_numpy(valid.astype(np.int32)), salts).numpy()
+        assert k.countmin_update.launches == before     # CPU: plain
+        if dtype == np.int32:
+            j = {**jsk.make_sketch(depth, width, 8),
+                 "counts": jnp.asarray(counts)}
+            j = jsk.sketch_update(j, jnp.asarray(keys), jnp.asarray(valid),
+                                  salts, impl="ref")
+            want = np.asarray(j["counts"])
+        else:
+            cols = np.stack([j_mix32_np(j_fold_u32_np(keys) ^ np.uint32(s))
+                             % np.uint32(width) for s in salts])
+            want = counts.copy()
+            for r in range(depth):
+                np.add.at(want[r], cols[r][valid].astype(np.int64), 1)
+        assert np.array_equal(got, want), dtype
+
+
+@pytest.mark.parametrize("n_buckets", [32, 8, 1])
+def test_ages_route_plain_composition_matches_jax_hist_update(n_buckets):
+    """``histogram_update_ages`` on the CPU (the fused route's plain
+    version) gives the JAX ``hist_update``'s counts and int32 latency sum
+    bitwise (the sum wraps past int32 max) at ages on every bucket edge,
+    int32 max and negative, with the tick as a 0-d tensor or an int, and
+    a tick near int32 max whose differences wrap."""
+    from repro_torch.kernels.histogram import histogram_update_ages
+    from repro_torch.telemetry import latency as tlat
+    from repro.telemetry import latency as jlat
+    rng = np.random.default_rng(n_buckets)
+    w = tlat.pad_width(n_buckets)
+    for tick in (2**26, I32[1], 5):
+        ages = np.asarray(_edge_ages(), np.int64)
+        ts = ((tick - ages + 2**31) % 2**32 - 2**31).astype(np.int32)
+        valid = rng.random(ts.size) < 0.8
+        counts = rng.integers(0, 50, (1, w)).astype(np.int32)
+        start = np.int32(2**31 - 7)
+        jh = jlat.hist_update({"counts": jnp.asarray(counts),
+                               "sum": jnp.asarray(start)},
+                              jnp.asarray(np.int32(tick)), jnp.asarray(ts),
+                              jnp.asarray(valid), n_buckets=n_buckets,
+                              impl="ref")
+        for t in (torch.tensor(tick, dtype=torch.int32), tick):
+            lat_sum = torch.tensor(start)
+            got = histogram_update_ages(
+                torch.from_numpy(counts.copy()), t, torch.from_numpy(ts),
+                torch.from_numpy(valid.astype(np.int32)),
+                n_buckets=n_buckets, lat_sum=lat_sum).numpy()
+            assert np.array_equal(got, np.asarray(jh["counts"])), tick
+            # the ages sum past int32 max: both wrap the same way
+            assert int(lat_sum) == int(jh["sum"]), tick
+
+
+def test_fused_routes_never_launch_on_the_cpu():
+    from repro_torch.kernels.countmin import countmin_update_keys
+    from repro_torch.kernels.histogram import histogram_update_ages
+    counts = torch.zeros((2, 64), dtype=torch.int32)
+    keys = torch.arange(10, dtype=torch.int32)
+    add = torch.ones(10, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        countmin_update_keys(counts, keys, add, jsk.make_salts(2),
+                             impl="cuda")
+    s = torch.zeros((), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        histogram_update_ages(counts[:1], torch.tensor(3, dtype=torch.int32),
+                              keys, add, n_buckets=32, lat_sum=s,
+                              impl="cuda")
+    with pytest.raises(ValueError, match="unknown histogram impl"):
+        histogram_update_ages(counts[:1], 3, keys, add, n_buckets=32,
+                              lat_sum=s, impl="pallas")
+
+
 # ---- the engine with telemetry on ----
 def _workflows():
     j = JWorkflow([PassThroughMapper(), CountingUpdater(),
