@@ -23,6 +23,16 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    deltas and bitwise on a second call; each timed beside its plain
    version, ``index_add_`` (sum) and ``index_reduce_`` (amax) on each
    row's run slot, which must give the plain version's table first.
+   ``slate_lookup``'s three routes, int32 and int64 keys, each bitwise
+   against its plain version: ``cand`` (given candidates) and ``keys``
+   (the chain hashed in the kernel) at the read shape (Q=4,096 over
+   2**22 slots holding 1,048,576 keys, a quarter expired by TTL; half
+   the queries live, a quarter dead, a quarter absent), ``keys`` also
+   timed beside today's read path (the torch hash and a ``cand``
+   launch); ``find`` (hashed, first hit or empty slot, pending rows
+   only) at the insert shape (B=65,536 rows of a Zipf batch, pending on
+   the run-last rows, over a table holding the 1,048,576 even keys
+   below 2**21, load 0.25), also with nothing pending.
    The count kernels' fused routes (keys hashed in the kernel; ages
    bucketed in it, the tick read on the card or passed as an int) are
    held bitwise against their plain compositions at Zipf keys, int32
@@ -53,7 +63,7 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    also give the same bits on a second call — and times kernel and plain
    version on the same inputs by device time from torch.profiler.  No
    single PyTorch call computes ``slate_lookup`` or the chunked SSD
-   recurrence (a probe walk fused with a row gather; a scan over
+   recurrence (a hashed probe walk fused with a row gather; a scan over
    chunks), so they have no library time; the two count updates are
    timed beside ``torch.bincount``, the attention kernels beside
    ``scaled_dot_product_attention`` at both serving shapes (the
@@ -73,7 +83,11 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    is 1 (a count) and lanes 1-7 integers in [0, 8), so every lane is
    exact in f32.  Every slate is held against an independent numpy
    reference (bincounts and maxima over every event fed), the launch
-   counters must show both kernels ran, and no queue may drop.  Its
+   counters must show both kernels ran, and no queue may drop.  Every
+   read must take ``slate_lookup``'s ``keys`` route and every
+   ``insert_or_find`` walk its ``find`` route (a positive multiple of
+   INSERT_ROUNDS launches), no launch ``cand``, and no torch probe hash
+   or walk may run (``torch_probe_calls``; the same in phases 6-8).  Its
    profiled ticks give ``slate_update``'s device ms under its own name.
 6. drives the telemetry path: the same workflow and feed with
    ``EngineConfig(telemetry=TelemetryConfig())`` (depth 2, width 2048,
@@ -122,8 +136,10 @@ The line before the last is the kernel table as JSON, a row for each
 TPU kernel (``slate_lookup_wide``, the int64 instance of
 ``slate_lookup``, runs on no path: the paths have int32 keys);
 ``launches`` sums the paths, ``launches_by_path`` splits it,
-``slate_update``'s ``by_mix`` holds its three mixes and the count
-kernels' ``fused`` their fused routes.  The last line is
+``slate_update``'s ``by_mix`` holds its three mixes, the count
+kernels' ``fused`` their fused routes, and ``slate_lookup``'s
+``routes`` its three routes (its ``ms`` and bound are the ``keys``
+route's, the read path's) and ``launches_by_route`` their launches.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero and prints no result.  Without a CUDA device, or outside
 a checkout, it exits non-zero at once.
@@ -343,95 +359,205 @@ def check_slate_update(dev, seed):
             "library_ms": z["library_ms"], "by_mix": by_mix}
 
 
-def check_slate_lookup(dev, seed):
+def probes_to_stop(table_keys, query, cand, empty_stops):
+    """Probes the walk must read, summed over the queries: up to the
+    first hit (or, with ``empty_stops``, the first ``EMPTY``), all P
+    where none stops it."""
+    import torch
+    ck = table_keys[cand]
+    stop = ck == query[None]
+    if empty_stops:
+        stop |= ck == -1
+    first = torch.where(stop.any(0), torch.argmax(stop.to(torch.uint8), 0)
+                        + 1, cand.shape[0])
+    return int(first.sum())
+
+
+def route_times(name, kernel, plain, nbytes, **more):
+    """Device ms of a route and of its plain version, and the byte bound;
+    ``more`` names other callables to time beside them."""
+    t = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    t.update({k: device_ms(fn) for k, fn in more.items()})
+    extra = "".join(f", {k} {v:.5f} ms" for k, v in t.items()
+                    if k in more)
+    log(f"{name}: kernel {t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms"
+        f"{extra} (device time, torch.profiler, mean of 20); bound "
+        f"{t['bound_ms']:.6f} ms ({nbytes} bytes at 3.35 TB/s)")
+    return t
+
+
+def same_outputs(name, got, want):
+    """Bitwise equality of two output tuples (None beside None); returns
+    the largest absolute difference (0)."""
+    import torch
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if (a is None) != (b is None) or (
+                a is not None and (a.dtype != b.dtype
+                                   or not torch.equal(a, b))):
+            raise AssertionError(f"{name} differs from its plain version")
+    return max(float((a.double() - b.double()).abs().max())
+               for a, b in zip(got, want) if a is not None and a.numel())
+
+
+def lookup_read_routes(dev, gen, kd):
+    """The read shape: Q queries over a table of C slots holding N_KEYS
+    keys, a quarter of them expired by TTL; the queries half live, a
+    quarter dead, a quarter absent.  ``cand`` and ``keys`` against their
+    plain versions, bitwise, and their times; ``keys`` also beside
+    today's read path (the torch hash and a ``cand`` launch)."""
     import torch
     from repro_torch.kernels.slate_lookup import kernel as lk
     from repro_torch.kernels.slate_lookup import ref as lr
     from repro_torch.slates import table as tbl
+    draw = torch.randint(0, 2**30, (N_KEYS + N_KEYS // 8,), generator=gen,
+                         device=dev)
+    ids = torch.unique(draw)[:N_KEYS]
+    ids = ids[torch.randperm(ids.numel(), generator=gen, device=dev)]
+    keys = ids.to(kd) if kd == torch.int32 else \
+        ids.to(torch.int64) * (2**33 + 3) - 2**45
+    t = tbl.make_table(C, {"v": ((D,), torch.float32)}, key_dtype=kd,
+                       device=dev)
+    for i in range(0, N_KEYS, B):
+        part = keys[i:i + B]
+        tbl.insert_or_find(t, part, torch.ones_like(part, dtype=torch.bool))
+    t.vals["v"].copy_(torch.randn(C + 1, D, generator=gen, device=dev))
+    # TTL: a quarter of the rows are stale at tick 100 with ttl 10
+    t.ts.copy_(torch.where(torch.rand(C + 1, generator=gen, device=dev)
+                           < 0.25, 0, 95).to(torch.int32))
+    tbl.expire_ttl(t, torch.tensor(100, dtype=torch.int32, device=dev), 10)
+    present = (t.keys[:C] != tbl.EMPTY)
+    live = t.keys[:C][present]
+    dead = keys[~torch.isin(keys, live)]
+    absent = (keys[:Q // 4] + 1) if kd == torch.int64 else \
+        torch.randint(2**30, 2**31 - 1, (Q // 4,), generator=gen,
+                      device=dev).to(kd)
+    pick = lambda x, n: x[torch.randperm(x.numel(), generator=gen,
+                                         device=dev)[:n]]
+    query = torch.cat([pick(live, Q // 2), pick(dead, Q // 4), absent])
+    query = query[torch.randperm(Q, generator=gen, device=dev)]
+    vals, kname = t.vals["v"], str(kd)[6:]
+    cand = tbl._probe_seq(query, C).to(torch.int32)
+    err = same_outputs(f"slate_lookup cand {kname}",
+                       lk.slate_lookup(t.keys, query, cand, vals),
+                       lr.slate_lookup(t.keys, query, cand, vals))
+    got = lk.slate_lookup_keys(t.keys, query, vals, capacity=C)
+    err = max(err, same_outputs(
+        f"slate_lookup keys {kname}", got,
+        lr.slate_lookup_keys(t.keys, query, vals, C)))
+    n_found = int(got[1].sum())
+    log(f"slate_lookup {kname} read shape: Q={Q} over C={C} slots holding "
+        f"{int(present.sum())} keys after TTL, found={n_found} (live "
+        f"{Q // 2}, ttl-expired {Q // 4}, absent {Q // 4}); cand and keys "
+        f"routes bitwise against their plain versions")
+    if n_found != Q // 2:
+        raise AssertionError(f"slate_lookup {kd} misses live keys")
+    # one sector a probe the hit rule needs and a row a hit; query read
+    # once, int32 slot + found + row written a query
+    kb = query.element_size()
+    walk = (Q * kb + probes_to_stop(t.keys, query, cand, False) * SECTOR
+            + n_found * sectors(D * 4) + Q * (4 + 1 + D * 4))
+    routes = {
+        "cand": route_times(
+            f"slate_lookup cand {kname}",
+            lambda: lk.slate_lookup(t.keys, query, cand, vals),
+            lambda: lr.slate_lookup(t.keys, query, cand, vals),
+            walk + cand.numel() * 4),
+        "keys": route_times(
+            f"slate_lookup keys {kname}",
+            lambda: lk.slate_lookup_keys(t.keys, query, vals, capacity=C),
+            lambda: lr.slate_lookup_keys(t.keys, query, vals, C), walk,
+            today_ms=lambda: lk.slate_lookup(
+                t.keys, query, tbl._probe_seq(query, C).to(torch.int32),
+                vals))}
+    del t
+    torch.cuda.empty_cache()
+    return routes, err
+
+
+def lookup_find_route(dev, gen, kd):
+    """The insert shape: B rows of a sorted Zipf(1.2) batch over N_KEYS
+    keys, pending on the run-last rows, against a table of C slots
+    holding N_KEYS keys (load 0.25): the even keys below 2 * N_KEYS, so
+    about half the pending keys are present.  ``find`` against the torch
+    walk masked by ``pending``, bitwise, and its times (also with
+    nothing pending: an insert's later rounds)."""
+    import torch
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.kernels.slate_lookup import ref as lr
+    from repro_torch.slates import table as tbl
+    wide = (lambda k: k.to(torch.int64) * (2**33 + 3) - 2**45) \
+        if kd == torch.int64 else (lambda k: k.to(torch.int32))
+    held = wide(2 * torch.randperm(N_KEYS, generator=gen, device=dev))
+    t = tbl.make_table(C, {"v": ((D,), torch.float32)}, key_dtype=kd,
+                       device=dev)
+    for i in range(0, N_KEYS, B):
+        part = held[i:i + B]
+        tbl.insert_or_find(t, part, torch.ones_like(part, dtype=torch.bool))
+    keys32 = slate_keys("zipf", gen, dev)
+    pending = torch.ones(B, dtype=torch.bool, device=dev)
+    pending[:-1] = keys32[1:] != keys32[:-1]
+    query = wide(keys32)
+    nothing = torch.zeros_like(pending)
+    kname = str(kd)[6:]
+    got = lk.find_slots(t.keys, query, pending, capacity=C)
+    err = same_outputs(f"slate_lookup find {kname}", got,
+                       lr.find_slots(t.keys, query, pending, C))
+    err = max(err, same_outputs(
+        f"slate_lookup find {kname}, nothing pending",
+        lk.find_slots(t.keys, query, nothing, capacity=C),
+        lr.find_slots(t.keys, query, nothing, C)))
+    n_pend, n_found = int(pending.sum()), int(got[1].sum())
+    n_held = int((t.keys[:C] != tbl.EMPTY).sum())
+    log(f"slate_lookup {kname} insert shape: B={B}, {n_pend} pending "
+        f"(run-last rows of a Zipf(1.2) batch), table of C={C} holding "
+        f"{n_held} keys ({int(t.dropped)} dropped); {n_found} pending keys "
+        f"found, "
+        f"{int(((got[0] >= 0) & ~got[1]).sum())} stop at an empty slot; "
+        f"find bitwise against the masked torch walk")
+    if n_held + int(t.dropped) != N_KEYS or not 0.3 < n_found / n_pend < 0.7:
+        raise AssertionError(f"slate_lookup find {kd}: the insert shape "
+                             f"is off ({n_held} held, {n_found} of "
+                             f"{n_pend} found)")
+    # pending read once, the pending keys read, one sector a probe the
+    # hit-or-empty rule needs, int64 slot + found written a row
+    probes = probes_to_stop(t.keys, query[pending],
+                            tbl._probe_seq(query[pending], C), True)
+    nbytes = (B + n_pend * query.element_size() + probes * SECTOR
+              + B * (8 + 1))
+    times = route_times(
+        f"slate_lookup find {kname}",
+        lambda: lk.find_slots(t.keys, query, pending, capacity=C),
+        lambda: lr.find_slots(t.keys, query, pending, C), nbytes,
+        nothing_pending_ms=lambda: lk.find_slots(t.keys, query, nothing,
+                                                 capacity=C))
+    del t
+    torch.cuda.empty_cache()
+    return times, err
+
+
+def check_slate_lookup(dev, seed):
+    """The three routes for int32 and int64 keys: ``cand`` and ``keys``
+    at the read shape, ``find`` at the insert shape.  The kernel line
+    holds ``keys`` (the read path's route) and ``routes`` all three."""
+    import torch
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     entries = []
     for kd in (torch.int32, torch.int64):
-        draw = torch.randint(0, 2**30, (N_KEYS + N_KEYS // 8,),
-                             generator=gen, device=dev)
-        ids = torch.unique(draw)[:N_KEYS]
-        ids = ids[torch.randperm(ids.numel(), generator=gen, device=dev)]
-        keys = ids.to(kd) if kd == torch.int32 else \
-            ids.to(torch.int64) * (2**33 + 3) - 2**45
-        t = tbl.make_table(C, {"v": ((D,), torch.float32)}, key_dtype=kd,
-                           device=dev)
-        for i in range(0, N_KEYS, B):
-            part = keys[i:i + B]
-            tbl.insert_or_find(t, part, torch.ones_like(part, dtype=torch.bool))
-        t.vals["v"].copy_(torch.randn(C + 1, D, generator=gen, device=dev))
-        # TTL: a quarter of the rows are stale at tick 100 with ttl 10
-        t.ts.copy_(torch.where(torch.rand(C + 1, generator=gen, device=dev)
-                               < 0.25, 0, 95).to(torch.int32))
-        tbl.expire_ttl(t, torch.tensor(100, dtype=torch.int32, device=dev),
-                       10)
-        present = (t.keys[:C] != tbl.EMPTY)
-        live = t.keys[:C][present]
-        dead = keys[~torch.isin(keys, live)]
-        absent = (keys[:Q // 4] + 1) if kd == torch.int64 else \
-            torch.randint(2**30, 2**31 - 1, (Q // 4,), generator=gen,
-                          device=dev).to(kd)
-        pick = lambda x, n: x[torch.randperm(x.numel(), generator=gen,
-                                             device=dev)[:n]]
-        query = torch.cat([pick(live, Q // 2), pick(dead, Q // 4), absent])
-        query = query[torch.randperm(Q, generator=gen, device=dev)]
-        cand = tbl._probe_seq(query, C).to(torch.int32)
-        a = lk.slate_lookup(t.keys, query, cand, t.vals["v"])
-        b = lr.slate_lookup(t.keys, query, cand, t.vals["v"])
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(a, b))
-        max_err = max(float((a[2] - b[2]).abs().max()),
-                      float((a[0] - b[0]).abs().max()))
-        n_found = int(a[1].sum())
-        log(f"slate_lookup keys={str(kd)[6:]} Q={Q} found={n_found} "
-            f"(live {Q // 2}, ttl-expired {Q // 4}, absent {Q // 4}): "
-            f"bitwise={same}")
-        if not same or n_found != Q // 2:
-            raise AssertionError(f"slate_lookup {kd} differs from its plain "
-                                 f"version or misses live keys")
-        kname = str(kd)[6:]
-        ms = device_ms(
-            lambda: lk.slate_lookup(t.keys, query, cand, t.vals["v"]))
-        plain_ms = device_ms(
-            lambda: lr.slate_lookup(t.keys, query, cand, t.vals["v"]))
-        # the read path as ops.slate_lookup runs it: the probe chain
-        # hashed on the card, then the kernel or its plain version
-        hashed = lambda: tbl._probe_seq(query, C).to(torch.int32)
-        path_ms = device_ms(lambda: lk.slate_lookup(
-            t.keys, query, hashed(), t.vals["v"]))
-        plain_path_ms = device_ms(lambda: lr.slate_lookup(
-            t.keys, query, hashed(), t.vals["v"]))
-        # probes needed: up to the first hit, all P on a miss
-        hit = t.keys[cand] == query[None]
-        first = torch.where(hit.any(0),
-                            torch.argmax(hit.to(torch.uint8), 0) + 1,
-                            cand.shape[0])
-        probes = int(first.sum())
-        kb = query.element_size()
-        # query and int32 candidates read once, one sector per probe
-        # and per found row, int32 slot + found + row written per query
-        nbytes = (Q * kb + cand.numel() * 4 + probes * SECTOR
-                  + n_found * sectors(D * 4) + Q * (4 + 1 + D * 4))
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"slate_lookup {kname}: kernel {ms:.5f} ms, plain {plain_ms:.5f}"
-            f" ms on the same candidates (device time, torch.profiler, "
-            f"mean of 20); with the probe chain hashed on the card "
-            f"kernel {path_ms:.5f} ms, plain {plain_path_ms:.5f} ms; bound "
-            f"{bound_ms:.6f} ms ({nbytes} bytes at 3.35 TB/s)")
+        routes, err = lookup_read_routes(dev, gen, kd)
+        routes["find"], err2 = lookup_find_route(dev, gen, kd)
         wide = kd == torch.int64
+        keys = routes["keys"]
         entries.append({
             "name": "slate_lookup_wide" if wide else "slate_lookup",
             "route": "cuda", "source": "src/repro_torch/csrc/slate_lookup.cu",
             "replaces": "src/repro/kernels/slate_lookup/kernel.py:"
                         + ("160" if wide else "124"),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None,
-            "max_abs_err": max_err})
-        del t
-        torch.cuda.empty_cache()
+            "ms": keys["ms"], "plain_ms": keys["plain_ms"],
+            "bound_ms": keys["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": max(err, err2),
+            "routes": routes})
     return entries
 
 
@@ -1211,6 +1337,54 @@ def check_no_host_sync(dev, seed):
 
 
 # ---------------------------------------------------------------- phase 5
+@contextmanager
+def torch_probe_calls():
+    """Count the torch probe hashes (``slates.table._probe_seq``) and
+    torch insert walks (``_lookup_keys``) made while the block runs; on
+    the card a path makes neither, its reads and walks running on the
+    lookup kernel's ``keys`` and ``find`` routes."""
+    from repro_torch.slates import table as tbl
+    counts = {"_probe_seq": 0, "_lookup_keys": 0}
+    saved = {name: getattr(tbl, name) for name in counts}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(tbl, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(tbl, name, fn)
+
+
+def reset_lookup_routes():
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    lk.slate_lookup.launches_by_route = dict.fromkeys(lk.ROUTES, 0)
+
+
+def check_lookup_routes(path, torch_calls):
+    """Every read of the path took the lookup kernel's ``keys`` route and
+    every ``insert_or_find`` walk its ``find`` route (INSERT_ROUNDS
+    launches an insert), no launch took ``cand``, and no torch probe
+    hash or walk ran.  Returns the launches by route."""
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.slates.table import INSERT_ROUNDS
+    routes = dict(lk.slate_lookup.launches_by_route)
+    log(f"slate_lookup launches on the {path} path by route {routes}; "
+        f"torch probe hashes and walks {torch_calls}")
+    if (routes["cand"] or routes["keys"] <= 0 or routes["find"] <= 0
+            or routes["find"] % INSERT_ROUNDS or any(torch_calls.values())):
+        raise AssertionError(f"{path}: a read missed the keys route or an "
+                             f"insert walk the find route: {routes}, "
+                             f"torch calls {torch_calls}")
+    return routes
+
+
 def reference(gen_tick, ticks):
     """The independent reference: every event fed, in numpy.  Returns
     per-key counts, f64 lane sums and f32 lane maxima over ``N_KEYS +
@@ -1306,24 +1480,29 @@ def end_to_end(dev, ticks, seed, card):
 
     uk.slate_update.launches = 0
     lk.slate_lookup.launches = 0
-    t0 = time.perf_counter()
-    state, _ = eng.run(state, source_fn, ticks)
-    torch.cuda.synchronize()
-    t_run = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state, drained = eng.drain(state)
-    torch.cuda.synchronize()
-    t_drain = time.perf_counter() - t0
+    reset_lookup_routes()
+    with torch_probe_calls() as torch_calls:
+        t0 = time.perf_counter()
+        state, _ = eng.run(state, source_fn, ticks)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, drained = eng.drain(state)
+        torch.cuda.synchronize()
+        t_drain = time.perf_counter() - t0
 
-    read_keys = read_set(seed)
-    t0 = time.perf_counter()
-    reads = {u: eng.read_slates(state, u, read_keys) for u in ("U1", "U2")}
-    t_reads = time.perf_counter() - t0
-    singles = [int(k) for k in read_keys[[0, 1, 7, Q // 2, -1]]]
-    single = {k: (eng.read_slate(state, "U1", k),
-                  eng.read_slate(state, "U2", k)) for k in singles}
+        read_keys = read_set(seed)
+        t0 = time.perf_counter()
+        reads = {u: eng.read_slates(state, u, read_keys)
+                 for u in ("U1", "U2")}
+        t_reads = time.perf_counter() - t0
+        singles = [int(k) for k in read_keys[[0, 1, 7, Q // 2, -1]]]
+        single = {k: (eng.read_slate(state, "U1", k),
+                      eng.read_slate(state, "U2", k)) for k in singles}
     launches = {"slate_update": uk.slate_update.launches,
                 "slate_lookup": lk.slate_lookup.launches}
+    launches["slate_lookup routes"] = check_lookup_routes("main",
+                                                          torch_calls)
     stats = eng.stats(state)
     log(f"end to end, telemetry off: {ticks} ticks x {B} events in "
         f"{t_run:.3f} s = {t_run / ticks * 1e3:.3f} ms/tick, "
@@ -1338,7 +1517,7 @@ def end_to_end(dev, ticks, seed, card):
         f"queue_peak={stats['queue_peak']} "
         f"table_occupancy={stats['table_occupancy']} "
         f"table_dropped={stats['table_dropped']}")
-    if min(launches.values()) <= 0:
+    if min(launches["slate_update"], launches["slate_lookup"]) <= 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")
 
@@ -1493,19 +1672,22 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms, off_prof):
             k.launches = 0
         for k in kernels[2:]:
             k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
-        reader.start()
-        t0 = time.perf_counter()
-        state, _ = eng.run(handle.state, source_fn, ticks, handle=handle)
-        torch.cuda.synchronize()
-        t_run = time.perf_counter() - t0
-        state, drained = eng.drain(state)
-        handle.state = state
-        read_keys = read_set(seed)
-        reads = {u: handle.read_slates(u, read_keys) for u in ("U1", "U2")}
-        reader.stop()
-        reader.check()
-        # the page after the last window (the live ones may predate it)
-        metrics = reader.get("/metrics")
+        reset_lookup_routes()
+        with torch_probe_calls() as torch_calls:
+            reader.start()
+            t0 = time.perf_counter()
+            state, _ = eng.run(handle.state, source_fn, ticks, handle=handle)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+            state, drained = eng.drain(state)
+            handle.state = state
+            read_keys = read_set(seed)
+            reads = {u: handle.read_slates(u, read_keys)
+                     for u in ("U1", "U2")}
+            reader.stop()
+            reader.check()
+            # the page after the last window (the live ones may predate it)
+            metrics = reader.get("/metrics")
         launches = {k.__name__: k.launches for k in kernels}
         routes = {k.__name__: dict(k.launches_by_route)
                   for k in kernels[2:]}
@@ -1526,6 +1708,8 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms, off_prof):
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never ran on the telemetry path: "
                              f"{launches}")
+    launches["slate_lookup routes"] = check_lookup_routes("telemetry",
+                                                          torch_calls)
     fused = {"countmin_update": "keys", "histogram_update": "ages"}
     for name, route in fused.items():
         if routes[name][route] != launches[name] or routes[name]["cols"]:
@@ -1957,17 +2141,19 @@ def serving_path(dev, seed, card, arch):
         k.launches = 0
     for k in routed:
         k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
+    reset_lookup_routes()
     mapper.microbatches = 0
-    t0 = time.perf_counter()
-    state, _ = eng.run(state, source, SERVE["ticks"])
-    torch.cuda.synchronize()
-    t_run = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state, drained = eng.drain(state)
-    torch.cuda.synchronize()
-    t_drain = time.perf_counter() - t0
-    rids = [r.rid for r in reqs]
-    rows = eng.read_slates(state, "requests", rids)
+    with torch_probe_calls() as torch_calls:
+        t0 = time.perf_counter()
+        state, _ = eng.run(state, source, SERVE["ticks"])
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, drained = eng.drain(state)
+        torch.cuda.synchronize()
+        t_drain = time.perf_counter() - t0
+        rids = [r.rid for r in reqs]
+        rows = eng.read_slates(state, "requests", rids)
     launches = {k.__name__: k.launches for k in kernels if k.launches}
     routes = {k.__name__: dict(k.launches_by_route) for k in routed}
     mb = mapper.microbatches
@@ -1998,6 +2184,8 @@ def serving_path(dev, seed, card, arch):
             or mb != ticks * (SERVE["per_tick"] // SERVE["bucket"])):
         raise AssertionError(f"serving launches {launches} for {mb} "
                              f"microbatches, expected {want}")
+    launches["slate_lookup routes"] = check_lookup_routes(
+        f"serving {arch}", torch_calls)
     if any(r is None for r in rows):
         raise AssertionError("a request has no slate")
 
@@ -2215,12 +2403,17 @@ def main(argv=None):
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}
         e["launches"] = sum(e["launches_by_path"].values())
+        if e["name"] == "slate_lookup":
+            e["launches_by_route"] = {r: sum(
+                n["slate_lookup routes"][r] for n in by_path.values())
+                for r in ("cand", "keys", "find")}
         # the int64 instance of slate_lookup: no path has int64 keys
         if e["launches"] <= 0 and e["name"] != "slate_lookup_wide":
             raise AssertionError(f"{e['name']} never ran on a path")
     keys = ["name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "by_mix", "fused"]
+            "launches_by_path", "launches_by_route", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "by_mix",
+            "fused", "routes"]
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                 for e in entries]}))
     log(json.dumps({"ok": True, "device": {

@@ -545,9 +545,12 @@ class Engine:
 
     def read_slate(self, state, updater: str, key: int):
         """Fetch one slate (dict of host tensors, copies — never views of
-        the live table, which later ticks update in place), or ``None``."""
+        the live table, which later ticks update in place), or ``None``.
+        The probe walk is ``read_slates``' (on the card the lookup
+        kernel's ``keys`` route)."""
         table = state["tables"][updater]
-        slot, found = tbl.lookup(table, self._query([key]))
+        slot, found = lk_ops.lookup_slots(table.keys, self._query([key]),
+                                          table.capacity)
         if not bool(found[0].item()):
             return None
         s = int(slot[0].item())

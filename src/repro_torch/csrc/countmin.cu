@@ -14,8 +14,9 @@
 //          (countmin_launch);
 //   keys   [B] int32 or int64 and one uint32 salt a row, passed by value
 //          (countmin_keys_launch): the column is
-//          mix32(fold_u32(key) ^ salt) % width in native uint32, bitwise
-//          telemetry/sketch.py::columns (64-bit keys xor-fold their halves);
+//          mix32(fold_u32(key) ^ salt) % width in native uint32
+//          (hash32.cuh), bitwise telemetry/sketch.py::columns (64-bit
+//          keys xor-fold their halves);
 //   ts     [B] int32 and the tick, read through a device pointer or passed
 //          by value (countmin_ages_launch, one row): the column is the
 //          bucket of lat = max(tick - ts, 0) (int32, wrapping as torch
@@ -52,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash32.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -75,12 +78,6 @@ struct ColsSrc {                               // cols[r, i], given
   __device__ void flush() {}
 };
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
-
 struct Salts {
   uint32_t s[kMaxDepth];
 };
@@ -91,10 +88,7 @@ struct KeysSrc {                 // mix32(fold(key) ^ salt_r) % width
   Salts salts;
   uint32_t width;
   __device__ void init() {}
-  __device__ uint32_t load(long long i) const {
-    const uint64_t k = (uint64_t)(int64_t)keys[i];
-    return sizeof(KeyT) > 4 ? (uint32_t)(k ^ (k >> 32)) : (uint32_t)k;
-  }
+  __device__ uint32_t load(long long i) const { return fold_u32(keys[i]); }
   __device__ int col(uint32_t u, int r) const {
     return (int)(mix32(u ^ salts.s[r]) % width);
   }

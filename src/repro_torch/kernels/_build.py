@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with ``ctypes`` —
 no PyTorch headers, so a build takes seconds.  Libraries land in
 ``build/repro_torch/`` at the repository root (``.gitignore``d), named
-by a hash of the source and flags, so an edited source rebuilds and an
-unchanged one is reused.  Builds come only from the sources in the
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  Builds come only from the sources in the
 repository.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -46,9 +47,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{tag}.so"
+    """The library's path, tagged by a hash of the source, every shared
+    header (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -6,25 +6,20 @@
   - "cuda": the kernel (raises for a CPU table)
   - "jnp" / "ref": the plain PyTorch probe walk ("jnp" keeps the JAX
     package's name for it)
+
+On the card every entry point takes the kernel's ``keys`` route: the
+probe chain is hashed in the kernel, so no candidates are built.
 """
 from __future__ import annotations
 
 from repro_torch.core.event import flatten_sorted, unflatten_sorted
-import torch
 
 from repro_torch.kernels.slate_lookup import ref as _ref
-from repro_torch.slates.table import _probe_seq
 
 
-def lookup_slots(table_keys, query, capacity=None):
-    """Probe walk only: ``(slot [Q], found [Q])``, always the plain
-    version — the kernel earns its keep on the row gather."""
-    return _ref.lookup_slots(table_keys, query, capacity)
-
-
-def _resolve(impl: str, table_vals) -> str:
+def _resolve(impl: str, table) -> str:
     if impl == "auto":
-        return "cuda" if table_vals.is_cuda else "ref"
+        return "cuda" if table.is_cuda else "ref"
     if impl == "jnp":
         return "ref"
     if impl not in ("cuda", "ref"):
@@ -32,21 +27,29 @@ def _resolve(impl: str, table_vals) -> str:
     return impl
 
 
+def lookup_slots(table_keys, query, capacity=None, *, impl: str = "auto"):
+    """Probe walk only: ``(slot [Q], found [Q])``.  ``capacity`` (default
+    N) is the hashed capacity.  The kernel gives int32 slots, the plain
+    version int64."""
+    if _resolve(impl, table_keys) == "cuda":
+        from repro_torch.kernels.slate_lookup import kernel as _k
+        slot, found, _ = _k.slate_lookup_keys(table_keys, query,
+                                              capacity=capacity)
+        return slot, found
+    return _ref.lookup_slots(table_keys, query, capacity)
+
+
 def slate_lookup(table_keys, query, table_vals, *, impl: str = "auto",
                  capacity=None):
     """Probe walk + row gather over one [N, D] value matrix.  Returns
     ``(slot [Q] int32, found [Q], rows [Q, D])`` with missing rows
-    zeroed; bitwise identical across backends.  ``capacity`` (default N) is the
-    hashed capacity."""
-    impl = _resolve(impl, table_vals)
-    C = int(table_keys.shape[0]) if capacity is None else capacity
-    # int32 candidates and slots: the kernel's index width, and the JAX
-    # package's
-    cand = _probe_seq(query, C).to(torch.int32)
-    if impl == "cuda":
+    zeroed; bitwise identical across backends.  ``capacity`` (default N)
+    is the hashed capacity."""
+    if _resolve(impl, table_vals) == "cuda":
         from repro_torch.kernels.slate_lookup import kernel as _k
-        return _k.slate_lookup(table_keys, query, cand, table_vals)
-    return _ref.slate_lookup(table_keys, query, cand, table_vals)
+        return _k.slate_lookup_keys(table_keys, query, table_vals,
+                                    capacity=capacity)
+    return _ref.slate_lookup_keys(table_keys, query, table_vals, capacity)
 
 
 def lookup_tree(table_keys, table_vals, query, *, impl: str = "auto",
@@ -57,7 +60,7 @@ def lookup_tree(table_keys, table_vals, query, *, impl: str = "auto",
     found by the plain version.  (The JAX package runs its kernel only
     for a single such leaf and walks the probe chain in jnp otherwise;
     the slots and rows are the same.)  A tree with no such leaf takes the
-    plain probe walk.  Returns ``(found [Q], rows)`` with ``rows``
+    probe walk alone.  Returns ``(found [Q], rows)`` with ``rows``
     leaves [Q, ...], missing keys zeroed."""
     leaves, treedef = flatten_sorted(table_vals)
     wide = [i for i, v in enumerate(leaves)
@@ -68,6 +71,5 @@ def lookup_tree(table_keys, table_vals, query, *, impl: str = "auto",
         out = [rows if i == wide[0] else _ref.gather_rows(v, slot, found)
                for i, v in enumerate(leaves)]
         return found, unflatten_sorted(treedef, out)
-    _resolve(impl, leaves[0])
-    slot, found = lookup_slots(table_keys, query, capacity)
+    slot, found = lookup_slots(table_keys, query, capacity, impl=impl)
     return found, _ref.gather_rows(table_vals, slot, found)

@@ -128,6 +128,11 @@ def insert_or_find(table: SlateTable, query, valid) -> Tuple[
     winners write.  Rows that claim nothing reduce into a private cell
     each (``C + row``), not one shared sink, so the atomics never pile
     onto a single address.  ``table.keys`` is updated in place.
+
+    Each round's walk covers the rows still pending (the others give
+    (-1, False), which the round masks out anyway): on a CUDA table one
+    launch of the lookup kernel's ``find`` route, which hashes the chain
+    itself; on the CPU :func:`_lookup_keys` over a chain hashed once.
     """
     C = table.capacity
     dev = query.device
@@ -139,14 +144,20 @@ def insert_or_find(table: SlateTable, query, valid) -> Tuple[
     placed = torch.zeros(B, dtype=torch.bool, device=dev)
     found = torch.zeros(B, dtype=torch.bool, device=dev)
     pending = valid
-    # the probe chain depends on the query alone: hash once, not per
-    # round (XLA folds the JAX package's repeats; eager torch would not)
-    cand = _probe_seq(query, C)
+    if keys_arr.is_cuda:
+        # imported here: the kernel module imports this one
+        from repro_torch.kernels.slate_lookup import kernel as _k
+        walk = lambda p: _k.find_slots(keys_arr, query, p, capacity=C)
+    else:
+        # the probe chain depends on the query alone: hash once, not per
+        # round (XLA folds the JAX package's repeats; eager torch would not)
+        cand = _probe_seq(query, C)
+        walk = lambda p: _lookup_keys(keys_arr, query, cand, p)
     # claim cells, allocated once; each round resets the cells it wrote
     owner = torch.full((C + B,), -1, dtype=torch.int32, device=dev)
 
     for _ in range(INSERT_ROUNDS):
-        cand_slot, cand_found = _lookup_keys(keys_arr, query, cand)
+        cand_slot, cand_found = walk(pending)
         want = pending & (cand_slot >= 0)
         claim = want & ~cand_found
         cell = torch.where(claim, cand_slot, C + rows)
@@ -166,11 +177,16 @@ def insert_or_find(table: SlateTable, query, valid) -> Tuple[
     return table, slot, found, placed
 
 
-def _lookup_keys(keys_arr, query, cand):
+def _lookup_keys(keys_arr, query, cand, pending):
+    """The insert walk over candidates ``cand`` ([P, B]): on each row
+    where ``pending``, the first probe that holds the key or ``EMPTY``
+    (slot -1 if none does) and whether it holds the key; (-1, False) on
+    the other rows.  The plain version of the lookup kernel's ``find``
+    route."""
     ck = keys_arr[cand]
     hit = ck == query[None]
     free = ck == EMPTY
-    stop = hit | free
+    stop = (hit | free) & pending[None]
     any_ = stop.any(dim=0)
     idx = torch.argmax(stop.to(torch.uint8), dim=0)
     slot = torch.where(any_, torch.gather(cand, 0, idx[None])[0], -1)

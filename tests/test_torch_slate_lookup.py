@@ -41,7 +41,7 @@ def _populated(C, n, seed, key_dtype=np.int32, expire=True):
         stamp = torch.from_numpy(rng.integers(0, 10, C + 1).astype(np.int32))
         t.ts.copy_(stamp)
         ttbl.expire_ttl(t, torch.tensor(12, dtype=torch.int32), 5)
-        dead = ~np.isin(keys, t.keys.numpy())
+        dead = ~np.isin(keys, t.keys[:C].numpy())   # not the sink row
     live = keys[placed.numpy() & ~dead]
     return t, live, keys[dead]
 
@@ -108,3 +108,52 @@ def test_int64_and_int32_tables_read_alike():
     assert torch.equal(lf, f)
     assert torch.equal(r[f], t.vals["v"][s[f]])
     assert torch.all(r[~f] == 0) and torch.all(s[~f] == -1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lookup_slots_matches_jax_oracle(seed):
+    """The probe walk alone (the read of a slate tree with no [N, D]
+    leaf, and ``Engine.read_slate``): slots and found as the JAX
+    oracle's, past TTL holes and at the int32 extremes."""
+    C = 257
+    t, live, dead = _populated(C, 160, seed)
+    q = _queries(live, dead, seed, np.int32)
+    js, jf = jops.lookup_slots(jnp.asarray(t.keys[:C].numpy()),
+                               jnp.asarray(q))
+    ts, tf = tops.lookup_slots(t.keys, torch.from_numpy(q), C)
+    assert np.array_equal(np.asarray(js), ts.numpy())
+    assert np.array_equal(np.asarray(jf), tf.numpy())
+    assert 0 < int(tf.sum()) < q.size
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_lookup_tree_wide_leaf_beside_others_matches_jax(dtype):
+    """A tree with an [N, D] leaf (the kernel's on the card) beside
+    leaves of other ranks, int32 and int64 keys (the JAX package under
+    x64): found and every leaf's rows as the JAX oracle's."""
+    rng = np.random.default_rng(6)
+    C = 211
+    with jax.enable_x64(dtype == np.int64):
+        keys = rng.choice(10**6, size=120, replace=False).astype(dtype)
+        if dtype == np.int64:
+            keys = (keys - 5 * 10**5) * (2**33 + 1)
+        jt = jtbl.make_table(C, {"n": ((), jnp.int32),
+                                 "v": ((4,), jnp.float32)},
+                             key_dtype=jnp.dtype(dtype))
+        jt, _, _, _ = jtbl.insert_or_find(jt, jnp.asarray(keys),
+                                          jnp.ones(keys.size, bool))
+        vals = {"n": rng.integers(0, 99, C).astype(np.int32),
+                "v": rng.normal(size=(C, 4)).astype(np.float32),
+                "w": rng.normal(size=(C, 2, 3)).astype(np.float32)}
+        q = np.concatenate([keys[:70], keys[:15] + 1]).astype(dtype)
+        jf, jr = jops.lookup_tree(jt.keys, {k: jnp.asarray(v)
+                                            for k, v in vals.items()},
+                                  jnp.asarray(q), impl="jnp")
+        tf, tr = tops.lookup_tree(torch.from_numpy(np.array(jt.keys)),
+                                  {k: torch.from_numpy(v)
+                                   for k, v in vals.items()},
+                                  torch.from_numpy(q))
+        assert np.array_equal(np.asarray(jf), tf.numpy())
+        for k in vals:
+            assert np.array_equal(np.asarray(jr[k]), tr[k].numpy()), k
+        assert 0 < int(tf.sum()) < q.size

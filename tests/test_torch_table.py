@@ -148,3 +148,99 @@ def test_write_and_read_slates_bitwise():
                                 "v": torch.zeros(n, 3)})
     for k in rj:
         assert np.array_equal(np.asarray(rj[k]), rt[k].numpy())
+
+
+# ------------------------------------------------ the pending-masked walk
+def _colliding_keys_wide(capacity, n_groups, per_group, seed, dtype):
+    """As :func:`_colliding_keys` for ``dtype`` keys; int64 keys are
+    negative or above 2**32 (the xor-fold) and hashed by the JAX package
+    under x64."""
+    rng = np.random.default_rng(seed)
+    if dtype == np.int64:
+        pool = rng.choice(2**40, size=20000, replace=False) - 2**39
+        pool = (pool * 4099 + 2**33).astype(np.int64)
+    else:
+        pool = rng.choice(2**31 - 2, size=20000, replace=False) - 2**30
+        pool = pool.astype(np.int32)
+        pool[:2] = [np.iinfo(np.int32).max, np.iinfo(np.int32).min]
+    first = np.asarray(jtbl._probe_seq(jnp.asarray(pool), capacity))[0]
+    groups = []
+    for s in np.unique(first):
+        members = pool[first == s]
+        if members.size >= per_group:
+            groups.append(members[:per_group])
+        if len(groups) == n_groups:
+            break
+    keys = np.concatenate(groups)
+    return keys[rng.permutation(keys.size)]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("capacity,groups,per,seed", [
+    (61, 4, 5, 3),       # races of five claimants for one empty slot
+    (13, 5, 4, 4),       # more keys than probe room: full chains drop keys
+])
+def test_insert_or_find_masked_walk_bitwise(dtype, capacity, groups, per,
+                                            seed):
+    """The walk covers only pending rows; ``table.keys``, slot, found,
+    placed and dropped stay the JAX package's over several batches, for
+    int32 keys at the extremes and int64 keys past 2**32."""
+    with jax.enable_x64(dtype == np.int64):
+        keys = _colliding_keys_wide(capacity, groups, per, seed, dtype)
+        spec_t = {"c": ((), torch.int32), "v": ((3,), torch.float32)}
+        jt = jtbl.make_table(capacity, SPEC_J, key_dtype=jnp.dtype(dtype))
+        tt = ttbl.make_table(capacity, spec_t, device="cpu",
+                             key_dtype=torch.from_numpy(keys).dtype)
+        valid = np.ones(keys.size, bool)
+        valid[::3] = False
+        jt, tt = _insert_both(jt, tt, keys, valid)
+        # re-find the placed keys, claim the masked ones, fill the chains
+        jt, tt = _insert_both(jt, tt, keys[::-1].copy(),
+                              np.ones(keys.size, bool))
+        more = _colliding_keys_wide(capacity, groups, per, seed + 10, dtype)
+        more = more[~np.isin(more, keys)]
+        jt, tt = _insert_both(jt, tt, more, np.ones(more.size, bool))
+        assert tt.keys.dtype == torch.from_numpy(keys).dtype
+        if capacity == 13:
+            assert int(tt.dropped) > 0
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_masked_walk_gives_lookup_keys_on_pending_rows(dtype):
+    """``_lookup_keys`` with ``pending``, and the ``find`` route's plain
+    version, equal the JAX package's ``_lookup_keys`` on pending rows
+    (hits, the first ``EMPTY``, TTL holes, full chains) and give (-1,
+    False) elsewhere."""
+    from repro_torch.kernels.slate_lookup import ref as tref
+    rng = np.random.default_rng(5)
+    C = 41
+    with jax.enable_x64(dtype == np.int64):
+        keys = _colliding_keys_wide(C, 6, 5, 6, dtype)
+        extra = _colliding_keys_wide(C, 8, 3, 8, dtype)   # fill the table
+        keys = np.concatenate([keys, extra[~np.isin(extra, keys)]])
+        jt = jtbl.make_table(C, SPEC_J, key_dtype=jnp.dtype(dtype))
+        tt = ttbl.make_table(C, {"c": ((), torch.int32),
+                                 "v": ((3,), torch.float32)}, device="cpu",
+                             key_dtype=torch.from_numpy(keys).dtype)
+        jt, tt = _insert_both(jt, tt, keys, np.ones(keys.size, bool))
+        stamp = np.where(rng.random(C) < 0.15, 0, 9).astype(np.int32)
+        tt.ts[:C] = torch.from_numpy(stamp)
+        tt = ttbl.expire_ttl(tt, torch.tensor(12, dtype=torch.int32), 5)
+        absent = _colliding_keys_wide(C, 6, 5, 7, dtype)
+        q = np.concatenate([keys, absent[~np.isin(absent, keys)]])
+        pending = rng.random(q.size) < 0.6
+        tkeys = tt.keys[:C].numpy()
+        js, jf = jtbl._lookup_keys(jnp.asarray(tkeys), jnp.asarray(q), C)
+        js, jf = np.asarray(js), np.asarray(jf)
+        qt, pt = torch.from_numpy(q), torch.from_numpy(pending)
+        for slot, found in (
+                ttbl._lookup_keys(tt.keys, qt, ttbl._probe_seq(qt, C), pt),
+                tref.find_slots(tt.keys, qt, pt, capacity=C)):
+            assert slot.dtype == torch.int64
+            assert np.array_equal(slot.numpy()[pending], js[pending])
+            assert np.array_equal(found.numpy()[pending], jf[pending])
+            assert np.all(slot.numpy()[~pending] == -1)
+            assert not found.numpy()[~pending].any()
+        # the case mix: hits, EMPTY stops, and chains with no stop at all
+        assert jf[pending].any() and (~jf[pending] & (js[pending] >= 0)).any()
+        assert (js == -1).any()
