@@ -42,9 +42,13 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    attention kernels at the serving shapes of phases 7 and 8 (flash:
    8 x 256 tokens, heads of 64, bf16, causal; decode: 8 requests over a
    512-row bf16 cache, ragged lengths; 14 query heads over 2 kv heads
-   for qwen2-0.5b, 32 over 32 for zamba2-1.2b), where ``flash_attention``
-   must take its tensor-core route and both give the same bits on a
-   second call, and cases for a window, q_offset, f32, Dh=72 (the
+   for qwen2-0.5b, 32 over 32 for zamba2-1.2b) and of phases 10 and 11
+   (gemma3-1b: 8 x 1,024 tokens, 4/1 heads of 256, windowed at 512 and
+   global, decode over a 1,088-row cache at lengths 641-1,055;
+   deepseek-v2-lite-16b's MLA: 8 x 256 tokens, 16/16 heads, Dh 192 over
+   Dv 128, decode over a 512-row cache at lengths 33-287), where
+   ``flash_attention`` must take its tensor-core route and both give the
+   same bits on a second call, and cases for a window, q_offset, f32, Dh=72 (the
    CUDA-core route, asserted), Dh=128, Dv != Dh, a packed QKV view, two
    decode rows and a 4096-row cache whose splits are empty, partial and
    full (tolerance 2e-2 bf16, 5e-5 f32); ``ssd_scan`` at the prefill
@@ -123,14 +127,43 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    Mamba-2 layers of d_model 2048 with 64 SSD heads of N=P=64, one
    weight-shared attention block after every 6, vocab 32,000; random
    weights): the same workflow, feed and checks, with a teacher-forced
-   tolerance of 0.25 (44 rounding layers against qwen2's 24) and a
+   tolerance of the plain path's own bf16-vs-f32 distance (measured;
+   this model amplifies a rounding from block to block) and a
    microbatch launching ``ssd_scan`` 38 times, ``flash_attention`` 6,
    ``decode_attention`` 6 x 31 and ``rmsnorm`` 89 x 32 (38 x 2 + 6 x 2 +
    1 norms a forward), every ``ssd_scan`` launch on "mma" and every
    ``rmsnorm`` launch on "regs" in both serving phases; its profiled tick
    also gives ``ssd_scan``'s and ``rmsnorm``'s device ms by route.
-Each path's launch counters are set to 0 just before it and read just
-after.
+9. drives the same serving path on xlstm-350m at full width (12 mLSTM
+   and 12 sLSTM blocks of d_model 1024, 4 heads, mLSTM N = 512, P =
+   513; random bf16 weights drawn by ``lm.init(..., dtype=bf16)``, as in
+   every serving phase): 32 requests (prompts of 32-256 tokens padded
+   to 256) at 16 a tick for 2 ticks, the same checks; a microbatch
+   launches ``rmsnorm`` (12 x 2 + 12 + 1) x 32 times and ``ssd_scan``
+   never (asserted: the mLSTM's P = N + 1 fails the kernel's
+   ``supported()``, the JAX package's own rule, so the plain SSD runs);
+   the sLSTM runs as a Python loop of 256 steps a block.
+10. gemma3-1b at full width (26 layers, d_model 1152, 4/1 heads of 256,
+   a 512-token window on 5 of every 6 layers, vocab 262,144): 32
+   requests with prompts of 640-1,024 tokens padded to 1,024,
+   ``cache_len`` 1,088, so the window binds at prefill and in every
+   decode step; a microbatch launches ``flash_attention`` 26 times,
+   ``decode_attention`` 26 x 31 and ``rmsnorm`` 53 x 32.
+11. deepseek-v2-lite-16b at full width (27 MLA layers, rank 512, Dh 192
+   over Dv 128; one dense layer, then 26 MoE layers of 64 routed experts
+   top-6 and 2 shared; 15,706,357,760 parameters by the config's count,
+   drawn in bf16 block by block): phase 9's feed; a microbatch launches
+   ``flash_attention`` 27 times, ``decode_attention`` 27 x 31 and
+   ``rmsnorm`` (3 x 27 + 1) x 32.  Its teacher-forced checks replay the
+   kernel run's expert routing in the plain runs (``pinned_routing``),
+   and its end-to-end tolerance is the plain path's own bf16-vs-f32
+   distance plus qwen2's per-layer rule for 27 layers (the f32 run casts
+   the bf16 weights where the layers use them: no f32 copy of the
+   model).  The teacher-forced check of phases 7, 10 and 11 fails when
+   no position's top-2 margin exceeds its tolerance.
+Every serving phase also asserts every ``flash_attention`` launch on
+its ``wgmma`` route and prints its own wall time.  Each path's launch
+counters are set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON, a row for each
 TPU kernel (``slate_lookup_wide``, the int64 instance of
@@ -154,6 +187,7 @@ import sys
 import time
 from contextlib import contextmanager
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
@@ -791,10 +825,12 @@ def same_bits(name, fn):
 def check_flash_attention(dev, seed):
     """The prefill shapes of phases 7 and 8 (B=8 requests of S=256, Dh=64,
     bf16, causal; 14 query heads over 2 kv heads for qwen2-0.5b, 32 over
-    32 for zamba2-1.2b), which must take the tensor-core (wgmma) route
-    and give the same bits on a second call, and cases for a window,
-    q_offset, f32 and Dh=72 (the CUDA-core route), Dh=128, Dv != Dh and a
-    strided packed-QKV view; each timed serving shape beside SDPA."""
+    32 for zamba2-1.2b) and of phases 10 and 11 (gemma3-1b's local and
+    global layers, deepseek-v2-lite-16b's MLA), which must take the
+    tensor-core (wgmma) route and give the same bits on a second call,
+    and cases for a window, q_offset, f32 and Dh=72 (the CUDA-core
+    route), Dh=128, Dv != Dh and a strided packed-QKV view; each timed
+    serving shape of phases 7 and 8 beside SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ref as ar
@@ -825,6 +861,19 @@ def check_flash_attention(dev, seed):
         err = case((q, k, v), {"causal": True}, "wgmma")
         same_bits("flash_attention", lambda: fk.flash_attention(q, k, v))
         serving[arch] = (H, Hkv, (q, k, v), err)
+    # the prefill shapes of phases 10 and 11: gemma3-1b's local layers
+    # (window 512) and global ones, deepseek-v2-lite-16b's MLA (Dv != Dh)
+    families = {}
+    for label, shape, kw in (
+            ("gemma3-1b local [8, 1024, 4/1, 256] window 512",
+             (8, 1024, 1024, 4, 1, 256, 256, bf16), {"window": 512}),
+            ("gemma3-1b global [8, 1024, 4/1, 256]",
+             (8, 1024, 1024, 4, 1, 256, 256, bf16), {}),
+            ("deepseek-v2-lite-16b MLA [8, 256, 16/16, 192/128]",
+             (8, 256, 256, 16, 16, 192, 128, bf16), {})):
+        args, kw = qkv(*shape), {"causal": True, **kw}
+        families[label] = case(args, kw, "wgmma")
+        same_bits("flash_attention", lambda: fk.flash_attention(*args, **kw))
     packed = qkv(2, 100, 100, 8, 2, 64, 64, bf16)[0]
     cases = [((8, 256, 256, 14, 2, 64, 64, bf16), {"window": 64}, "wgmma"),
              ((2, 64, 256, 14, 2, 64, 64, bf16), {"q_offset": 192}, "wgmma"),
@@ -840,14 +889,15 @@ def check_flash_attention(dev, seed):
     e = case((packed[:, :, :4], packed[:, :, 4:6], packed[:, :, 6:]), {},
              "wgmma")
     errs["packed QKV view [2, 100, 4+2+2, 64] bf16 wgmma"] = e
-    err = max(*(e for *_, e in serving.values()),
+    err = max(*(e for *_, e in serving.values()), *families.values(),
               *(e for label, e in errs.items() if "bfloat16" in label
                 or "bf16" in label))
     log(f"flash_attention vs plain, serving shapes [8, 256, 14/2, 64] and "
         f"[8, 256, 32/32, 64] bf16 causal on the wgmma route: max_abs_err "
         f"{serving['qwen2-0.5b'][3]} / {serving['zamba2-1.2b'][3]} "
-        f"(tolerance 2e-2 bf16, 5e-5 f32); two calls bitwise equal; other "
-        f"cases (route asserted) {errs}")
+        f"(tolerance 2e-2 bf16, 5e-5 f32); phases 10 and 11's shapes, bf16 "
+        f"causal on the wgmma route: {families}; two calls bitwise equal; "
+        f"other cases (route asserted) {errs}")
 
     out = {}
     for arch, (H, Hkv, (q, k, v), _) in serving.items():
@@ -877,8 +927,10 @@ def check_flash_attention(dev, seed):
 def check_decode_attention(dev, seed):
     """The decode shapes of phases 7 and 8 (B=8 requests, a 512-row bf16
     cache, lengths ragged in [1, 512], Dh=64; 14 query heads over 2 kv
-    heads for qwen2-0.5b, 32 over 32 for zamba2-1.2b), which must give the
-    same bits on a second call, and cases for a window, an f32 query over
+    heads for qwen2-0.5b, 32 over 32 for zamba2-1.2b) and of phases 10 and
+    11 (gemma3-1b's local and global layers over a 1,088-row cache,
+    deepseek-v2-lite-16b's MLA), which must give the same bits on a
+    second call, and cases for a window, an f32 query over
     bf16 caches, f32, Dh=128, Dv != Dh, two query rows, and a 4096-row
     cache whose lengths (1, 63, 64, 65, 4096, ragged) leave splits empty,
     partial and full, with and without a window edge inside a split; each
@@ -890,11 +942,11 @@ def check_decode_attention(dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def inputs(B, S, H, Hkv, Dh, Dv, qdt, cdt, lo=1, Sq=1):
+    def inputs(B, S, H, Hkv, Dh, Dv, qdt, cdt, lo=1, Sq=1, hi=None):
         r = lambda dt, *sh: torch.randn(sh, generator=gen,
                                         device=dev).to(dt)
-        lens = torch.randint(lo, S + 1, (B,), generator=gen, device=dev,
-                             dtype=torch.int32)
+        lens = torch.randint(lo, (hi or S) + 1, (B,), generator=gen,
+                             device=dev, dtype=torch.int32)
         return (r(qdt, B, Sq, H, Dh), r(cdt, B, S, Hkv, Dh),
                 r(cdt, B, S, Hkv, Dv), lens)
 
@@ -909,6 +961,24 @@ def check_decode_attention(dev, seed):
         same_bits("decode_attention",
                   lambda: dk.decode_attention(q, kc, vc, lens))
         serving[arch] = (H, Hkv, (q, kc, vc, lens), err)
+    # the decode shapes of phases 10 and 11: lengths (cur_index + 1) run
+    # from the shortest prompt plus one to the longest plus 31 steps,
+    # gemma3-1b's local layers windowed at 512
+    families = {}
+    for label, shape, (lo, hi), kw in (
+            ("gemma3-1b local B=8 S=1088 4/1 heads of 256 window 512",
+             (8, 1088, 4, 1, 256, 256), (641, 1055), {"window": 512}),
+            ("gemma3-1b global B=8 S=1088 4/1 heads of 256",
+             (8, 1088, 4, 1, 256, 256), (641, 1055), {}),
+            ("deepseek-v2-lite-16b MLA B=8 S=512 16/16 heads 192/128",
+             (8, 512, 16, 16, 192, 128), (33, 287), {})):
+        q, kc, vc, lens = inputs(*shape, bf16, bf16, lo=lo, hi=hi)
+        lens[0], lens[1] = lo, hi           # both ends of the range
+        families[label] = check_attention_case(
+            "decode_attention", dk.decode_attention, dr.decode_attend,
+            (q, kc, vc, lens), kw, attn_tol(bf16))
+        same_bits("decode_attention",
+                  lambda: dk.decode_attention(q, kc, vc, lens, **kw))
     B, S, H, Hkv, Dh = 8, 512, 14, 2, 64
     cases = [((B, S, H, Hkv, Dh, Dh, bf16, bf16, 65), {"window": 64}),
              ((B, S, H, Hkv, Dh, Dh, f32, bf16), {}),
@@ -936,7 +1006,7 @@ def check_decode_attention(dev, seed):
         run((q, kc, vc, lens), {"window": window},
             f"S=4096 lengths {long_lens} window {window} (splits "
             f"{dk.plan_splits(len(long_lens), Hkv, 4096)})")
-    err = max(*(e for *_, e in serving.values()),
+    err = max(*(e for *_, e in serving.values()), *families.values(),
               *(e for label, e in errs.items() if "float32/float32" not in
                 label))
     log(f"decode_attention vs plain, serving shapes B=8 S=512 Dh=64 bf16 "
@@ -945,7 +1015,8 @@ def check_decode_attention(dev, seed):
         f"max_abs_err {serving['qwen2-0.5b'][3]} / "
         f"{serving['zamba2-1.2b'][3]} (tolerance 2e-2 with bf16, 5e-5 f32; "
         f"the plain version casts p to bf16 as the JAX oracle does, the "
-        f"kernel keeps it f32); two calls bitwise equal; other cases {errs}")
+        f"kernel keeps it f32); phases 10 and 11's shapes, bf16: "
+        f"{families}; two calls bitwise equal; other cases {errs}")
 
     out = {}
     for arch, (H, Hkv, (q, kc, vc, lens), _) in serving.items():
@@ -1775,45 +1846,101 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms, off_prof):
     return launches
 
 
-# ------------------------------------------------------- phases 7 and 8
+# ------------------------------------------------------- phases 7 to 11
 SERVE = {"requests": 64, "per_tick": 16, "bucket": 8, "prompt_len": 256,
          "min_prompt": 32, "max_new": 32, "cache_len": 512, "ticks": 4}
-# per architecture: (attention blocks, Mamba-2 blocks) a forward runs, and
-# the tolerance of teacher-forced bf16 logits, kernels against plain
-# versions.  qwen2-0.5b: each of 24 layers' attention output may round
-# one bf16 ulp (2**-8 relative) apart between the kernel (f32 p) and the
-# plain version, and the residual stream carries it on: 0.125.  zamba2
-# at random init amplifies a difference from block to block instead of
-# carrying it (``per_block`` prints the growth of the kernel path's
-# distance from the plain path), so no bound derived per layer holds:
-# its tolerance (None) is the distance between the plain path's own bf16
-# and f32 logits, measured in the run, and the block-by-block check of
-# ``per_block`` is the sharp one.
-SERVE_ARCHS = {"qwen2-0.5b": (24, 0, 0.125), "zamba2-1.2b": (6, 38, None)}
 
 
-def serving_blocks(plan):
-    """(attention, Mamba-2) blocks a forward of ``plan`` runs."""
-    attn = mamba = 0
+class Arch(NamedTuple):
+    """A serving phase: ``SERVE`` with its overrides, the blocks a forward
+    runs by kind, and the tolerance of teacher-forced bf16 logits,
+    kernels against plain versions: a fixed ``tol``, or with ``tol``
+    None the plain path's own bf16-vs-f32 distance, measured in the run,
+    plus ``margin``.  With ``top1`` the tolerance must leave positions
+    whose top-2 margin exceeds it, where the top-1 tokens are compared."""
+    serve: dict
+    blocks: dict
+    tol: Optional[float]
+    margin: float = 0.0
+    top1: bool = True
+
+
+# qwen2-0.5b: each of 24 layers' attention output may round one bf16 ulp
+# (2**-8 relative) apart between the kernel (f32 p) and the plain version,
+# and the residual stream carries it on: 0.125.  zamba2 at random init
+# amplifies a difference from block to block instead of carrying it
+# (``per_block`` prints the growth of the kernel path's distance from the
+# plain path), so no bound derived per layer holds: its tolerance is the
+# distance between the plain path's own bf16 and f32 logits, measured in
+# the run, and the block-by-block check of ``per_block`` is the sharp
+# one; the same holds for xlstm-350m (the sLSTM recurrence runs 256 steps
+# a block; its only kernel is ``rmsnorm``).  That distance exceeds every
+# top-2 margin of their logits at random init, so neither has positions
+# left for the top-1 check (``top1`` False).  gemma3-1b is qwen2's block
+# structure (attention + gated FFN) with 26 layers: qwen2's rule, 0.125 *
+# 26 / 24 = 0.135.  deepseek-v2-lite-16b runs with the kernel run's
+# expert routing replayed in the plain runs (``pinned_routing``: a
+# routing decision is discontinuous in the roundings, the rest is not);
+# at random init its MoE outputs grow the residual stream from block to
+# block, as zamba2's blocks do (to 256 by block 27), so a rounding
+# anywhere is amplified as the plain path's own bf16 roundings are: its
+# tolerance is that measured distance plus qwen2's rule for the kernels'
+# own roundings, 0.125 per 24 layers, 0.140625 for 27.  Its kernels and
+# the phase-3 cases at its exact shapes, and ``per_block``, are the sharp
+# checks.
+LONG = dict(prompt_len=1024, min_prompt=640, cache_len=1088)
+SERVE_ARCHS = {
+    "qwen2-0.5b": Arch({}, {"attn": 24}, 0.125),
+    "zamba2-1.2b": Arch({}, {"mamba2": 38, "attn": 6}, None, top1=False),
+    "xlstm-350m": Arch(dict(requests=32, ticks=2),
+                       {"mlstm": 12, "slstm": 12}, None, top1=False),
+    "gemma3-1b": Arch(dict(requests=32, ticks=2, **LONG), {"attn": 26},
+                      0.135),
+    "deepseek-v2-lite-16b": Arch(dict(requests=32, ticks=2),
+                                 {"mla": 27, "moe": 26}, None,
+                                 0.125 * 27 / 24),
+}
+# norms a block runs: attention and Mamba-2 blocks two (the pre-norms, or
+# the pre-norm and the gated norm), MLA blocks three (with the latent's),
+# an mLSTM block two (with its inner norm), an sLSTM block one
+NORMS = {"attn": 2, "mla": 3, "mamba2": 2, "mlstm": 2, "slstm": 1}
+
+
+def serve_of(arch):
+    return {**SERVE, **SERVE_ARCHS[arch].serve}
+
+
+def serving_blocks(cfg, plan):
+    """The blocks a forward of ``plan`` runs, by kind: ``attn``, ``mla``,
+    ``mamba2``, ``mlstm``, ``slstm``, and ``moe`` (MoE FFNs, beside their
+    attention kind)."""
+    kinds = {}
     for seg in plan.segments:
         for blk in seg.pattern:
-            if "mamba" in blk.name:
-                mamba += seg.n_groups
-            else:
-                attn += seg.n_groups
-    return attn, mamba
+            kind = ("mamba2" if "mamba" in blk.name
+                    else blk.name if blk.name in ("mlstm", "slstm")
+                    else "mla" if cfg.mla is not None else "attn")
+            for k in (kind, "moe") if blk.name == "moe" else (kind,):
+                kinds[k] = kinds.get(k, 0) + seg.n_groups
+    return kinds
 
 
 def serving_launches(arch):
     """Launches of each model kernel a microbatch: one prefill and
-    max_new - 1 decode forwards; every forward runs each norm once (two
-    a block and the final norm)."""
-    attn, mamba, _ = SERVE_ARCHS[arch]
-    steps = SERVE["max_new"] - 1
-    out = {"flash_attention": attn, "decode_attention": attn * steps,
-           "rmsnorm": (2 * (attn + mamba) + 1) * (steps + 1)}
-    if mamba:
-        out["ssd_scan"] = mamba
+    max_new - 1 decode forwards; every forward runs each norm once
+    (``NORMS`` a block and the final norm), each attention or MLA block
+    one attention kernel and each Mamba-2 block one ``ssd_scan`` at
+    prefill.  The mLSTM's state (N = 512, P = 513) takes the plain SSD
+    version by the JAX package's rule: 0 ``ssd_scan``."""
+    blocks, sv = SERVE_ARCHS[arch].blocks, serve_of(arch)
+    steps = sv["max_new"] - 1
+    attn = blocks.get("attn", 0) + blocks.get("mla", 0)
+    norms = sum(NORMS[k] * n for k, n in blocks.items() if k in NORMS)
+    out = {"rmsnorm": (norms + 1) * (steps + 1)}
+    if attn:
+        out.update(flash_attention=attn, decode_attention=attn * steps)
+    if blocks.get("mamba2"):
+        out["ssd_scan"] = blocks["mamba2"]
     return out
 
 
@@ -1821,39 +1948,85 @@ def serving_launches(arch):
 def plain_versions():
     """Route the model's kernels to their plain versions (the CUDA
     tensors' dispatch otherwise takes the kernels), for the teacher-forced
-    check."""
+    checks: every module that holds a kernel dispatcher is patched."""
     import functools
     from types import SimpleNamespace
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.models.layers import attention, mamba2, norms
-    saved = (attention.attn_ops, attention.dec_ops, norms.rms_ops,
-             mamba2.ssd_ops)
-    attention.attn_ops = SimpleNamespace(
-        mha=functools.partial(attn_ops.mha, impl="ref"))
-    attention.dec_ops = SimpleNamespace(
+    from repro_torch.models.layers import attention, mamba2, mla, norms, xlstm
+    mha = SimpleNamespace(mha=functools.partial(attn_ops.mha, impl="ref"))
+    dec = SimpleNamespace(
         decode_attend=functools.partial(dec_ops.decode_attend, impl="ref"))
-    norms.rms_ops = SimpleNamespace(
-        rmsnorm=functools.partial(rms_ops.rmsnorm, impl="ref"))
-    mamba2.ssd_ops = SimpleNamespace(
-        ssd=functools.partial(ssd_ops.ssd, impl="ref"),
-        ssd_step=ssd_ops.ssd_step)
+    ssd = SimpleNamespace(ssd=functools.partial(ssd_ops.ssd, impl="ref"),
+                          ssd_step=ssd_ops.ssd_step)
+    patch = ((attention, "attn_ops", mha), (attention, "dec_ops", dec),
+             (mla, "attn_ops", mha), (mla, "dec_ops", dec),
+             (norms, "rms_ops", SimpleNamespace(rmsnorm=functools.partial(
+                 rms_ops.rmsnorm, impl="ref"))),
+             (mamba2, "ssd_ops", ssd), (xlstm, "ssd_ops", ssd))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patch]
+    for mod, name, new in patch:
+        setattr(mod, name, new)
     try:
         yield
     finally:
-        (attention.attn_ops, attention.dec_ops, norms.rms_ops,
-         mamba2.ssd_ops) = saved
+        for mod, name, old in saved:
+            setattr(mod, name, old)
 
 
-def serving_requests(seed, n, vocab, rid0=1):
+class pinned_routing:
+    """Expert routing recorded in one run and replayed in the next, for
+    comparing a MoE model's kernels with its plain versions: which experts
+    a token takes is a discontinuous function of the roundings (a near-tie
+    of router logits flips with one bf16 ulp of the router's input), the
+    rest is continuous.  ``record()`` keeps every ``moe.route`` result;
+    ``replay()`` hands them back in order and counts the decisions that
+    the run's own routing would have made otherwise (``flips`` of
+    ``decisions``); ``off()`` lets routing run as it is."""
+
+    def __enter__(self):
+        from repro_torch.models.layers import moe
+        self.moe, self.route = moe, moe.route
+        self.calls, self.mode, self.i = [], "off", 0
+        self.flips = self.decisions = 0
+        moe.route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def record(self):
+        self.calls, self.mode = [], "record"
+
+    def replay(self):
+        self.mode, self.i = "replay", 0
+
+    def off(self):
+        self.mode = "off"
+
+    def _route(self, router, xt, m):
+        out = self.route(router, xt, m)
+        if self.mode == "record":
+            self.calls.append(out)
+        elif self.mode == "replay":
+            pinned = self.calls[self.i]
+            self.i += 1
+            same = (out[1].sort(-1).values == pinned[1].sort(-1).values)
+            self.flips += int((~same.all(-1)).sum())
+            self.decisions += int(same.shape[0])
+            out = pinned
+        return out
+
+
+def serving_requests(sv, seed, n, vocab, rid0=1):
     """``n`` requests with prompt lengths uniform in [min_prompt,
     prompt_len] and token ids uniform in [1, vocab), from ``seed``."""
     import numpy as np
     from types import SimpleNamespace
     rng = np.random.default_rng(seed)
-    lens = rng.integers(SERVE["min_prompt"], SERVE["prompt_len"] + 1, n)
+    lens = rng.integers(sv["min_prompt"], sv["prompt_len"] + 1, n)
     return [SimpleNamespace(rid=rid0 + i, prompt=rng.integers(
         1, vocab, int(m)).astype(np.int32)) for i, m in enumerate(lens)]
 
@@ -1876,14 +2049,14 @@ def serving_engine(cfg, model, dev, *, batch, cache_len, max_new, bucket,
     return eng, mapper
 
 
-def direct_greedy(mapper, reqs, dev):
+def direct_greedy(sv, mapper, reqs, dev):
     """The tokens of each request from a greedy loop over ``lm.prefill`` /
     ``lm.decode_step`` on the microbatches the engine forms (bucket
     requests in admission order), in the mapper's compute model."""
     import numpy as np
     import torch
     from repro_torch.models import lm
-    S, bucket = SERVE["prompt_len"], SERVE["bucket"]
+    S, bucket = sv["prompt_len"], sv["bucket"]
     out = {}
     for i in range(0, len(reqs), bucket):
         part = reqs[i:i + bucket]
@@ -1895,12 +2068,13 @@ def direct_greedy(mapper, reqs, dev):
         toks = torch.from_numpy(toks).to(dev)
         lens = torch.from_numpy(lens).to(dev)
         logits, st = lm.prefill(mapper.model, {"tokens": toks}, mapper.ctx,
-                                SERVE["cache_len"], full_logits=True)
+                                sv["cache_len"], full_logits=True)
         rows = torch.arange(bucket, device=dev)
         tok = torch.argmax(logits[rows, (lens - 1).long()], -1).to(
             torch.int32)
+        del logits
         cur, gen = lens.clone(), [tok]
-        for _ in range(SERVE["max_new"] - 1):
+        for _ in range(sv["max_new"] - 1):
             lg, st = lm.decode_step(mapper.model, tok[:, None], st, cur,
                                     mapper.ctx)
             tok = torch.argmax(lg[:, -1], -1).to(torch.int32)
@@ -1911,13 +2085,13 @@ def direct_greedy(mapper, reqs, dev):
     return out
 
 
-def microbatch(reqs, dev):
+def microbatch(sv, reqs, dev):
     """The first microbatch of ``reqs`` as the engine forms it: tokens
     [bucket, S] (0-padded), lengths, the real positions, and each
     request's first prompt token as a next token."""
     import numpy as np
     import torch
-    S, bucket = SERVE["prompt_len"], SERVE["bucket"]
+    S, bucket = sv["prompt_len"], sv["bucket"]
     toks = np.zeros((bucket, S), np.int32)
     lens = np.array([len(r.prompt) for r in reqs[:bucket]], np.int32)
     for j, r in enumerate(reqs[:bucket]):
@@ -1929,37 +2103,49 @@ def microbatch(reqs, dev):
     return torch.from_numpy(toks).to(dev), lens_t, real, nxt
 
 
-def teacher_forced(mapper, reqs, dev, tol):
+def teacher_forced(sv, mapper, reqs, dev, spec):
     """One microbatch's full-width prefill logits and one decode step's
-    logits, kernels against plain versions.  Returns the max abs
+    logits, kernels against plain versions (a MoE model's routing of the
+    kernel run replayed in the plain runs).  Returns the max abs
     difference over real positions and the top-1 agreement, and checks
     the top-1 token wherever the plain run's top-2 margin exceeds the
-    tolerance.  ``tol=None`` takes the model's own bf16 sensitivity as
-    the tolerance: the largest distance between the plain versions' bf16
-    logits and the same plain path's at f32 compute (same bf16 weights),
-    which this run measures and returns."""
+    tolerance (with ``spec.top1``, at one position at least).  The
+    tolerance is ``spec.tol``, or with that None the model's own bf16
+    sensitivity plus ``spec.margin``: the largest distance between the
+    plain versions' bf16 logits and the same plain path's at f32 compute
+    (the same bf16 weights, cast to f32 where the layers use them, as the
+    JAX package casts at every use: no f32 copy of the model), which this
+    run measures and returns."""
     import torch
     from repro_torch.models import lm
-    toks, lens_t, real, nxt = microbatch(reqs, dev)
+    toks, lens_t, real, nxt = microbatch(sv, reqs, dev)
+    tol = spec.tol
 
-    def run(model, ctx):
-        lg, st = lm.prefill(model, {"tokens": toks}, ctx,
-                            SERVE["cache_len"], full_logits=True)
-        dl, _ = lm.decode_step(model, nxt, st, lens_t, ctx)
-        return lg[real].float(), dl[:, 0].float()
+    def run(ctx):
+        lg, st = lm.prefill(mapper.model, {"tokens": toks}, ctx,
+                            sv["cache_len"], full_logits=True)
+        lg = lg[real].float()
+        dl, _ = lm.decode_step(mapper.model, nxt, st, lens_t, ctx)
+        return lg, dl[:, 0].float()
 
-    got = run(mapper.model, mapper.ctx)
-    with plain_versions():
-        want = run(mapper.model, mapper.ctx)
-        floor = None
-        if tol is None:
-            f32 = run(lm.for_compute(mapper.model, torch.float32),
-                      mapper.ctx.replace(cdtype=torch.float32))
-            floor = max(float((a - b).abs().max())
-                        for a, b in zip(want, f32))
-            tol = floor
+    with pinned_routing() as pin:
+        pin.record()
+        got = run(mapper.ctx)
+        pin.replay()
+        with plain_versions():
+            want = run(mapper.ctx)
+            floor = None
+            if tol is None:
+                pin.replay()
+                f32 = run(mapper.ctx.replace(cdtype=torch.float32))
+                floor = max(float((a - b).abs().max())
+                            for a, b in zip(want, f32))
+                tol = floor + spec.margin
+                del f32
     torch.cuda.synchronize()
     res = {"tolerance": tol, "bf16_vs_f32_plain": floor}
+    if pin.decisions:
+        res["routing flips replayed"] = f"{pin.flips} of {pin.decisions}"
     for name, a, b in (("prefill", got[0], want[0]),
                        ("decode", got[1], want[1])):
         err = float((a - b).abs().max())
@@ -1976,6 +2162,11 @@ def teacher_forced(mapper, reqs, dev, tol):
             same.float().mean()), "clear_positions": int(clear.sum()),
             "positions": int(b.shape[0]),
             "logit_absmax": float(b.abs().max())}
+    if spec.top1 and not any(res[n]["clear_positions"]
+                             for n in ("prefill", "decode")):
+        raise AssertionError(f"teacher-forced logits: no position's top-2 "
+                             f"margin exceeds the tolerance {tol}, so no "
+                             f"top-1 token was checked ({res})")
     return res
 
 
@@ -1985,19 +2176,20 @@ def teacher_forced(mapper, reqs, dev, tol):
 BLOCK_TOL = 2.0**-5
 
 
-def per_block(mapper, reqs, dev):
+def per_block(sv, mapper, reqs, dev):
     """Teacher forcing block by block, for one microbatch: every block of
     the stack, and the final norm and unembedding, gets the plain path's
     input (and, in one decode step, the plain prefill's state), once with
-    the kernels and once with the plain versions; outputs and new states
-    must agree within ``BLOCK_TOL`` of their largest magnitude.  Errors do
-    not compound across blocks here, as they do end to end.  Returns the
-    largest error relative to that magnitude, at prefill and decode."""
+    the kernels and once with the plain versions (a MoE block's routing
+    of the kernel run replayed); outputs and new states must agree within
+    ``BLOCK_TOL`` of their largest magnitude.  Errors do not compound
+    across blocks here, as they do end to end.  Returns the largest error
+    relative to that magnitude, at prefill and decode."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.layers import norms
     model, ctx0, cfg = mapper.model, mapper.ctx, mapper.cfg
-    toks, lens_t, _, nxt = microbatch(reqs, dev)
+    toks, lens_t, _, nxt = microbatch(sv, reqs, dev)
     body = model.body.tree()
 
     def group(t, i):
@@ -2036,53 +2228,100 @@ def per_block(mapper, reqs, dev):
                         scale_offset=cfg.norm_scale_offset)
         return lm.logits_for(model, x, ctx)
 
-    ctx = ctx0.replace(phase="prefill", cache_len=SERVE["cache_len"],
+    def both(blk, p, x, st_got, st_want, ctx):
+        pin.record()
+        got = blk.apply(p, x, st_got, ctx)
+        pin.replay()
+        with plain_versions():
+            want = blk.apply(p, x, st_want, ctx)
+        pin.off()
+        return got, want
+
+    ctx = ctx0.replace(phase="prefill", cache_len=sv["cache_len"],
                        positions=lm._positions(toks.shape, dev))
     x = xk = lm._embed(model, toks, ctx)
     states, growth = [], []
-    for n, (name, blk, p) in enumerate(blocks):
-        got, gst, _ = blk.apply(p, x, None, ctx)
+    with pinned_routing() as pin:
+        for n, (name, blk, p) in enumerate(blocks):
+            (got, gst, _), (want, wst, _) = both(blk, p, x, None, None, ctx)
+            check(name, "prefill", (got, gst), (want, wst))
+            states.append(wst)
+            x = want
+            # the kernel path on its own inputs (and its own routing): its
+            # distance from the plain path as the differences compound
+            xk = blk.apply(p, xk, None, ctx)[0]
+            if n in (0, 1, 2, 5) or (n + 1) % 7 == 0 or n == len(blocks) - 1:
+                growth.append((n + 1, float((xk.float() - x.float()).abs()
+                                            .max()),
+                               float(x.float().abs().max())))
         with plain_versions():
-            want, wst, _ = blk.apply(p, x, None, ctx)
-        check(name, "prefill", (got, gst), (want, wst))
-        states.append(wst)
-        x = want
-        # the kernel path on its own inputs: its distance from the plain
-        # path as the differences compound
-        xk = blk.apply(p, xk, None, ctx)[0]
-        if n in (0, 1, 2, 5) or (n + 1) % 7 == 0 or n == len(blocks) - 1:
-            growth.append((n + 1, float((xk.float() - x.float()).abs().max()),
-                           float(x.float().abs().max())))
-    with plain_versions():
-        want = head(x, ctx)
-    check("final norm and logits", "prefill", head(x, ctx), want)
+            want = head(x, ctx)
+        check("final norm and logits", "prefill", head(x, ctx), want)
 
-    ctx = ctx0.replace(phase="decode", positions=lens_t[:, None],
-                       cur_index=lens_t)
-    x = lm._embed(model, nxt, ctx)
-    copy = lambda t: {k: copy(v) for k, v in t.items()} if isinstance(
-        t, dict) else t.clone()
-    for (name, blk, p), st in zip(blocks, states):
-        gst, wst = copy(st), copy(st)
-        got, _, _ = blk.apply(p, x, gst, ctx)
+        ctx = ctx0.replace(phase="decode", positions=lens_t[:, None],
+                           cur_index=lens_t)
+        x = lm._embed(model, nxt, ctx)
+        copy = lambda t: {k: copy(v) for k, v in t.items()} if isinstance(
+            t, dict) else t.clone()
+        for (name, blk, p), st in zip(blocks, states):
+            gst, wst = copy(st), copy(st)
+            (got, _, _), (want, _, _) = both(blk, p, x, gst, wst, ctx)
+            check(name, "decode", (got, gst), (want, wst))
+            x = want
         with plain_versions():
-            want, _, _ = blk.apply(p, x, wst, ctx)
-        check(name, "decode", (got, gst), (want, wst))
-        x = want
-    with plain_versions():
-        want = head(x, ctx)
-    check("final norm and logits", "decode", head(x, ctx), want)
+            want = head(x, ctx)
+        check("final norm and logits", "decode", head(x, ctx), want)
     torch.cuda.synchronize()
-    return {"blocks": len(blocks), "max_rel_err": worst,
-            "tolerance": BLOCK_TOL,
-            "compounded (blocks, max abs diff, max abs)": growth}
+    out = {"blocks": len(blocks), "max_rel_err": worst,
+           "tolerance": BLOCK_TOL,
+           "compounded (blocks, max abs diff, max abs)": growth}
+    if pin.decisions:
+        out["routing flips replayed"] = f"{pin.flips} of {pin.decisions}"
+    return out
+
+
+def describe(cfg, kinds):
+    """The configuration's shape, for the log."""
+    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+             f"{cfg.vocab_size}")
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        shape += (f"; Mamba-2 d_inner {s.expand * cfg.d_model}, "
+                  f"{s.expand * cfg.d_model // s.head_dim} SSD heads, N "
+                  f"{s.state_dim}, P {s.head_dim}, d_conv {s.d_conv}, chunk "
+                  f"{s.chunk}; one shared attention block every "
+                  f"{cfg.shared_attn_every} Mamba-2 layers")
+    if cfg.xlstm is not None:
+        x = cfg.xlstm
+        d_in = x.mlstm_expand * cfg.d_model
+        shape += (f"; mLSTM d_inner {d_in}, N {d_in // cfg.n_heads}, P "
+                  f"{d_in // cfg.n_heads + 1}, chunk {x.chunk}; sLSTM FFN "
+                  f"{int(cfg.d_model * x.slstm_proj)}")
+    if cfg.global_every:
+        shape += (f"; window {cfg.sliding_window} on {cfg.global_every - 1} "
+                  f"of every {cfg.global_every} layers (rope theta "
+                  f"{cfg.rope_theta_local:g}), global theta "
+                  f"{cfg.rope_theta:g}")
+    if cfg.moe is not None:
+        m = cfg.moe
+        shape += (f"; {m.n_dense_layers} dense layer, then MoE: "
+                  f"{m.n_routed_experts} routed experts top-{m.top_k} + "
+                  f"{m.n_shared_experts} shared, d_expert {m.d_expert}, "
+                  f"capacity factor {m.capacity_factor}")
+    if cfg.mla is not None:
+        a = cfg.mla
+        shape += (f"; MLA rank {a.kv_lora_rank}, Dh {a.nope_head_dim} + "
+                  f"{a.rope_head_dim}, Dv {a.v_head_dim}")
+    return shape + f"; blocks a forward by kind {kinds}"
 
 
 def serving_path(dev, seed, card, arch):
     """LM serving on the MapUpdate engine at full width (``arch``, random
-    weights from ``seed``): 64 requests, 16 a tick, 2 microbatches of 8,
-    prefill of 256 then 31 greedy decode steps each, slates read back.
-    Returns the launches of the path's kernels in its run."""
+    bf16 weights from ``seed``): ``serve_of(arch)``'s requests, 16 a tick,
+    microbatches of 8, a prefill then 31 greedy decode steps each, slates
+    read back.  Returns the launches of the path's kernels in its run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced_config
@@ -2096,46 +2335,34 @@ def serving_path(dev, seed, card, arch):
     from repro_torch.ml import request_source
     from repro_torch.models import lm
 
-    cfg = get_config(arch)
-    tol = SERVE_ARCHS[arch][2]
+    t_phase = time.perf_counter()
+    cfg, sv, phase = get_config(arch), serve_of(arch), SERVE_ARCHS[arch]
     t0 = time.perf_counter()
     model, _ = lm.init(lm.build(cfg), torch.Generator(device=dev).manual_seed(
-        seed))
+        seed), dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    blocks = serving_blocks(model.plan)
-    if blocks != SERVE_ARCHS[arch][:2]:
-        raise AssertionError(f"{arch}: a forward runs {blocks} (attention, "
-                             f"Mamba-2) blocks, not {SERVE_ARCHS[arch][:2]}")
-    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
-             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
-             f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
-             f"{cfg.vocab_size}")
-    if cfg.ssm is not None:
-        s = cfg.ssm
-        shape += (f"; Mamba-2 d_inner {s.expand * cfg.d_model}, "
-                  f"{s.expand * cfg.d_model // s.head_dim} SSD heads, N "
-                  f"{s.state_dim}, P {s.head_dim}, d_conv {s.d_conv}, chunk "
-                  f"{s.chunk}; one shared attention block every "
-                  f"{cfg.shared_attn_every} Mamba-2 layers")
-    log(f"serving: {cfg.name} at full width ({shape}); a forward runs "
-        f"{blocks[0]} attention and {blocks[1]} Mamba-2 blocks; {n_params} "
-        f"parameters initialised on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
-    kw = dict(batch=SERVE["per_tick"], cache_len=SERVE["cache_len"],
-              max_new=SERVE["max_new"], bucket=SERVE["bucket"],
-              prompt_len=SERVE["prompt_len"])
+    kinds = serving_blocks(cfg, model.plan)
+    if kinds != SERVE_ARCHS[arch].blocks:
+        raise AssertionError(f"{arch}: a forward runs blocks {kinds}, not "
+                             f"{SERVE_ARCHS[arch].blocks}")
+    log(f"serving: {cfg.name} at full width ({describe(cfg, kinds)}); "
+        f"{n_params} parameters (config count {cfg.param_count()}) drawn "
+        f"on the card in bf16 in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    kw = dict(batch=sv["per_tick"], cache_len=sv["cache_len"],
+              max_new=sv["max_new"], bucket=sv["bucket"],
+              prompt_len=sv["prompt_len"])
     eng, mapper = serving_engine(cfg, model, dev, **kw)
-    del model                    # the mapper keeps its bf16 copy
-    torch.cuda.empty_cache()
-    reqs = serving_requests(seed, SERVE["requests"], cfg.vocab_size)
-    source = request_source(reqs, prompt_len=SERVE["prompt_len"],
-                            capacity=SERVE["per_tick"],
-                            per_tick=SERVE["per_tick"], device=dev)
+    del model                    # the mapper holds the same bf16 weights
+    reqs = serving_requests(sv, seed, sv["requests"], cfg.vocab_size)
+    source = request_source(reqs, prompt_len=sv["prompt_len"],
+                            capacity=sv["per_tick"],
+                            per_tick=sv["per_tick"], device=dev)
     state = eng.init_state()
     kernels = (fk.flash_attention, dk.decode_attention, rk.rmsnorm,
                sk.ssd_scan, uk.slate_update, lk.slate_lookup)
-    routed = (rk.rmsnorm, sk.ssd_scan)
+    routed = (fk.flash_attention, rk.rmsnorm, sk.ssd_scan)
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -2145,7 +2372,7 @@ def serving_path(dev, seed, card, arch):
     mapper.microbatches = 0
     with torch_probe_calls() as torch_calls:
         t0 = time.perf_counter()
-        state, _ = eng.run(state, source, SERVE["ticks"])
+        state, _ = eng.run(state, source, sv["ticks"])
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -2157,21 +2384,24 @@ def serving_path(dev, seed, card, arch):
     launches = {k.__name__: k.launches for k in kernels if k.launches}
     routes = {k.__name__: dict(k.launches_by_route) for k in routed}
     mb = mapper.microbatches
-    ticks = SERVE["ticks"] + drained
+    ticks = sv["ticks"] + drained
     tick_s = (t_run + t_drain) / ticks
-    n_tok = SERVE["requests"] * SERVE["max_new"]
-    log(f"serving {arch} end to end: {SERVE['requests']} requests x "
-        f"{SERVE['max_new']} tokens in {ticks} ticks ({SERVE['ticks']} fed "
-        f"+ {drained} drain), {mb} microbatches of {SERVE['bucket']}: "
-        f"{t_run + t_drain:.3f} s = {tick_s * 1e3:.3f} ms/tick, "
-        f"{n_tok / (t_run + t_drain):.2f} generated tokens/s; {card}")
+    n_tok = sv["requests"] * sv["max_new"]
+    log(f"serving {arch} end to end: {sv['requests']} requests (prompts "
+        f"{sv['min_prompt']}-{sv['prompt_len']} padded to "
+        f"{sv['prompt_len']}, cache {sv['cache_len']}) x {sv['max_new']} "
+        f"tokens in {ticks} ticks ({sv['ticks']} fed + {drained} drain), "
+        f"{mb} microbatches of {sv['bucket']}: {t_run + t_drain:.3f} s = "
+        f"{tick_s * 1e3:.3f} ms/tick, {n_tok / (t_run + t_drain):.2f} "
+        f"generated tokens/s; {card}")
     per_mb = serving_launches(arch)
     log(f"launches on the {arch} serving path {launches} over {mb} "
         f"microbatches (expected a microbatch: {per_mb}), by route "
         f"{routes}; engine stats {eng.stats(state)['processed']}")
     want = {k: n * mb for k, n in per_mb.items()}
     # every serving shape takes the tensor cores / the register route
-    for name, route in (("rmsnorm", "regs"), ("ssd_scan", "mma")):
+    for name, route in (("flash_attention", "wgmma"), ("rmsnorm", "regs"),
+                        ("ssd_scan", "mma")):
         n = want.get(name, 0)
         if routes[name] != {r: n * (r == route) for r in routes[name]}:
             raise AssertionError(f"{name} routes {routes[name]} on the "
@@ -2181,18 +2411,25 @@ def serving_path(dev, seed, card, arch):
             or launches.get("slate_update", 0) <= 0
             or launches.get("slate_lookup", 0) <= 0
             or set(launches) - set(want) - {"slate_update", "slate_lookup"}
-            or mb != ticks * (SERVE["per_tick"] // SERVE["bucket"])):
+            or mb != ticks * (sv["per_tick"] // sv["bucket"])):
         raise AssertionError(f"serving launches {launches} for {mb} "
                              f"microbatches, expected {want}")
+    if kinds.get("mlstm"):
+        log(f"ssd_scan on the {arch} path: {launches.get('ssd_scan', 0)} "
+            f"launches (asserted 0): the mLSTM's N = "
+            f"{2 * cfg.d_model // cfg.n_heads}, P = N + 1 fail the "
+            f"kernel's supported() (P % 8, the JAX package's rule), so "
+            f"kernels/ssd/ops.ssd takes the plain version, as the JAX "
+            f"package's takes its ref")
     launches["slate_lookup routes"] = check_lookup_routes(
         f"serving {arch}", torch_calls)
     if any(r is None for r in rows):
         raise AssertionError("a request has no slate")
 
-    direct = direct_greedy(mapper, reqs, dev)
+    direct = direct_greedy(sv, mapper, reqs, dev)
     diff = [r.rid for r, row in zip(reqs, rows)
             if not np.array_equal(row["tokens"].numpy(), direct[r.rid])
-            or int(row["n"]) != SERVE["max_new"]]
+            or int(row["n"]) != sv["max_new"]]
     if diff:
         raise AssertionError(f"requests {diff} differ from the direct greedy "
                              "loop")
@@ -2200,12 +2437,13 @@ def serving_path(dev, seed, card, arch):
     log(f"all {len(rids)} request slates (read_slates) equal the direct "
         f"greedy loop's tokens bitwise; {len(np.unique(toks))} distinct "
         f"token ids generated")
-    tf = teacher_forced(mapper, reqs, dev, tol)
+    tf = teacher_forced(sv, mapper, reqs, dev, phase)
     log(f"teacher-forced, one microbatch, kernels vs plain versions: {tf}")
-    pb = per_block(mapper, reqs, dev)
+    torch.cuda.empty_cache()
+    pb = per_block(sv, mapper, reqs, dev)
     log(f"teacher-forced block by block, one microbatch, kernels vs plain "
         f"versions on the same input and state: {pb}")
-    profile_serving_tick(eng, state, cfg, dev, seed, tick_s)
+    profile_serving_tick(sv, eng, state, cfg, dev, seed, tick_s)
     del eng, mapper, state
     torch.cuda.empty_cache()
 
@@ -2215,7 +2453,7 @@ def serving_path(dev, seed, card, arch):
         device=dev).manual_seed(seed))
     reng, _ = serving_engine(rcfg, rmodel, dev, batch=4, cache_len=32,
                              max_new=4, bucket=2, prompt_len=16)
-    rreqs = [r for r in serving_requests(seed, 8, rcfg.vocab_size)]
+    rreqs = [r for r in serving_requests(SERVE, seed, 8, rcfg.vocab_size)]
     for r in rreqs:
         r.prompt = r.prompt[:16]
     rsrc = request_source(rreqs, prompt_len=16, capacity=4, per_tick=4,
@@ -2231,21 +2469,23 @@ def serving_path(dev, seed, card, arch):
         torch.cuda.set_sync_debug_mode("default")
     log(f"a serving tick at {rcfg.name}'s reduced config under sync debug "
         f"mode 'error': no host sync ({reng.stats(rstate)['processed']})")
+    log(f"serving {arch}: the phase took {time.perf_counter() - t_phase:.1f}"
+        f" s wall")
     return launches
 
 
-def profile_serving_tick(eng, state, cfg, dev, seed, tick_s):
+def profile_serving_tick(sv, eng, state, cfg, dev, seed, tick_s):
     """One more serving tick (16 new requests) under torch.profiler: device
     busy time, device operations, the kernels that take most of it, and
     the idle share against the unprofiled ms/tick."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.ml import request_source
-    reqs = serving_requests(seed + 1, SERVE["per_tick"], cfg.vocab_size,
+    reqs = serving_requests(sv, seed + 1, sv["per_tick"], cfg.vocab_size,
                             rid0=10_000)
-    src = request_source(reqs, prompt_len=SERVE["prompt_len"],
-                         capacity=SERVE["per_tick"],
-                         per_tick=SERVE["per_tick"], device=dev)
+    src = request_source(reqs, prompt_len=sv["prompt_len"],
+                         capacity=sv["per_tick"],
+                         per_tick=sv["per_tick"], device=dev)
     batch = src(0, None)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

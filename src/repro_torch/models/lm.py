@@ -26,8 +26,9 @@ from repro_torch.models.stack import (StackPlan, apply_stack, init_stack,
 
 
 # parameters the JAX layers read in f32 whatever the compute dtype: the
-# norm scales, and Mamba-2's decay rate and time-step bias
-F32_PARAMS = frozenset({"scale", "a_log", "dt_bias"})
+# norm scales, Mamba-2's decay rate and time-step bias, the MoE router
+# and the mLSTM gate bias
+F32_PARAMS = frozenset({"scale", "a_log", "dt_bias", "router", "gate_bias"})
 
 
 class ParamTree(nn.Module):
@@ -103,22 +104,42 @@ def build(cfg: ModelConfig) -> Model:
 # params
 # --------------------------------------------------------------------------
 
-def init(model: Model, gen: torch.Generator) -> Tuple[Model, dict]:
+def init(model: Model, gen: torch.Generator,
+         dtype: Optional[torch.dtype] = None) -> Tuple[Model, dict]:
     """Random parameters drawn from ``gen``, on its device.  Returns
     ``(model, specs)`` with ``specs`` the JAX package's logical partition
-    tree."""
+    tree.  With ``dtype``, every tensor is drawn in f32 as without it and
+    cast to ``dtype`` as soon as its block is drawn (``F32_PARAMS`` stay
+    f32): the values equal ``for_compute(init(model, gen), dtype)``, and
+    the f32 copy never exists whole (at most one block of it does)."""
     cfg = model.cfg
+    cast = lambda t: t if dtype is None else _cast_tree(t, dtype)
+    one = lambda t: t if dtype is None else t.to(dtype)
     embed, embed_spec = iu.dense(gen, (cfg.vocab_size, cfg.d_model),
                                  ("tp", "fsdp"), scale=0.02)
-    body, body_specs = init_stack(gen, model.plan)
+    embed = one(embed)
+    body, body_specs = init_stack(gen, model.plan, cast=cast)
     fn, fns = norms.init(gen, cfg.d_model,
                          scale_offset=cfg.norm_scale_offset)
     params = {"embed": embed, "body": body, "final_norm": fn}
     specs = {"embed": embed_spec, "body": body_specs, "final_norm": fns}
     if not cfg.tie_embeddings:
-        params["head"], specs["head"] = iu.dense(
+        head, specs["head"] = iu.dense(
             gen, (cfg.d_model, cfg.vocab_size), ("fsdp", "tp"), scale=0.02)
+        params["head"] = one(head)
     return model.load_tree(params), specs
+
+
+def _cast_tree(tree, cdtype: torch.dtype):
+    """Every tensor of a parameter tree cast to ``cdtype``, those in
+    ``F32_PARAMS`` kept f32; ``None`` and lists kept."""
+    if tree is None:
+        return None
+    if isinstance(tree, list):
+        return [_cast_tree(x, cdtype) for x in tree]
+    return {k: (_cast_tree(v, cdtype) if not isinstance(v, torch.Tensor)
+                else v if k in F32_PARAMS else v.to(cdtype))
+            for k, v in tree.items()}
 
 
 def for_compute(model: Model, cdtype: torch.dtype) -> Model:
@@ -126,17 +147,8 @@ def for_compute(model: Model, cdtype: torch.dtype) -> Model:
     ``F32_PARAMS`` kept f32.  The JAX package casts weights to the
     compute dtype at every use and reads those few in f32; casting once
     gives the same values, and the layers' casts become no-ops."""
-    def cast(tree):
-        if tree is None:
-            return None
-        if isinstance(tree, list):
-            return [cast(x) for x in tree]
-        return {k: (cast(v) if not isinstance(v, torch.Tensor)
-                    else v if k in F32_PARAMS else v.to(cdtype))
-                for k, v in tree.items()}
-
     out = Model(model.cfg, model.plan, model.enc_plan)
-    return out.load_tree(cast(model.tree()))
+    return out.load_tree(_cast_tree(model.tree(), cdtype))
 
 
 # --------------------------------------------------------------------------

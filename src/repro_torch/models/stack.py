@@ -17,8 +17,9 @@ The decode contract.  Decode threads the (large, mostly unchanged)
 per-layer states the way the JAX package's scan carry does, but in
 place: each group's block gets views of its slice of the stacked state
 and must write its new state into those views (``attention._write_cache``
-writes the new token's k/v; ``mamba2.apply`` ``copy_``s its conv window
-and SSD state), so no state is copied or re-emitted.  ``apply_stack``
+writes the new token's k/v, and MLA's latents; ``mamba2.apply`` and the
+xLSTM layers ``copy_`` their recurrent states), so no state is copied or
+re-emitted.  ``apply_stack``
 returns the caller's stacked states, which then hold the new values; a
 block that returned new tensors instead would never advance its state.
 No remat: the port serves only, so nothing is kept for a backward pass.
@@ -76,11 +77,14 @@ def _map_spec(fn, spec):
     return {k: _map_spec(fn, v) for k, v in spec.items()}
 
 
-def init_stack(gen: torch.Generator, plan: StackPlan):
+def init_stack(gen: torch.Generator, plan: StackPlan,
+               cast: Callable = lambda tree: tree):
     """Returns (params, specs).  params['segments'][i][j] has leaves with a
     leading n_groups axis (``None`` at a shared block's position);
     params['extra'][name] is unstacked.  Groups, then the extra blocks,
-    draw in order from ``gen``."""
+    draw in order from ``gen``; ``cast`` maps each block's parameters as
+    soon as they are drawn, and each group is copied into the stacked
+    leaves then, so no more than one block's draw exists besides them."""
     params = {"segments": [], "extra": {}}
     specs = {"segments": [], "extra": {}}
     for seg in plan.segments:
@@ -90,15 +94,22 @@ def init_stack(gen: torch.Generator, plan: StackPlan):
                 seg_params.append(None)
                 seg_specs.append(None)
                 continue
-            groups = [blk.init(gen) for _ in range(seg.n_groups)]
-            sp = groups[0][1]
-            seg_params.append(_map(lambda *xs: torch.stack(xs),
-                                   *[g[0] for g in groups]))
+            stacked = sp = None
+            for i in range(seg.n_groups):
+                p, sp = blk.init(gen)
+                p = cast(p)
+                if stacked is None:
+                    stacked = _map(lambda a: a.new_empty(
+                        (seg.n_groups,) + tuple(a.shape)), p)
+                _map(lambda dst, a: dst[i].copy_(a), stacked, p)
+                del p
+            seg_params.append(stacked)
             seg_specs.append(_map(lambda s: (None,) + tuple(s), sp))
         params["segments"].append(seg_params)
         specs["segments"].append(seg_specs)
     for blk in plan.extra_blocks:
-        params["extra"][blk.name], specs["extra"][blk.name] = blk.init(gen)
+        p, specs["extra"][blk.name] = blk.init(gen)
+        params["extra"][blk.name] = cast(p)
     return params, specs
 
 

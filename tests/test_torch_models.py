@@ -42,6 +42,7 @@ from repro_torch.models.layers import ffn as t_ffn
 from repro_torch.models.layers import norms as t_norms
 from repro_torch.models.layers import rope as t_rope
 from repro_torch.models.stack import apply_stack as t_apply_stack
+from tests.test_torch_xlstm import _j_lm, _stack_tol
 
 TINY = dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=1, d_ff=128,
             vocab_size=512, head_dim=32)
@@ -264,8 +265,8 @@ def test_params_and_states_round_trip_bitwise(model):
 def test_init_and_configs():
     """Random init draws from a torch.Generator with the JAX package's
     shapes and scales; every config copies across; the families not
-    ported yet raise NotImplementedError naming the ROADMAP item that
-    ports them."""
+    ported yet (whisper, llama-3.2-vision) raise NotImplementedError
+    naming the ROADMAP item that ports them."""
     from repro.configs.registry import ARCHS as J_ARCHS
     from repro_torch.configs.registry import ARCHS
     assert set(ARCHS) == set(J_ARCHS)
@@ -285,12 +286,178 @@ def test_init_and_configs():
                                  is_leaf=lambda s: isinstance(s, tuple))
     wq = a.body.segments[0][0].attn.wq
     assert abs(float(wq.std()) - 64 ** -0.5) < 0.02
-    for name in ("xlstm-350m", "deepseek-moe-16b",
-                 "deepseek-v2-lite-16b", "whisper-tiny",
-                 "llama-3.2-vision-11b", "gemma3-1b"):
+    for name in ("whisper-tiny", "llama-3.2-vision-11b"):
         with pytest.raises(NotImplementedError, match="queue 1 item 12"):
             tlm.build(reduced_config(name))
     assert transformer.build_encoder_plan(cfg) is None
-    # dense decoders and the hybrid family build
-    for name in ("gemma-7b", "qwen1.5-110b", "zamba2-1.2b"):
+    # the dense decoders, the hybrid, xLSTM, gemma3 and DeepSeek families
+    # build
+    for name in ("gemma-7b", "qwen1.5-110b", "zamba2-1.2b", "xlstm-350m",
+                 "gemma3-1b", "deepseek-moe-16b", "deepseek-v2-lite-16b"):
         tlm.build(reduced_config(name))
+
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "zamba2-1.2b", "xlstm-350m",
+                                  "gemma3-1b", "deepseek-v2-lite-16b"])
+def test_init_in_a_compute_dtype_equals_for_compute(name):
+    """``lm.init(..., dtype=bf16)`` casts each block as it is drawn and
+    gives bit for bit ``for_compute(init(...), bf16)``: the same draws,
+    ``F32_PARAMS`` kept f32."""
+    cfg = reduced_config(name)
+    a, _ = tlm.init(tlm.build(cfg), torch.Generator().manual_seed(5))
+    b, _ = tlm.init(tlm.build(cfg), torch.Generator().manual_seed(5),
+                    dtype=torch.bfloat16)
+    want = dict(tlm.for_compute(a, torch.bfloat16).named_parameters())
+    got = dict(b.named_parameters())
+    assert want.keys() == got.keys()
+    for k, v in got.items():
+        assert v.dtype == want[k].dtype, k
+        assert v.dtype == (torch.float32 if k.split(".")[-1] in
+                           tlm.F32_PARAMS else torch.bfloat16), k
+        assert torch.equal(v, want[k]), k
+
+
+# ---- gemma3: windowed local layers with their own rope theta, globals ----
+
+GEMMA3 = "gemma3-1b"
+G_S, G_CACHE = 24, 40      # prompts three windows long (window 8)
+
+
+@pytest.fixture(scope="module")
+def gemma3():
+    """The reduced gemma3 (7 layers: 2 groups of two windowed local layers
+    and a global one, then a local tail; window 8, local theta 1e4,
+    global 1e6) with its norm scales (zeros at init, applied as 1 + w)
+    set to random values."""
+    jcfg, tcfg = j_reduced_config(GEMMA3), reduced_config(GEMMA3)
+    assert tcfg.name == jcfg.name and tcfg.sliding_window == 8
+    jm = jlm.build(jcfg)
+    params = jax.jit(lambda k: jlm.init(jm, k)[0])(jax.random.PRNGKey(0))
+    params = jax.tree.map(np.array, params)
+    rng = np.random.default_rng(1)
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k == "scale":
+                    t[k] = rng.uniform(-0.5, 0.5, v.shape).astype(np.float32)
+                else:
+                    walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+
+    walk(params)
+    tm = convert.lm_params_from_numpy(params, tcfg, device="cpu")
+    return jcfg, tcfg, jm, params, tm
+
+
+def test_gemma3_plan_matches_jax(gemma3):
+    jcfg, tcfg, jm, params, tm = gemma3
+    names = lambda plan: [([b.name for b in s.pattern], s.n_groups)
+                          for s in plan.segments]
+    assert names(tm.plan) == names(jm.plan) == [
+        (["local0", "local1", "global"], 2), (["tail_local0"], 1)]
+    shapes = jax.tree.map(lambda x: tuple(x.shape), params)
+    p, _ = tlm.init(tlm.build(tcfg), torch.Generator().manual_seed(3))
+    assert jax.tree.map(lambda x: tuple(x.shape),
+                        convert.lm_params_to_numpy(p)) == shapes
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("kind", ["local", "global"])
+def test_gemma3_attention_matches_jax(gemma3, kind, dt):
+    """A local layer (window 8, theta 1e4) and a global one (theta 1e6),
+    Dh 16, 4 query heads over one kv head, at prefill (the window binds)
+    and one decode step per request past the window, against JAX."""
+    jcfg, tcfg, _, params, _ = gemma3
+    jdt, tdt, tol, _ = DTYPES[dt]
+    kw = (dict(window=jcfg.sliding_window, rope_theta=jcfg.rope_theta_local)
+          if kind == "local" else dict(rope_theta=jcfg.rope_theta))
+    j = 0 if kind == "local" else 2
+    jp = jax.tree.map(lambda a: a[0], params["body"]["segments"][0][j]["attn"])
+    tp = _t(jp)
+    rng = np.random.default_rng(3)
+    B = 2
+    x = rng.standard_normal((B, G_S, jcfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(G_S, dtype=np.int32), (B, 1))
+
+    def j_apply(phase):
+        def f(p, x, state, positions, cur):
+            ctx = JCtx(phase=phase, positions=positions, cur_index=cur,
+                       cache_len=G_CACHE, cdtype=jdt)
+            return j_attn.apply(p, x, state, ctx, cfg=jcfg, **kw)
+        return jax.jit(f)
+
+    jy, jst = j_apply("prefill")(jp, jnp.asarray(x), None, jnp.asarray(pos),
+                                 None)
+    ty, tst = t_attn.apply(tp, torch.from_numpy(x), None, TCtx(
+        phase="prefill", positions=torch.from_numpy(pos), cache_len=G_CACHE,
+        cdtype=tdt), cfg=tcfg, **kw)
+    _close(ty, jy, tol)
+    cur = np.array([G_S, 13], np.int32)
+    xd = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)
+    jyd, _ = j_apply("decode")(jp, jnp.asarray(xd), jst,
+                               jnp.asarray(cur[:, None]), jnp.asarray(cur))
+    tyd, _ = t_attn.apply(
+        tp, torch.from_numpy(xd),
+        convert.lm_states_from_numpy(jax.tree.map(np.asarray, jst), "cpu"),
+        TCtx(phase="decode", positions=torch.from_numpy(cur[:, None]),
+             cur_index=torch.from_numpy(cur), cache_len=G_CACHE, cdtype=tdt),
+        cfg=tcfg, **kw)
+    _close(tyd, jyd, tol)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_gemma3_apply_stack_and_lm_logits_match_jax(gemma3, dt):
+    """The gemma3 stack at prefill, ``lm.prefill`` logits at every
+    position (embedding scale, 1 + w norms, GeGLU, tied head) and three
+    decode steps past the window, against JAX.  At f32 the prefill agrees
+    within 1e-4; a decode step reads the bf16 caches and the decode
+    oracle's bf16 probabilities, where an f32 value within 1e-7 of a bf16
+    rounding boundary may round either way in the two packages, so decode
+    logits agree within four bf16 ulps of the largest.  At bf16 the stack
+    and the logits agree within twice JAX's own distance between its bf16
+    and f32 outputs on the same inputs (``_stack_tol``)."""
+    jcfg, tcfg, jm, params, tm = gemma3
+    jdt, tdt, tol, _ = DTYPES[dt]
+    rng = np.random.default_rng(4)
+    B = 3
+    toks = rng.integers(1, jcfg.vocab_size, (B, G_S)).astype(np.int32)
+    x = rng.standard_normal((B, G_S, jcfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(G_S, dtype=np.int32), (B, 1))
+    m = tlm.for_compute(tm, tdt)
+    j_stack = lambda dt_: jax.jit(lambda body, x, pos: j_apply_stack(
+        body, jm.plan, x, None, JCtx(phase="prefill", positions=pos,
+                                     cache_len=G_CACHE, cdtype=dt_),
+        remat=False))(params["body"], jnp.asarray(x, dt_), jnp.asarray(pos))
+    jx, jst, _ = j_stack(jdt)
+    tx, tst, _ = t_apply_stack(
+        m.body.tree(), m.plan, torch.from_numpy(x).to(tdt), None,
+        TCtx(phase="prefill", positions=torch.from_numpy(pos),
+             cache_len=G_CACHE, cdtype=tdt))
+    _close(tx, jx, tol if dt == "f32" else _stack_tol(jx,
+                                                      j_stack(jnp.float32)[0]))
+    _close(tst[1][0]["k"], jst[1][0]["k"], BF16)
+    j_prefill, j_decode = _j_lm(jm, jdt, G_CACHE)
+    # JAX at f32 beside JAX at bf16: the bf16 bound
+    f_prefill, f_decode = ((j_prefill, j_decode) if dt == "f32"
+                           else _j_lm(jm, jnp.float32, G_CACHE))
+    jlog, jstates = j_prefill(params, jnp.asarray(toks))
+    flog, fstates = f_prefill(params, jnp.asarray(toks))
+    tlog, tstates = tlm.prefill(m, {"tokens": torch.from_numpy(toks)},
+                                TCtx(cdtype=tdt), G_CACHE, full_logits=True)
+    _close(tlog, jlog, tol if dt == "f32" else _stack_tol(jlog, flog))
+    cur = np.array([G_S, G_S, 11], np.int32)
+    for _ in range(3):
+        tok = rng.integers(1, jcfg.vocab_size, (B, 1)).astype(np.int32)
+        jl, jstates = j_decode(params, jnp.asarray(tok), jstates,
+                               jnp.asarray(cur))
+        fl, fstates = f_decode(params, jnp.asarray(tok), fstates,
+                               jnp.asarray(cur))
+        tl, tstates = tlm.decode_step(m, torch.from_numpy(tok), tstates,
+                                      torch.from_numpy(cur),
+                                      TCtx(cdtype=tdt))
+        _close(tl, jl, BF16 if dt == "f32" else _stack_tol(jl, fl))
+        cur = cur + 1
+    _close(tstates[0][2]["v"], jstates[0][2]["v"], BF16)
