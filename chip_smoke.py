@@ -161,18 +161,46 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    the bf16 weights where the layers use them: no f32 copy of the
    model).  The teacher-forced check of phases 7, 10 and 11 fails when
    no position's top-2 margin exceeds its tolerance.
+12. drives the durable engine through a crash and its recovery: phase
+   5's workflow and feed (``--seed``) with keys mapped to 64-bit ids
+   (``wide_ids``: rank r -> ((r + 1) << 32) | (r * 2654435761 mod 2**32),
+   so both halves of a key vary and every id exceeds 2**32), on
+   ``EngineConfig(batch_size=65,536, queue_capacity=262,144,
+   chunk_size=8, key_dtype="int64")`` with ``DurabilityConfig(flush=
+   FlushConfig(), barrier=True, replicas=3, write_quorum=2,
+   read_quorum=2, track_flush_deltas=True)`` in a temporary directory.
+   An uninterrupted durable run of 64 ticks (timed, against phase 5's
+   ms/tick, WAL bytes and append seconds a tick, each flush's begin and
+   commit: rows, seconds, store bytes) is held against the numpy
+   reference; a child process (this script with ``--durable-child DIR``)
+   runs the same durable run in a second directory and kills itself with
+   SIGKILL inside ``source_fn`` at source tick 40, after two frontiers.
+   Here, with store replica 0 down, ``Engine.recover()`` (its restore
+   and replay walls printed) and ``run`` from the frontier's source tick
+   plus the source ticks the log holds after it, to tick 64, then
+   ``drain`` and a ``checkpoint``.  Every slate of both updaters must
+   equal the reference and the uninterrupted run's, bitwise, key by key,
+   with the same engine tick and no queue drop; ``processed`` counts
+   restart at the frontier, so they must equal the replayed and resumed
+   events; a ``SlateReplica`` refreshed in full at the frontier and then
+   from the flush deltas must answer ``read_many`` over phase 5's read
+   set as ``read_slates`` does; every ``insert_or_find`` walk (restore,
+   replay, resumed run) takes ``slate_lookup``'s int64 ``find`` route,
+   every read its ``keys`` route, none ``cand``.  A profiled durable
+   chunk gives the device operations and busy ms a tick.
 Every serving phase also asserts every ``flash_attention`` launch on
 its ``wgmma`` route and prints its own wall time.  Each path's launch
 counters are set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON, a row for each
 TPU kernel (``slate_lookup_wide``, the int64 instance of
-``slate_lookup``, runs on no path: the paths have int32 keys);
-``launches`` sums the paths, ``launches_by_path`` splits it,
+``slate_lookup``, runs on phase 12's path); every row must have run on
+some path.  ``launches`` sums the paths, ``launches_by_path`` splits it,
 ``slate_update``'s ``by_mix`` holds its three mixes, the count
-kernels' ``fused`` their fused routes, and ``slate_lookup``'s
-``routes`` its three routes (its ``ms`` and bound are the ``keys``
-route's, the read path's) and ``launches_by_route`` their launches.  The last line is
+kernels' ``fused`` their fused routes, and the two ``slate_lookup``
+rows' ``routes`` its three routes (their ``ms`` and bound are the
+``keys`` route's, the read path's) and ``launches_by_route`` their
+launches.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero and prints no result.  Without a CUDA device, or outside
 a checkout, it exits non-zero at once.
@@ -1487,12 +1515,15 @@ def read_set(seed):
     return np.concatenate([np.arange(Q // 2), cold, never])
 
 
-def check_slates(state, stats, ref, read_keys, reads, ticks, what):
+def check_slates(state, stats, ref, read_keys, reads, ticks, what,
+                 fed=None, rank_of=None):
     """Hold a run's stats, batched reads and whole tables against the
-    reference."""
+    reference.  ``fed``: the events each operator processed (default
+    ``ticks * B``); ``rank_of`` maps table keys to the reference's ranks
+    (default: the keys are the ranks)."""
     import numpy as np
     counts, sums, maxes = ref
-    fed = ticks * B
+    fed = ticks * B if fed is None else fed
     if any(v != 0 for v in stats["queue_dropped"].values()):
         raise AssertionError(f"{what}: queues dropped events: {stats}")
     if stats["processed"] != {"M1": fed, "U1": fed, "U2": fed}:
@@ -1521,6 +1552,8 @@ def check_slates(state, stats, ref, read_keys, reads, ticks, what):
         t = state["tables"][name]
         occ = t.keys[:C] != -1
         ks = t.keys[:C][occ].long().cpu().numpy()
+        if rank_of is not None:
+            ks = rank_of(ks)
         vals = t.vals["v"][:C][occ].cpu().numpy()
         if not np.array_equal(vals, want[ks].astype(np.float32)):
             raise AssertionError(f"{what} {name}: table rows differ from the "
@@ -2537,6 +2570,280 @@ def profile_serving_tick(sv, eng, state, cfg, dev, seed, tick_s):
             f"launches" + (f" (the earlier design: {old} ms)" if old else ""))
 
 
+# ---------------------------------------------------------------- phase 12
+DURABLE_TICKS = 64
+CRASH_AT = 40                    # a source tick after two frontiers
+WIDE_MUL = 2654435761
+
+
+def wide_ids(ranks):
+    """Phase 12's 64-bit entity ids: Zipf rank r -> ((r + 1) << 32) |
+    (r * 2654435761 mod 2**32), a bijection onto ids above 2**32 whose
+    low halves differ too (a tensor on the card, or numpy)."""
+    import numpy as np
+    r = ranks.long() if hasattr(ranks, "long") else \
+        np.asarray(ranks, np.int64)
+    return ((r + 1) << 32) | ((r * WIDE_MUL) & 0xFFFFFFFF)
+
+
+def rank_of(ids):
+    """The inverse of :func:`wide_ids` (numpy)."""
+    return (ids >> 32) - 1
+
+
+def durable_config(d):
+    """Phase 5's engine with int64 keys and durability on: flush every 16
+    ticks behind a drain barrier, three store replicas with write and
+    read quorums of two, flush deltas kept for a replica."""
+    from repro_torch.core.durability import DurabilityConfig
+    from repro_torch.core.engine import EngineConfig
+    from repro_torch.slates.flush import FlushConfig
+    return EngineConfig(
+        batch_size=B, queue_capacity=262144, chunk_size=8, key_dtype="int64",
+        durability=DurabilityConfig(
+            dir=d, flush=FlushConfig(), barrier=True, replicas=3,
+            write_quorum=2, read_quorum=2, track_flush_deltas=True))
+
+
+def wide_source(dev, seed, crash_at=None):
+    """Phase 5's feed with keys mapped to :func:`wide_ids`; the process
+    kills itself (SIGKILL) when asked for source tick ``crash_at``."""
+    import os
+    import signal
+    from repro_torch.core.event import EventBatch
+    source_fn, gen_tick = make_source(zipf_cdf(dev), B, seed)
+
+    def wide_fn(t, max_events):
+        if t == crash_at:
+            os.kill(os.getpid(), signal.SIGKILL)
+        b = source_fn(t, max_events)["S1"]
+        return {"S1": EventBatch(b.sid, b.ts, wide_ids(b.key), b.value,
+                                 b.valid)}
+
+    return wide_fn, gen_tick
+
+
+def durable_child(d, seed, dev=None):
+    """The crash run of phase 12 (``--durable-child DIR``, a process of
+    its own): the durable run of ``durable_path`` in ``DIR``, killed by
+    SIGKILL from inside ``source_fn`` at source tick ``CRASH_AT``."""
+    import torch
+    from repro_torch.core.engine import Engine
+    dev = dev or torch.device("cuda", 0)
+    eng = Engine(build_workflow(C), durable_config(d), device=dev)
+    src, _ = wide_source(dev, seed, crash_at=CRASH_AT)
+    eng.run(eng.init_state(), src, DURABLE_TICKS)
+    raise AssertionError("the crash run outlived its crash")
+
+
+def host_tables(state):
+    """{updater: (ids ascending, ts, vals)} of every occupied row below
+    the sink row, on the host."""
+    import numpy as np
+    out = {}
+    for name, t in state["tables"].items():
+        keys = t.keys[:C].cpu().numpy()
+        occ = np.flatnonzero(keys != -1)
+        order = occ[np.argsort(keys[occ])]
+        out[name] = (keys[order], t.ts[:C].cpu().numpy()[order],
+                     t.vals["v"][:C].cpu().numpy()[order])
+    return out
+
+
+def timed_appends(eng):
+    """Time each WAL append (on the writer thread): returns the list the
+    seconds go to."""
+    wal, spent = eng.dur.wals[0], []
+    append = wal.append
+
+    def timed(tick, sources):
+        t0 = time.perf_counter()
+        out = append(tick, sources)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    wal.append = timed
+    return spent
+
+
+def log_spans(tracer, what, card):
+    for sp in tracer.events():
+        if sp["name"] in ("flush_begin", "flush_commit", "wal_fence",
+                          "recover_restore", "recover_replay"):
+            log(f"{what} {sp['name']}: {sp['dur'] / 1e6:.4f} s, "
+                f"{json.dumps(sp['args'])}; {card}")
+
+
+def durable_path(dev, seed, card, phase5_tick_s):
+    """Phase 12: phase 5's workflow and feed on 64-bit ids with durability
+    on.  An uninterrupted durable run; the same run in a child process
+    killed at source tick ``CRASH_AT``; its recovery here with store
+    replica 0 down, the resumed run to ``DURABLE_TICKS``; then the checks
+    (module docstring).  Returns the launches of the path's kernels."""
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.kernels.slate_update import kernel as uk
+    from repro_torch.slates.replica import SlateReplica
+    from repro_torch.telemetry.trace import Tracer
+
+    t_phase = time.perf_counter()
+    src, gen_tick = wide_source(dev, seed)
+    ref = reference(gen_tick, DURABLE_TICKS)
+    read_ranks = read_set(seed)
+    read_ids = wide_ids(read_ranks)
+    with tempfile.TemporaryDirectory(prefix="muppet-durable-") as root:
+        da, db = f"{root}/uninterrupted", f"{root}/crashed"
+        uk.slate_update.launches = 0
+        lk.slate_lookup.launches = 0
+        reset_lookup_routes()
+        with torch_probe_calls() as torch_calls:
+            # 1. the uninterrupted durable run
+            eng = Engine(build_workflow(C), durable_config(da), device=dev)
+            eng.tracer = Tracer()
+            appends = timed_appends(eng)
+            state = eng.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = eng.run(state, src, DURABLE_TICKS)
+            torch.cuda.synchronize()
+            tick_s = (time.perf_counter() - t0) / DURABLE_TICKS
+            state, drained = eng.drain(state)
+            stats_a = eng.stats(state)
+            wal_bytes = eng.dur.wal.offset
+            log(f"durable run: {DURABLE_TICKS} ticks x {B} events, int64 "
+                f"keys, {tick_s * 1e3:.3f} ms/tick against phase 5's "
+                f"{phase5_tick_s * 1e3:.3f} ms/tick "
+                f"({tick_s / phase5_tick_s:.4f}x), {B / tick_s:.4e} "
+                f"events/s; drain {drained} ticks; engine tick "
+                f"{stats_a['tick']}; {card}")
+            log(f"durable run WAL: {wal_bytes} bytes, "
+                f"{wal_bytes / DURABLE_TICKS:.0f} bytes a tick; appends "
+                f"{len(appends)}, {sum(appends) / len(appends):.5f} s each "
+                f"on the writer thread (max {max(appends):.5f}); {card}")
+            log_spans(eng.tracer, "durable run", card)
+            reads = {u: eng.read_slates(state, u, read_ids)
+                     for u in ("U1", "U2")}
+            check_slates(state, stats_a, ref, read_ranks, reads,
+                         DURABLE_TICKS, "durable run", rank_of=rank_of)
+            base = host_tables(state)
+            eng.close()
+            del eng, state, reads
+            torch.cuda.empty_cache()
+
+            # 2. the crash, in a process of its own
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--durable-child", db, "--seed", str(seed)],
+                capture_output=True, text=True, timeout=600)
+            if child.returncode != -signal.SIGKILL:
+                raise AssertionError(
+                    f"the crash run ended with {child.returncode}, not "
+                    f"SIGKILL: {child.stdout[-2000:]} {child.stderr[-4000:]}")
+            log(f"crash run: killed by SIGKILL at source tick {CRASH_AT} "
+                f"after {time.perf_counter() - t0:.1f} s wall; {card}")
+
+            # 3. recovery with store replica 0 down, the resumed run
+            eng = Engine(build_workflow(C), durable_config(db), device=dev)
+            eng.tracer = Tracer()
+            eng.dur.store.set_replica_down(0)
+            frontier = eng.dur.frontier
+            f_src = frontier.meta["source_tick"]
+            logged = sum(1 for _ in eng.dur.wal.replay(
+                from_offset=frontier.wal_offset))
+            if f_src != 2 * eng.cfg.durability.flush.every_k:
+                raise AssertionError(f"frontier {frontier}: the crash came "
+                                     "after two frontiers")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = eng.recover()
+            torch.cuda.synchronize()
+            t_recover = time.perf_counter() - t0
+            rec_tick = int(state["tick"].item())
+            log(f"recovery from frontier {frontier.tick} (source tick "
+                f"{f_src}, WAL offset {frontier.wal_offset}), {logged} "
+                f"source ticks logged after it, store replica 0 down: "
+                f"{t_recover:.3f} s wall to engine tick {rec_tick}; {card}")
+            log_spans(eng.tracer, "recovery", card)
+            rep = SlateReplica(eng.dur.store, eng.wf,
+                               max_staleness_ticks=DURABLE_TICKS,
+                               flusher=eng.dur.flusher)
+            t0 = time.perf_counter()
+            rows = rep.refresh(frontier)
+            log(f"replica: full refresh at the frontier, {rows} rows in "
+                f"{time.perf_counter() - t0:.3f} s; {card}")
+            # the log holds the ticks up to the crash that reached disk:
+            # the stream resumes after them
+            resume = f_src + logged
+            eng.tracer = Tracer()
+            t0 = time.perf_counter()
+            state, _ = eng.run(state, src, DURABLE_TICKS - resume,
+                               source_offset=resume)
+            torch.cuda.synchronize()
+            log(f"resumed run: source ticks {resume}-{DURABLE_TICKS - 1} in "
+                f"{time.perf_counter() - t0:.3f} s; {card}")
+            log_spans(eng.tracer, "resumed run", card)
+            state, drained = eng.drain(state)
+            state = eng.checkpoint(state)
+            stats = eng.stats(state)
+            t0 = time.perf_counter()
+            rows = rep.refresh(eng.dur.frontier)
+            log(f"replica: incremental refresh at frontier "
+                f"{eng.dur.frontier.tick}, {rows} rows in "
+                f"{time.perf_counter() - t0:.3f} s; {card}")
+            now = int(state["tick"].item())
+            reads = {u: eng.read_slates(state, u, read_ids)
+                     for u in ("U1", "U2")}
+            replica = {u: rep.read_many(u, read_ids.tolist(), now=now)
+                       for u in ("U1", "U2")}
+        launches = {"slate_update": uk.slate_update.launches,
+                    "slate_lookup_wide": lk.slate_lookup.launches}
+        launches["slate_lookup_wide routes"] = check_lookup_routes(
+            "durable", torch_calls)
+        if launches["slate_update"] <= 0:
+            raise AssertionError(f"slate_update never ran on the durable "
+                                 f"path: {launches}")
+
+        if stats["tick"] != stats_a["tick"]:
+            raise AssertionError(f"engine tick {stats['tick']} after "
+                                 f"recovery, {stats_a['tick']} without")
+        fed = (DURABLE_TICKS - f_src) * B     # counters restart at frontier
+        check_slates(state, stats, ref, read_ranks, reads, DURABLE_TICKS,
+                     "recovered run", fed=fed, rank_of=rank_of)
+        got = host_tables(state)
+        for name, (ks, ts, vals) in base.items():
+            gk, gts, gv = got[name]
+            if not (np.array_equal(ks, gk) and np.array_equal(ts, gts)
+                    and vals.tobytes() == gv.tobytes()):
+                raise AssertionError(f"recovered {name} differs from the "
+                                     "uninterrupted run")
+        for u in ("U1", "U2"):
+            for k, a, b in zip(read_ids.tolist(), reads[u], replica[u]):
+                if (a is None) != (b is None) or (a is not None and (
+                        a["v"].numpy().tobytes() != b["v"].tobytes())):
+                    raise AssertionError(f"replica {u} key {k}: {b} against "
+                                         f"the engine's {a}")
+        sizes = ", ".join(f"{n} {len(t[0])} slates" for n, t in base.items())
+        log(f"recovered tables equal the uninterrupted run's bitwise, key by "
+            f"key ({sizes}), engine tick {stats['tick']} both; processed "
+            f"{stats['processed']} = replayed + resumed events; "
+            f"SlateReplica.read_many of {read_ids.size} keys equals "
+            f"read_slates; launches on the durable path {launches}")
+        prof = profile_ticks(eng, state, src, DURABLE_TICKS, tick_s)
+        if prof:
+            log(f"durable tick, profiled: {prof[1]:.1f} device operations "
+                f"and {prof[0]:.4f} ms busy a tick; {card}")
+        eng.close()
+    log(f"durable path: the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"wall; {card}")
+    return launches
+
+
 def profile_ticks(eng, state, source_fn, start, tick_s, n=8):
     """Where a tick's time goes: one chunk of ``n`` more ticks under
     torch.profiler — device busy time per tick (sum of kernel and copy
@@ -2585,6 +2892,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--durable-child", metavar="DIR",
+                    help="run phase 12's crash run in DIR (phase 12 starts "
+                    "this process itself)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2597,6 +2907,8 @@ def main(argv=None):
               "src/repro_torch next to this script)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.durable_child:
+        durable_child(args.durable_child, args.seed)
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
@@ -2639,16 +2951,20 @@ def main(argv=None):
     for arch in SERVE_ARCHS:
         by_path[f"serving {arch}"] = serving_path(dev, args.seed, card, arch)
         torch.cuda.empty_cache()
+    by_path["durable"] = durable_path(dev, args.seed, card, off_s)
+    torch.cuda.empty_cache()
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}
         e["launches"] = sum(e["launches_by_path"].values())
-        if e["name"] == "slate_lookup":
+        if e["name"] in ("slate_lookup", "slate_lookup_wide"):
+            # each instance's launches by route (int32 keys on phases
+            # 5-11, int64 on phase 12)
+            rk = f"{e['name']} routes"
             e["launches_by_route"] = {r: sum(
-                n["slate_lookup routes"][r] for n in by_path.values())
+                n[rk][r] for n in by_path.values() if rk in n)
                 for r in ("cand", "keys", "find")}
-        # the int64 instance of slate_lookup: no path has int64 keys
-        if e["launches"] <= 0 and e["name"] != "slate_lookup_wide":
+        if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} never ran on a path")
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_route", "max_abs_err", "ms",

@@ -28,12 +28,17 @@ state the tick writes and never reads; ``run`` reads both at window
 boundaries into a ``TelemetryReport`` without a host sync inside a tick.
 ``StateHandle`` serves slates, ``/status`` and ``/metrics`` over HTTP.
 
-Not in this slice: ``EngineConfig.durability`` (WAL, flush, recovery)
-raises ``NotImplementedError``.
+With ``EngineConfig.durability`` set (``core/durability.py``), ``run``
+appends every tick's sources to a write-ahead log before the chunk that
+consumes them, flushes the dirty slates to a replicated KV store at
+flush boundaries and records the flush frontier once they are durable;
+``recover`` rebuilds the state after a crash from the store and the log
+suffix (DESIGN.md section 10).
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from contextlib import nullcontext
 from dataclasses import dataclass, field
@@ -45,12 +50,14 @@ import torch
 from repro_torch._device import resolve_device, torch_dtype
 from repro_torch.core import apply as apply_mod
 from repro_torch.core import queues as q_mod
+from repro_torch.core.durability import DurabilityConfig, EngineDurability
 from repro_torch.core.event import EventBatch, concat, tree_map
 from repro_torch.core.operators import (AssociativeUpdater, Mapper,
                                         SequentialUpdater, Updater)
 from repro_torch.core.queues import OverflowPolicy
 from repro_torch.core.workflow import Workflow
 from repro_torch.kernels.slate_lookup import ops as lk_ops
+from repro_torch.slates import flush as flush_mod
 from repro_torch.slates import table as tbl
 from repro_torch.telemetry import latency as lat_mod
 from repro_torch.telemetry import sketch as sk_mod
@@ -74,8 +81,9 @@ class EngineConfig:
     key_dtype: str = "int32"
     # ticks per chunk in run(); 1 = per-tick host sync
     chunk_size: int = 8
-    # not in this slice: must stay None
-    durability: Any = None
+    # durable runtime (WAL + slate flush + crash recovery, DESIGN.md 10);
+    # None = fast but amnesiac
+    durability: Optional[DurabilityConfig] = None
     # device-side telemetry (DESIGN.md 13, 18): a count-min key-heat
     # sketch and per-arc latency histograms updated inside the tick + a
     # windowed metrics registry read at window boundaries.  None = no
@@ -212,10 +220,6 @@ class Engine:
                  device=None):
         self.wf = workflow
         self.cfg = config or EngineConfig()
-        if self.cfg.durability is not None:
-            raise NotImplementedError(
-                "EngineConfig.durability (WAL, flush, recovery) is ported "
-                "in slice 6 of the port (ROADMAP queue 1)")
         self.device = resolve_device(device)
         self.key_dtype = resolve_key_dtype(self.cfg.key_dtype)
         # serializes concurrent readers against run(), which updates the
@@ -228,6 +232,11 @@ class Engine:
                 self.cfg.telemetry, batch_size=self.cfg.batch_size)
             if self.cfg.telemetry.trace:
                 self.tracer = Tracer()
+        self.dur: Optional[EngineDurability] = None
+        if self.cfg.durability is not None:
+            self.dur = EngineDurability(self.cfg.durability, workflow,
+                                        self.cfg.queue_capacity,
+                                        self.cfg.batch_size)
 
     def _span(self, name: str, **args):
         """Tracer span when tracing is on, else a free no-op."""
@@ -456,35 +465,60 @@ class Engine:
         chunk — one sync per chunk — and replays the per-tick
         halve/double rule over it, so the ingest limit handed to
         ``source_fn`` reacts at chunk boundaries.  ``chunk_size=1``
-        recovers exact per-tick backpressure.  ``source_offset`` resumes
-        a source stream at an absolute index.  ``handle`` is republished
+        recovers exact per-tick backpressure.  ``handle`` is republished
         with the current state after every chunk.
+
+        With ``cfg.durability`` set, every per-tick source dict is
+        appended to the WAL *before* the chunk that consumes it, and at
+        chunk boundaries the flush policy may start a durable slate
+        flush; its frontier commits after the next chunk is dispatched,
+        so the store writes overlap device work (DESIGN.md sections 10,
+        17).  Drain ticks of the flush barrier advance the engine tick
+        counter, so ``source_fn``'s tick argument (the source index) and
+        ``stats()['tick']`` diverge by the number of drain ticks.
+
+        ``source_offset`` resumes an interrupted source stream:
+        ``source_fn`` is called with absolute indices ``offset ..
+        offset+n_ticks`` and chunk grouping stays aligned to the absolute
+        index, so a recovered run flushes (and drains) at the same
+        boundaries as the uninterrupted run — the bitwise-parity
+        contract of ``recover()``.
 
         With ``cfg.telemetry`` set, every ``window`` source ticks the
         boundary starts a copy of the counters, sketch and histograms to
         the host and decays the sketch; the report resolves after the
         next chunk is dispatched (one-chunk lag, so the copy overlaps
         device work) and goes to ``handle.on_telemetry``.  The run does
-        not return with a report unresolved."""
+        not return with a report or a frontier unresolved."""
         chunk = chunk_size or self.cfg.chunk_size
         outputs = []
         ingest = None
         obs_mark = source_offset    # telemetry window cursor
+        pending_flush = None        # flush begun, frontier not committed
         pending_obs = None          # in-flight telemetry transfer
         # throttle_hits is cumulative: resuming from prior state must not
         # read old hits as a fresh backpressure signal
         last_hits = int(state["throttle_hits"].item())
         t = source_offset
         end = source_offset + n_ticks
+        eng_tick = int(state["tick"].item()) if self.dur else 0
         while t < end:
             n = min(chunk - t % chunk, end - t)
             per_tick = [source_fn(t + i, ingest) for i in range(n)]
+            if self.dur:
+                for i, srcs in enumerate(per_tick):
+                    self.dur.append(eng_tick + i, srcs)   # async writer
             # the chunk updates the state in place: hold the read lock
             # until the new state is republished
             with self.read_lock:
                 with self._span("chunk_dispatch", tick=t, n_ticks=n):
                     state, outs, info = self.run_chunk(
                         state, stack_sources(per_tick), n)
+                # the chunk is in flight: resolve the previous boundary's
+                # deferred work while the device computes
+                if pending_flush is not None:
+                    self._commit_span(pending_flush, handle)
+                    pending_flush = None
                 if pending_obs is not None:
                     self._finish_observe(pending_obs, handle)
                     pending_obs = None
@@ -502,6 +536,11 @@ class Engine:
                             ingest = None
                     last_hits = hits
                 t += n
+                eng_tick += n
+                if self.dur and self.dur.due(eng_tick, state["tables"]):
+                    with self._span("flush_begin", tick=t):
+                        state, eng_tick, pending_flush = self._flush_begin(
+                            state, eng_tick, meta={"source_tick": t})
                 if (self.telemetry is not None
                         and t - obs_mark >= self.cfg.telemetry.window):
                     with self._span("observe_begin", tick=t):
@@ -513,8 +552,15 @@ class Engine:
                     obs_mark = t
                 if handle is not None:
                     handle.state = state
+        if pending_flush is not None:
+            self._commit_span(pending_flush, handle)
         if pending_obs is not None:
             self._finish_observe(pending_obs, handle)
+        if self.dur:
+            # run() is a durable unit: every source batch it consumed is
+            # on disk (and append errors surface) before control returns
+            with self._span("wal_fence"):
+                self.dur.fence()
         return state, outputs
 
     def _finish_observe(self, pending, handle):
@@ -523,11 +569,23 @@ class Engine:
         if handle is not None:
             handle.on_telemetry(report)
 
+    def _commit_span(self, pending, handle):
+        with self._span("flush_commit") as sp:
+            self._flush_commit(pending, sp)
+        if handle is not None:
+            handle.on_frontier_advance()
+
     def drain(self, state, max_ticks: int = 64):
         """Run source-less ticks until every queue is empty (or
         ``max_ticks``) — flushes in-flight events through the remaining
-        pipeline hops.  Each probe costs one host sync.  Returns
-        ``(state, ticks_run)``."""
+        pipeline hops.  Returns ``(state, ticks_run)``."""
+        return self._drain_queues(state, max_ticks)
+
+    # ---- durability (DESIGN.md section 10) ----
+    def _drain_queues(self, state, max_ticks: int):
+        """Run source-less ticks until every queue is empty — the flush
+        barrier.  Each probe costs one host sync; barriers are rare
+        (flush boundaries only).  Returns (state, ticks_run)."""
         d = 0
         while d < max_ticks:
             sizes = torch.stack([q.size for q in state["queues"].values()])
@@ -536,6 +594,142 @@ class Engine:
             state, _ = self._tick(state, {})
             d += 1
         return state, d
+
+    def _flush_begin(self, state, eng_tick: int, meta=None):
+        """First half of a flush boundary: drain (per config), start the
+        snapshot of every table (device clones; the tables' dirty bits
+        are cleared in place at once), and fence the WAL writer to pin
+        the frontier's replay point *before* any later tick appends.
+        The blocking store-side work lives in :meth:`_flush_commit`,
+        which the driver calls after the next chunk's dispatch so it
+        overlaps device compute.  Returns ``(state, eng_tick,
+        pending)``."""
+        dur = self.dur
+        if dur.cfg.barrier:
+            state, d = self._drain_queues(state, dur.cfg.drain_ticks_max)
+            eng_tick += d
+        snaps = [(up.name, up.ttl,
+                  flush_mod.begin_dirty_snapshot(state["tables"][up.name]))
+                 for up in self.wf.updaters()]
+        f_token = dur.begin_frontier(eng_tick)
+        return state, eng_tick, (snaps, f_token, meta)
+
+    def _flush_commit(self, pending, span=None):
+        """Second half: resolve the snapshots to host rows, hand them to
+        the flusher, and commit the frontier once the store writes are
+        durable (raises :class:`FlushError` without saving otherwise).
+        ``meta`` is the driver cursor stored with the frontier (run()
+        records the source index so a recovering driver can resume its
+        stream even after full WAL truncation).  ``span``, a dict, gets
+        the rows flushed and the store bytes written."""
+        snaps, f_token, meta = pending
+        dur = self.dur
+        rows = 0
+        written = dur.store.bytes_written
+        for name, ttl, token in snaps:
+            keys, ts, vals = flush_mod.finish_dirty_snapshot(token)
+            dur.flusher.flush_rows(name, keys, ts, vals, ttl=ttl)
+            rows += len(keys)
+        dur.commit_frontier(f_token, meta=meta)
+        if span is not None:
+            span["rows"] = rows
+            span["store_bytes"] = dur.store.bytes_written - written
+
+    def _flush_boundary(self, state, eng_tick: int, meta=None):
+        """Synchronous flush boundary (checkpoint / shutdown / tests):
+        begin + commit back to back — no overlap, identical durability
+        semantics."""
+        state, eng_tick, pending = self._flush_begin(state, eng_tick,
+                                                     meta=meta)
+        self._flush_commit(pending)
+        return state, eng_tick
+
+    def checkpoint(self, state):
+        """Force a flush boundary now (shutdown / test hook); returns the
+        state (flushed tables are marked clean)."""
+        if self.dur is None:
+            raise ValueError("engine has no durability config")
+        state, _ = self._flush_boundary(state, int(state["tick"].item()))
+        return state
+
+    def recover(self, store=None, wal=None, *, frontier=None):
+        """Rebuild engine state after a crash: restore flushed slates
+        from the KV store, then replay the WAL suffix from the flush
+        frontier through the chunk path (DESIGN.md section 10).
+
+        ``store`` / ``wal`` / ``frontier`` default to the engine's own
+        durability runtime (``cfg.durability.dir``).  Returns the
+        recovered state, positioned at the last WAL tick; resume with
+        ``run()``/``step()`` as usual.  Stats counters (processed,
+        drops) restart at the frontier — only slates and the tick
+        counter are recovered state.  The log's batches come back on the
+        CPU and are moved to the engine's device.
+        """
+        dur = self.dur
+        store = store if store is not None else (dur and dur.store)
+        wal = wal if wal is not None else (dur and dur.wal)
+        if frontier is None:
+            frontier = dur.frontier if dur else flush_mod.FlushFrontier()
+        if not store or not wal:
+            raise ValueError("recover() needs a store and a wal (or "
+                             "cfg.durability)")
+        f_tick = int(frontier.tick)
+        f_off = frontier.wal_offset
+        f_off = f_off[0] if isinstance(f_off, (list, tuple)) else f_off
+
+        t_recover = time.perf_counter()
+        state = self.init_state()
+        state["tick"].fill_(f_tick)
+        with self._span("recover_restore", frontier=f_tick) as sp:
+            sp["rows"] = 0
+            for up in self.wf.updaters():
+                rows = store.scan_rows(up.name,
+                                       now=f_tick if up.ttl else None)
+                if rows is None:
+                    continue
+                ks, ts, slates = rows
+                flush_mod.restore_into(state["tables"][up.name], ks,
+                                       slates, ts)
+                sp["rows"] += len(ks)
+
+        # replay, preserving the per-tick batch structure (gaps in the
+        # log — drain ticks, empty-source ticks — replay as empty ticks)
+        chunk = self.cfg.chunk_size
+        pending: List[Dict[str, EventBatch]] = []
+        replayed = 0
+
+        def flush_pending():
+            nonlocal state, pending, replayed
+            while pending:
+                group, pending = pending[:chunk], pending[chunk:]
+                state, _, _ = self.run_chunk(
+                    state, stack_sources(group), len(group))
+                replayed += len(group)
+
+        to_dev = lambda t: t.to(self.device)
+        with self._span("recover_replay", frontier=f_tick) as sp:
+            cur = f_tick
+            for tk, srcs in wal.replay(from_offset=f_off):
+                if tk < f_tick:
+                    continue
+                while cur < tk:
+                    pending.append({})
+                    cur += 1
+                pending.append({s: tree_map(to_dev, b)
+                                for s, b in srcs.items()})
+                cur += 1
+                if len(pending) >= 4 * chunk:
+                    flush_pending()
+            flush_pending()
+            sp["replayed_ticks"] = replayed
+        # the crash path surfaces its restore+replay wall time
+        if self.telemetry is not None:
+            self.telemetry.note_recovery(time.perf_counter() - t_recover)
+        return state
+
+    def close(self):
+        if self.dur is not None:
+            self.dur.close()
 
     # ---- introspection (paper section 4.4: reading slates live) ----
     def _query(self, keys) -> torch.Tensor:

@@ -465,7 +465,7 @@ def test_int32_int64_key_self_parity(fused):
                      {k: v.numpy() for k, v in b.items()})
 
 
-def test_device_defaults_to_cuda_and_slices_not_ported_raise():
+def test_device_defaults_to_cuda_and_slices_not_ported_raise(tmp_path):
     wf = TWorkflow([TPassThroughMapper(), TCountingUpdater()],
                    external_streams=("S1",))
     if not torch.cuda.is_available():
@@ -473,8 +473,13 @@ def test_device_defaults_to_cuda_and_slices_not_ported_raise():
             TEngine(wf)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TBatch.of([1, 2], {"x": np.ones(2, np.int32)})
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        TEngine(wf, TConfig(durability=object()), device="cpu")
+    # durability is ported (slice 6): the engine opens its WAL, store and
+    # frontier instead of raising
+    from repro_torch.core.durability import DurabilityConfig
+    eng = TEngine(wf, TConfig(durability=DurabilityConfig(
+        dir=str(tmp_path))), device="cpu")
+    assert eng.dur is not None and eng.dur.frontier.tick == 0
+    eng.close()
     # telemetry is ported (slice 2): the engine builds its registry and
     # sketch state instead of raising
     from repro_torch.telemetry import TelemetryConfig
