@@ -1,25 +1,100 @@
-"""MapUpdate on PyTorch/CUDA — the port of ``repro`` (JAX/Pallas) to one
-NVIDIA H100.
+"""MapUpdate on PyTorch/CUDA — the port of ``repro`` (JAX/Pallas), a
+reproduction of "Muppet: MapReduce-Style Processing of Fast Data", to
+one NVIDIA H100.
+
+Curated public surface: application authors should need nothing beyond
+``from repro_torch import App, RuntimeConfig, EventBatch, ops`` — the
+declarative builder compiles to the engine layer below, which stays
+importable (``repro_torch.core.*``, ``repro_torch.slates.*``) for engine
+work.  Every name is imported on first touch, so ``import repro_torch``
+itself imports nothing (not even torch).
 
 The port keeps the JAX package's module layout and public names, so each
 counterpart sits at the same relative path (``repro_torch.core.engine.
 Engine`` <-> ``repro.core.engine.Engine``).  Plain tensor code is
 PyTorch; every Pallas kernel on a ported path is a CUDA C++ kernel under
-``csrc/``, compiled for ``sm_90a`` at first use
-(``kernels/_build.py``).
+``csrc/``, compiled for ``sm_90a`` at first use (``kernels/_build.py``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
-Ported so far: the single-shard MapUpdate tick (events, queues,
-operators, the slate table, both updater paths and the engine loop,
-with the ``slate_update`` and ``slate_lookup`` kernels) and its in-tick
-telemetry (the count-min sketch and latency histograms on the
-``countmin_update`` / ``histogram_update`` kernel, the windowed
-``TelemetryReport``, tracing, ``/metrics``, the hot-key cache and the
-HTTP slate server), and LM serving on the engine (``ml.serve_app``: the
-dense decoder of ``models/`` — qwen2 / qwen1.5 / gemma-7b — with the
-``flash_attention`` and ``decode_attention`` kernels, feeding a
-per-request slate).  Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+Ported so far, slice by slice:
 
-Importing this package imports nothing heavy: modules are imported
-where they are used (``from repro_torch.core.engine import Engine``).
+1. the single-shard MapUpdate tick (events, queues, operators, the slate
+   table, both updater paths and the engine loop) with the
+   ``slate_update`` and ``slate_lookup`` kernels;
+2. in-tick telemetry (the count-min sketch and latency histograms on the
+   ``countmin_update`` / ``histogram_update`` kernel, the windowed
+   ``TelemetryReport``, tracing, ``/metrics``, the hot-key cache and the
+   HTTP slate server);
+3. LM serving on the engine (``ml.serve_app``): the dense decoders of
+   ``models/`` with the ``flash_attention`` and ``decode_attention``
+   kernels;
+4. hybrid SSM serving (zamba2) with the ``ssd_scan`` and ``rmsnorm``
+   kernels;
+5. one Hopper redesign of every kernel, and the other decoder families
+   (xLSTM, gemma3's local/global attention, MoE with latent attention);
+6. durability and recovery (write-ahead log, slate flush to a quorum KV
+   store, ``Engine.recover``, ``SlateReplica``) with 64-bit keys;
+7. the ``App`` front door on one shard: the planner, ``ops``,
+   ``RuntimeConfig``, ``ModelMapper`` and the rankers, ``build_serve_app``,
+   the synthetic sources and the stream launcher
+   (``python -m repro_torch.launch.stream``).
+
+The multi-shard engine (``DistributedEngine``, ``DistConfig``,
+``AutoscalePolicy``, ``MigrationReport``, ``LoadAutoscaler``) is not
+ported yet (ROADMAP queue 1 item 15); touching one of those names raises
+an ``AttributeError`` that says so.
 """
+import importlib
+
+_WHERE = {
+    "App": "repro_torch.api", "RuntimeConfig": "repro_torch.api",
+    "Stream": "repro_torch.api", "PlanError": "repro_torch.api",
+    "EventBatch": "repro_torch.core.event",
+    "Operator": "repro_torch.core.operators",
+    "Mapper": "repro_torch.core.operators",
+    "Updater": "repro_torch.core.operators",
+    "AssociativeUpdater": "repro_torch.core.operators",
+    "SequentialUpdater": "repro_torch.core.operators",
+    "Workflow": "repro_torch.core.workflow",
+    "Engine": "repro_torch.core.engine",
+    "EngineConfig": "repro_torch.core.engine",
+    "StateHandle": "repro_torch.core.engine",
+    "OverflowPolicy": "repro_torch.core.queues",
+    "SlateServer": "repro_torch.slates.http",
+    "TelemetryConfig": "repro_torch.telemetry",
+    "TelemetryReport": "repro_torch.telemetry",
+}
+_MODULES = {"ops": "repro_torch.api.ops", "ml": "repro_torch.ml"}
+MULTI_SHARD = ("AutoscalePolicy", "DistributedEngine", "DistConfig",
+               "MigrationReport", "LoadAutoscaler")
+
+__all__ = [
+    # declarative app layer (the front door)
+    "App", "RuntimeConfig", "Stream", "ops", "PlanError",
+    # events & operators (shared by both API styles)
+    "EventBatch", "Operator", "Mapper", "Updater", "AssociativeUpdater",
+    "SequentialUpdater",
+    # engine layer (explicit control when the builder is not enough)
+    "Workflow", "Engine", "EngineConfig", "StateHandle", "OverflowPolicy",
+    "SlateServer",
+    # telemetry (DESIGN.md section 13)
+    "TelemetryConfig", "TelemetryReport",
+    # streaming-ML subsystem (DESIGN.md section 16)
+    "ml",
+]
+
+
+def __getattr__(name):
+    if name in _WHERE:
+        return getattr(importlib.import_module(_WHERE[name]), name)
+    if name in _MODULES:
+        return importlib.import_module(_MODULES[name])
+    if name in MULTI_SHARD:
+        raise AttributeError(
+            f"repro_torch.{name} belongs to the multi-shard engine, which "
+            f"is ported by ROADMAP queue 1 item 15")
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -1,0 +1,115 @@
+"""One front door for runtime selection (port of ``repro.api.runtime``;
+DESIGN.md section 11.3).
+
+``RuntimeConfig`` subsumes ``EngineConfig`` + ``DistConfig`` +
+``DurabilityConfig``: the app author states batch/queue sizes, a shard
+count, and (optionally) a durability directory, and ``App.run`` picks
+the engine and the chunked vs durable drive paths internally.  The
+underlying configs stay the source of truth — this is a declarative
+veneer that compiles down to them.
+
+The port runs one shard: the multi-shard engine (``DistributedEngine``,
+``DistConfig``, the mesh) comes with ROADMAP queue 1 item 15, and until
+then a distributed selection raises ``NotImplementedError`` naming it.
+The fields that only the multi-shard engine reads are kept, so a config
+written for the JAX package constructs unchanged.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+from repro_torch.core.engine import EngineConfig
+from repro_torch.core.queues import OverflowPolicy
+
+MULTI_SHARD_TODO = ("the multi-shard engine (DistributedEngine, "
+                    "DistConfig, the device mesh) is ported by ROADMAP "
+                    "queue 1 item 15")
+
+
+@dataclass
+class RuntimeConfig:
+    batch_size: int = 256
+    queue_capacity: int = 0          # 0 = 4 * batch_size
+    chunk_size: int = 8              # ticks per chunk (one host sync)
+    fused: str = "auto"              # slate-update backend (EngineConfig)
+    # key plane width, end-to-end: "int32" (default) or "int64" (widens
+    # event keys, slate tables, WAL frames, the sketch sample and the
+    # kernel entry points — DESIGN.md 12.5/17)
+    key_dtype: str = "int32"
+    overflow: Dict[str, OverflowPolicy] = field(default_factory=dict)
+    overflow_stream: Dict[str, str] = field(default_factory=dict)
+    default_policy: OverflowPolicy = OverflowPolicy.DROP
+    # distribution: shards > 1 (or an explicit mesh) selects the
+    # multi-shard engine (item 15)
+    shards: int = 1
+    mesh: Optional[object] = None
+    exchange_slack: float = 2.0
+    two_choice_threshold: int = 0
+    # migration tiering (DESIGN.md section 14), multi-shard only
+    device_migration: str = "auto"
+    compact_threshold: float = 0.75
+    # durability (DESIGN.md section 10): a directory turns on the WAL +
+    # slate flush + crash recovery runtime
+    durable_dir: Optional[str] = None
+    flush_every: int = 16
+    barrier: bool = True
+    truncate_wal: bool = False
+    # live elasticity (DESIGN.md section 12), multi-shard only
+    autoscale: Optional[object] = None
+    # device-side telemetry (DESIGN.md section 13): a TelemetryConfig
+    # adds the count-min key-heat sketch and the latency histograms to
+    # the tick and the windowed metrics registry behind App.telemetry()
+    telemetry: Optional[object] = None   # telemetry.TelemetryConfig
+
+    @property
+    def distributed(self) -> bool:
+        return self.shards > 1 or self.mesh is not None
+
+    def _queue_capacity(self) -> int:
+        return self.queue_capacity or 4 * self.batch_size
+
+    def _durability(self):
+        if self.durable_dir is None:
+            return None
+        from repro_torch.core.durability import DurabilityConfig
+        from repro_torch.slates.flush import FlushConfig, FlushPolicy
+        return DurabilityConfig(
+            dir=self.durable_dir,
+            flush=FlushConfig(policy=FlushPolicy.EVERY_K,
+                              every_k=self.flush_every),
+            barrier=self.barrier,
+            truncate_wal=self.truncate_wal)
+
+    def _telemetry(self):
+        if self.telemetry is None:
+            return None
+        from repro_torch.telemetry.metrics import TelemetryConfig
+        if not isinstance(self.telemetry, TelemetryConfig):
+            raise TypeError(
+                f"telemetry must be a TelemetryConfig, got "
+                f"{type(self.telemetry).__name__}")
+        return self.telemetry
+
+    def engine_config(self) -> EngineConfig:
+        if self.autoscale is not None:
+            raise ValueError(
+                "autoscale needs a distributed runtime: set shards > 1 "
+                "(or pass mesh=)")
+        return EngineConfig(
+            batch_size=self.batch_size,
+            queue_capacity=self._queue_capacity(),
+            overflow=dict(self.overflow),
+            overflow_stream=dict(self.overflow_stream),
+            default_policy=self.default_policy,
+            fused=self.fused,
+            key_dtype=self.key_dtype,
+            chunk_size=self.chunk_size,
+            durability=self._durability(),
+            telemetry=self._telemetry())
+
+    def dist_config(self):
+        raise NotImplementedError(MULTI_SHARD_TODO)
+
+    def make_mesh(self):
+        raise NotImplementedError(MULTI_SHARD_TODO)

@@ -17,7 +17,8 @@ it and ``state_to_numpy`` strips it.
 For the model stack, ``lm_params_from_numpy`` / ``lm_params_to_numpy``
 carry the JAX parameter tree (layer leaves stacked ``[n_groups, ...]``)
 into an ``lm.Model`` and back (zamba2's ``extra`` dict and the ``None``
-at its shared block's position included), and ``lm_states_from_numpy`` /
+at its shared block's position included), ``mapper_head_from_numpy``
+the ``ModelMapper`` classify head, and ``lm_states_from_numpy`` /
 ``lm_states_to_numpy`` the decode states (bf16 KV caches and MLA
 latent caches, f32 Mamba-2, mLSTM and sLSTM states).  JAX's bf16
 reaches numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
@@ -144,6 +145,13 @@ def lm_params_from_numpy(tree, cfg, device=None):
     from repro_torch.models import lm
     dev = resolve_device(device)
     return lm.build(cfg).load_tree(_map_leaves(lambda a: _t(a, dev), tree))
+
+
+def mapper_head_from_numpy(w, device=None) -> torch.Tensor:
+    """A JAX ``ModelMapper``'s classify head (``[d_model, n_classes]``
+    f32, drawn from ``fold_in(key, 1)``) -> the tensor the port's
+    ``ModelMapper(head=...)`` takes, on ``device`` (default ``cuda``)."""
+    return _t(np.asarray(w, np.float32), resolve_device(device))
 
 
 def lm_params_to_numpy(model):

@@ -152,6 +152,9 @@ class EventBatch:
         )
 
     # ---- transforms (all shape-static) ----
+    def with_value(self, value) -> "EventBatch":
+        return EventBatch(self.sid, self.ts, self.key, value, self.valid)
+
     def mask(self, keep) -> "EventBatch":
         return EventBatch(self.sid, self.ts, self.key, self.value,
                           self.valid & keep)

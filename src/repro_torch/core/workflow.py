@@ -12,7 +12,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
 from repro_torch.core.event import format_spec, spec_matches
-from repro_torch.core.operators import Operator, Updater
+from repro_torch.core.operators import Mapper, Operator, Updater
 
 
 @dataclass
@@ -71,5 +71,11 @@ class Workflow:
     def updaters(self) -> List[Updater]:
         return [op for op in self.operators if isinstance(op, Updater)]
 
+    def mappers(self) -> List[Mapper]:
+        return [op for op in self.operators if isinstance(op, Mapper)]
+
     def dests_of(self, stream: str) -> List[str]:
         return self.subscribers.get(stream, [])
+
+    def op_index(self, name: str) -> int:
+        return [op.name for op in self.operators].index(name)

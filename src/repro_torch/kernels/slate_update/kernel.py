@@ -26,7 +26,8 @@ must not overlap (the engine issues them on one stream).
 
 The wrapper checks device, dtype, shape, alignment and contiguity,
 launches on the current stream, and counts launches in
-``slate_update.launches``.
+``slate_update.launches`` and, by monoid, in
+``slate_update.launches_by_op``.
 """
 from __future__ import annotations
 
@@ -115,8 +116,10 @@ def slate_update(keys_sorted: torch.Tensor, deltas: torch.Tensor,
         table_vals.data_ptr(), buf.data_ptr(), B, D, _OPS[op],
         keys_sorted.element_size(), stream)
     slate_update.launches += 1
+    slate_update.launches_by_op[op] += 1
     _build.check(lib, _NAME, code)
     return table_vals
 
 
 slate_update.launches = 0
+slate_update.launches_by_op = dict.fromkeys(_OPS, 0)

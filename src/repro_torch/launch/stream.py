@@ -1,0 +1,179 @@
+"""Durable stream-engine launcher (port of ``repro.launch.stream``, its
+single-shard half): the counting workflow (paper Examples 1/4) with the
+DESIGN.md section 10 durability layer, exposing the ``--recover`` path
+— built on the declarative app layer (section 11).
+
+Normal run::
+
+    python -m repro_torch.launch.stream --dir /tmp/muppet --ticks 64
+
+Simulated crash (exit mid-run without flushing) then recovery::
+
+    python -m repro_torch.launch.stream --dir /tmp/muppet --ticks 64 --crash-at 40
+    python -m repro_torch.launch.stream --dir /tmp/muppet --ticks 64 --recover
+
+The recovered run restores flushed slates from the KV store, replays the
+WAL suffix from the frontier, then continues to ``--ticks`` and prints
+stats + a few slates, matching what the uninterrupted run would print
+(``processed`` counts restart at the frontier, as in the JAX package).
+``--serve`` starts the live HTTP slate server for the duration of the
+run (reads go through the engine's :class:`StateHandle`, republished
+every chunk).  ``--device`` picks the card (default ``cuda``) or
+``cpu``.
+
+The multi-shard options of the JAX launcher (``--shards`` above 1,
+``--scale-at``, ``--rebalance-every``, ``--autoscale``) need the
+multi-shard engine, ROADMAP queue 1 item 15: they exit with a usage
+error that says so.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from repro_torch import App, EventBatch, RuntimeConfig
+
+MULTI_SHARD = ("needs the multi-shard engine, which is ported by ROADMAP "
+               "queue 1 item 15")
+
+
+def make_app(args) -> App:
+    app = App("stream")
+    s1 = app.source("S1", {"x": ((), torch.float32)})
+
+    @app.mapper(s1, out="S2", name="M1")
+    def forward(batch):
+        return EventBatch(sid=batch.sid, ts=batch.ts + 1, key=batch.key,
+                          value=batch.value, valid=batch.valid)
+
+    @app.updater("S2", name="U1", merge="sum",
+                 slate={"count": ((), torch.int32),
+                        "sum": ((), torch.float32)},
+                 table_capacity=1 << 14)
+    def lift(batch):
+        return {"count": torch.ones_like(batch.key, dtype=torch.int32),
+                "sum": batch.value["x"]}
+
+    telemetry = None
+    if getattr(args, "trace", None):
+        from repro_torch.telemetry import TelemetryConfig
+        telemetry = TelemetryConfig(trace=True)
+    app.start(RuntimeConfig(batch_size=args.batch,
+                            queue_capacity=args.batch * 4,
+                            chunk_size=args.chunk,
+                            telemetry=telemetry,
+                            durable_dir=args.dir,
+                            flush_every=args.flush_every,
+                            truncate_wal=args.truncate_wal),
+              recover=args.recover, device=args.device)
+    return app
+
+
+def source_fn(t, max_events, batch, device=None):
+    rng = np.random.default_rng(t)           # deterministic per tick:
+    n = min(batch, max_events or batch)      # replay == original feed
+    keys = rng.integers(0, 10_000, size=n).astype(np.int32)
+    return {"S1": EventBatch.of(
+        key=keys, value={"x": rng.normal(size=n).astype(np.float32)},
+        ts=np.full(n, t, np.int32), device=device)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dir", required=True,
+                    help="durability root (wal.log, store/, FRONTIER)")
+    ap.add_argument("--ticks", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--chunk", type=int, default=8)
+    ap.add_argument("--flush-every", type=int, default=16)
+    ap.add_argument("--truncate-wal", action="store_true",
+                    help="compact the WAL at each flush frontier")
+    ap.add_argument("--device", default="cuda",
+                    help="the engine's device (default cuda)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help=f"shard count; above 1 {MULTI_SHARD}")
+    ap.add_argument("--scale-at", action="append", default=None,
+                    metavar="TICK:N", help=f"live rescale; {MULTI_SHARD}")
+    ap.add_argument("--rebalance-every", type=int, default=0,
+                    help=f"ring reweighting; {MULTI_SHARD}")
+    ap.add_argument("--autoscale", default=None, metavar="load:HI,LO",
+                    help=f"closed-loop autoscaling; {MULTI_SHARD}")
+    ap.add_argument("--crash-at", type=int, default=None,
+                    help="hard-exit after this many source ticks "
+                         "(simulated machine crash; no final flush)")
+    ap.add_argument("--recover", action="store_true",
+                    help="restore slates + replay WAL before running")
+    ap.add_argument("--serve", action="store_true",
+                    help="HTTP slate server live during the run")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record engine phase spans and export them as "
+                         "Chrome trace JSON (open in Perfetto) after "
+                         "the run")
+    args = ap.parse_args(argv)
+    for flag, used in (("--shards > 1", args.shards > 1),
+                       ("--scale-at", args.scale_at),
+                       ("--rebalance-every", args.rebalance_every),
+                       ("--autoscale", args.autoscale is not None)):
+        if used:
+            ap.error(f"{flag} {MULTI_SHARD}")
+
+    app = make_app(args)
+    eng = app.engine
+    done = 0
+    if args.recover:
+        # resume the source stream where it left off: the frontier's
+        # driver cursor survives even full WAL truncation, and events
+        # carry their source tick as ts, so post-frontier WAL records
+        # advance it further.  (The engine tick is no substitute — it
+        # also counts flush drain ticks.)
+        if eng.dur.frontier.meta:
+            done = int(eng.dur.frontier.meta.get("source_tick", 0))
+        for wal in eng.dur.wals:
+            for _, srcs in wal.replay():
+                if "S1" in srcs:
+                    done = max(done, int(srcs["S1"].ts.max()) + 1)
+        print(f"recovered: frontier tick {eng.dur.frontier.tick}, "
+              f"engine tick {app.stats()['tick']}, "
+              f"resuming at source tick {done}")
+
+    if args.serve:
+        server = app.serve()
+        print(f"slates live at http://127.0.0.1:{server.port}/slate/U1/<k>")
+
+    remaining = max(0, args.ticks - done)
+    if args.crash_at is not None:
+        remaining = min(remaining, args.crash_at - done)
+    app.run(lambda t, mx: source_fn(t, mx, args.batch, eng.device),
+            remaining, source_offset=done)
+
+    if args.crash_at is not None and not args.recover:
+        print(f"CRASH at source tick {args.crash_at} (state dropped; "
+              f"rerun with --recover)")
+        return   # no close(): unflushed slates die with the process
+
+    if args.trace:
+        path = app.export_trace(args.trace)
+        with open(path) as f:          # verify it round-trips as JSON
+            n_spans = len(json.load(f)["traceEvents"])
+        print(f"trace: {n_spans} span(s) -> {path} "
+              f"(load in Perfetto / chrome://tracing)")
+
+    print(json.dumps(app.stats(), indent=2))
+    for key in (0, 1, 2):
+        print(f"slate[{key}] =", _show(app.read_slate("U1", key)))
+    app.close()
+
+
+def _show(slate):
+    """A slate as plain Python numbers (the JAX launcher prints its
+    arrays' values)."""
+    if slate is None:
+        return None
+    return {k: v.item() for k, v in slate.items()}
+
+
+if __name__ == "__main__":
+    main()

@@ -22,8 +22,7 @@ SSD state and do influence its tokens; the JAX package does the same
 The JAX package's ``lax.map`` over microbatches and ``lax.scan`` over
 decode steps are Python loops here that never read the device from the
 host: argmax stays on the card, so a tick is enqueued ahead of it like
-any other.  ``build_serve_app`` needs the ``App`` front door and waits
-for its slice.
+any other.  ``build_serve_app`` wires the three stages into an ``App``.
 """
 from __future__ import annotations
 
@@ -32,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.api.app import App
 from repro_torch.core.event import EventBatch
 from repro_torch.core.operators import AssociativeUpdater, Mapper
 from repro_torch.models import lm
@@ -153,6 +153,29 @@ class RequestSlate(AssociativeUpdater):
         return {k: torch.maximum(a[k], b[k]) for k in a}
 
     merge = combine
+
+
+def build_serve_app(cfg, model: lm.Model, *, prompt_len: int = 32,
+                    max_new: int = 16, cache_len: int = 128,
+                    bucket: int = 4, name: str = "serve_lm",
+                    table_capacity: int = 4096) -> App:
+    """requests source -> LMServeMapper -> per-request slate, as an App.
+
+    ``model`` is an initialised ``lm.Model`` (the JAX package's
+    ``params`` may be None; the port's weights come from ``lm.init`` or
+    ``convert.lm_params_from_numpy``).  Drive with
+    :func:`request_source` and ``App.run`` on the model's device; read
+    results via ``app.read_slate("requests", rid)`` (or the HTTP slate
+    server)."""
+    app = App(name)
+    app.source("requests", {"prompt": ((prompt_len,), torch.int32),
+                            "len": ((), torch.int32)})
+    app.add(LMServeMapper(cfg, model, max_new=max_new,
+                          cache_len=cache_len, bucket=bucket),
+            subscribes=("requests",))
+    app.stream("generated").update(RequestSlate(
+        "requests", max_new=max_new, table_capacity=table_capacity))
+    return app
 
 
 def request_source(requests: Sequence, *, prompt_len: int, capacity: int,

@@ -824,3 +824,89 @@ def test_engine_durability_due_and_barrier_less_frontier(tmp_path):
     assert [t for t, _ in dur.wal.replay(
         from_offset=dur.frontier.wal_offset)] == [3, 4, 5]
     dur.close()
+
+
+# -------------------------------- durability and telemetry together
+def test_durable_run_with_telemetry_crash_recover_across_packages(tmp_path):
+    """Both packages run the durable engine with ``TelemetryConfig(
+    window=4)`` (the JAX side on ``fused="jnp"``), crash at tick 12,
+    recover, and resume to 24: the states, sketch and latency histograms
+    included, equal across packages at each stage, and so do the
+    uninterrupted runs' last reports.  ``recover`` restarts the
+    telemetry state from ``init_state()`` in both packages (the
+    reference's behaviour), so the resumed run's ``lat_hist`` differs
+    from the uninterrupted run's, in both packages alike."""
+    from repro.telemetry.metrics import TelemetryConfig as JTelemetry
+    from repro_torch.telemetry.metrics import TelemetryConfig
+    from tests.test_torch_telemetry import _eq_report
+    n_total, n_crash = 24, 12
+
+    def j_engine(d):
+        wf = JWorkflow([PassThroughMapper(), JSumCounter()],
+                       external_streams=("S1",))
+        return JEngine(wf, JConfig(
+            batch_size=32, queue_capacity=128, chunk_size=4, fused="jnp",
+            telemetry=JTelemetry(window=4),
+            durability=j_dur.DurabilityConfig(
+                dir=d, flush=j_flush.FlushConfig(
+                    policy=j_flush.FlushPolicy.EVERY_K, every_k=8))))
+
+    def t_engine(d):
+        wf = Workflow([Pass(), Sum()], external_streams=("S1",))
+        return Engine(wf, EngineConfig(
+            batch_size=32, queue_capacity=128, chunk_size=4,
+            telemetry=TelemetryConfig(window=4),
+            durability=t_dur.DurabilityConfig(
+                dir=d, flush=FlushConfig(policy=FlushPolicy.EVERY_K,
+                                         every_k=8))), device="cpu")
+
+    def same(jstate, tstate):
+        a = convert.to_plain(jax.device_get(jstate))
+        b = convert.state_to_numpy(tstate)
+        fa, _ = jax.tree.flatten(a)
+        fb, _ = jax.tree.flatten(b)
+        assert jax.tree.structure(a) == jax.tree.structure(b)
+        for x, y in zip(fa, fb):
+            assert np.array_equal(np.asarray(x), np.asarray(y))
+
+    stages = {}
+    for pkg, make, src in (("jax", j_engine, _jax_source(np.int32)),
+                           ("port", t_engine, source(np.int32))):
+        full = make(str(tmp_path / pkg / "full"))
+        s_full, _ = full.run(full.init_state(), src, n_total)
+        report = full.telemetry.last
+        full.close()
+        crash = make(str(tmp_path / pkg / "crash"))
+        crash.run(crash.init_state(), src, n_crash)
+        assert crash.dur.frontier.tick > 0
+        crash.close()
+        rec = make(str(tmp_path / pkg / "crash"))
+        s_rec = rec.recover()
+        # copies: the resumed run updates the port's state in place, and
+        # numpy views of CPU tensors share their memory
+        rec_plain = jax.tree.map(np.array, (
+            convert.to_plain(jax.device_get(s_rec)) if pkg == "jax"
+            else convert.state_to_numpy(s_rec)))
+        s_res, _ = rec.run(s_rec, src, n_total - n_crash,
+                           source_offset=n_crash)
+        rec.close()
+        stages[pkg] = dict(full=s_full, report=report, rec=rec_plain,
+                           res=s_res)
+
+    j, t = stages["jax"], stages["port"]
+    same(j["full"], t["full"])
+    _eq_report(j["report"], t["report"])
+    eq = lambda a, b: jax.tree.all(jax.tree.map(
+        lambda x, y: np.array_equal(np.asarray(x), np.asarray(y)), a, b))
+    assert eq(j["rec"], t["rec"])
+    same(j["res"], t["res"])
+    # the resumed run's slates equal the uninterrupted run's; its latency
+    # histograms restarted at recovery, in both packages
+    assert slates_of(t["res"]) == slates_of(t["full"])
+    for pkg in (j, t):
+        full = convert.to_plain(jax.device_get(pkg["full"]))
+        res = convert.to_plain(jax.device_get(pkg["res"]))
+        assert not np.array_equal(full["lat_hist"]["U1"]["counts"],
+                                  res["lat_hist"]["U1"]["counts"])
+    assert eq(convert.to_plain(jax.device_get(j["res"]))["lat_hist"],
+              convert.state_to_numpy(t["res"])["lat_hist"])
