@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--ticks 128] [--seed 0]
+    python3 chip_smoke.py [--ticks 128] [--seed 0] [--only 3,14]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's kernels from ``src/repro_torch/csrc`` into
@@ -51,7 +51,17 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    same bits on a second call, and cases for a window, q_offset, f32, Dh=72 (the
    CUDA-core route, asserted), Dh=128, Dv != Dh, a packed QKV view, two
    decode rows and a 4096-row cache whose splits are empty, partial and
-   full (tolerance 2e-2 bf16, 5e-5 f32); ``ssd_scan`` at the prefill
+   full (tolerance 2e-2 bf16, 5e-5 f32), and the shapes of phase 14:
+   ``flash_attention`` bidirectional with Sq != Skv (llama-3.2-vision-
+   11b's cross prefill, a 64- and a 256-token bucket over 1,600 image
+   rows, 32/32 heads of 128; a ragged last key tile at 1,601 rows),
+   whisper-tiny's 6/6 heads of 64 (encoder and cross, bidirectional;
+   decoder self, causal), ``decode_attention`` with as many kv heads as
+   query heads over every source row (1,600 rows at 32/32 of 128; 256 at
+   6/6 of 64), whisper's self decode, and a qwen2-0.5b 320-row cache
+   with an idle slot's length past it (clamped); the llama and whisper
+   cross cases each timed beside their bound and SDPA (the ``shapes``
+   of each row of the kernel line); ``ssd_scan`` at the prefill
    shape of phase 8 (8 x 256 tokens in one chunk, 64 heads, N=P=64,
    bf16, q and k head-broadcast views), which must take its tensor-core
    route ("mma"), the same shape with q and k per head, across 8
@@ -233,6 +243,36 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    recovery may drop other keys (a fault of the reference, ROADMAP
    queue 3): the tick matches, every key that neither run dropped holds
    the same slate bitwise in both stores, and the divergence is printed.
+14. drives the continuous-batching ``ServingEngine`` (``repro_torch.
+   launch.serve``) at full width with random bf16 weights from
+   ``--seed``, 8 slots, 2 admissions a tick, 32 requests of 32 new
+   tokens each, until drained.  (a) qwen2-0.5b, cache 320, bucket 64:
+   phase 7's first 32 requests, the last 8 held back and released one at
+   a time whenever every slot is idle, until an idle slot decodes at a
+   write index past the cache (its state snapshot before that tick must
+   be bitwise unchanged after it: the write was dropped); a thread reads
+   the engine's status server (``/status``, ``/slate/requests/<rid>``,
+   ``/metrics``) meanwhile, and every request's page equals its tokens
+   after the run; the tokens equal phase 7's (hence 13c's) but where a
+   request parts at a top-2 margin below 0.25 (teacher-forced).  (b)
+   whisper-tiny at full width (4 + 4 layers, d_model 384, 6/6 heads,
+   vocab 51,865), cache 256 = bucket (the reference's limit), prompts
+   32-224.  (c) llama-3.2-vision-11b at full width (40 layers, 8 of
+   them cross-attention over 1,600 image rows; ~1.0e10 parameters drawn
+   in bf16), cache 512, bucket 64, prompts 32-256.  Each: exact launches
+   from the schedule (a prefill an admission, a decode step a tick with
+   an active slot; ``engine_launches``), ``flash_attention`` all on
+   ``wgmma``; ms/tick, generated tokens/s, one profiled tick's busy ms,
+   device operations and idle share, GiB allocated; then one microbatch
+   teacher-forced (prefill and a decode step) and block by block,
+   kernels against plain versions, with random ``enc_frames`` /
+   ``image_embeds`` (the engine's zero memories null cross-attention),
+   whose control (the plain path with every cross-attention output
+   zeroed) must lie outside the tolerance.  (d) the request journal: a
+   child (this script with ``--serve-child DIR``) serves qwen2-0.5b for
+   40 ticks and kills itself with SIGKILL; a fresh process
+   (``--serve-recover DIR``) recovers exactly the accepted but
+   unfinished requests, resubmits and finishes each.
 Every serving phase also asserts every ``flash_attention`` launch on
 its ``wgmma`` route and prints its own wall time.  Each path's launch
 counters are set to 0 just before it and read just after.
@@ -947,6 +987,26 @@ def check_flash_attention(dev, seed):
         args, kw = qkv(*shape), {"causal": True, **kw}
         families[label] = case(args, kw, "wgmma")
         same_bits("flash_attention", lambda: fk.flash_attention(*args, **kw))
+    # the shapes phase 14 adds: bidirectional attention with Sq != Skv
+    # (llama-3.2-vision-11b's cross prefill of a 64- or 256-token bucket
+    # over 1,600 image rows, full-head kv; a ragged last key tile) and
+    # whisper-tiny's heads of 64 (6/6): the encoder and the decoder's
+    # cross attention (bidirectional), the decoder's self attention
+    cross = {}
+    for label, shape, kw in (
+            ("llama-3.2-vision-11b cross [1, 64 over 1600, 32/32, 128]",
+             (1, 64, 1600, 32, 32, 128, 128, bf16), {"causal": False}),
+            ("llama-3.2-vision-11b cross [1, 256 over 1600, 32/32, 128]",
+             (1, 256, 1600, 32, 32, 128, 128, bf16), {"causal": False}),
+            ("ragged key tile [1, 48 over 1601, 32/32, 128]",
+             (1, 48, 1601, 32, 32, 128, 128, bf16), {"causal": False}),
+            ("whisper-tiny encoder and cross [1, 256, 6/6, 64]",
+             (1, 256, 256, 6, 6, 64, 64, bf16), {"causal": False}),
+            ("whisper-tiny decoder self [1, 256, 6/6, 64] causal",
+             (1, 256, 256, 6, 6, 64, 64, bf16), {"causal": True})):
+        args = qkv(*shape)
+        cross[label] = (case(args, kw, "wgmma"), args, kw)
+        same_bits("flash_attention", lambda: fk.flash_attention(*args, **kw))
     packed = qkv(2, 100, 100, 8, 2, 64, 64, bf16)[0]
     cases = [((8, 256, 256, 14, 2, 64, 64, bf16), {"window": 64}, "wgmma"),
              ((2, 64, 256, 14, 2, 64, 64, bf16), {"q_offset": 192}, "wgmma"),
@@ -963,14 +1023,34 @@ def check_flash_attention(dev, seed):
              "wgmma")
     errs["packed QKV view [2, 100, 4+2+2, 64] bf16 wgmma"] = e
     err = max(*(e for *_, e in serving.values()), *families.values(),
+              *(e for e, _, _ in cross.values()),
               *(e for label, e in errs.items() if "bfloat16" in label
                 or "bf16" in label))
     log(f"flash_attention vs plain, serving shapes [8, 256, 14/2, 64] and "
         f"[8, 256, 32/32, 64] bf16 causal on the wgmma route: max_abs_err "
         f"{serving['qwen2-0.5b'][3]} / {serving['zamba2-1.2b'][3]} "
         f"(tolerance 2e-2 bf16, 5e-5 f32); phases 10 and 11's shapes, bf16 "
-        f"causal on the wgmma route: {families}; two calls bitwise equal; "
-        f"other cases (route asserted) {errs}")
+        f"causal on the wgmma route: {families}; phase 14's shapes on the "
+        f"wgmma route: { {k: e for k, (e, _, _) in cross.items()} }; two "
+        f"calls bitwise equal; other cases (route asserted) {errs}")
+    shapes = {}
+    for label in ("llama-3.2-vision-11b cross [1, 64 over 1600, 32/32, 128]",
+                  "whisper-tiny encoder and cross [1, 256, 6/6, 64]"):
+        e, (q, k, v), kw = cross[label]
+        cb, sq, ch, cd = q.shape
+        skv, dv = k.shape[1], v.shape[3]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        # q, k, v read once, o written once; every query row sees every key
+        nbytes = (q.numel() + k.numel() + v.numel() + cb * sq * ch * dv) * 2
+        flops = 2 * (cd + dv) * cb * ch * sq * skv
+        ms, plain_ms, library_ms, bound_ms, bound_by = attention_times(
+            "flash_attention", lambda *a: fk.flash_attention(*a, **kw),
+            lambda *a: ar.mha(*a, **kw), sdpa, (q, k, v), nbytes, flops,
+            f"{label} bidirectional (library: SDPA)")
+        shapes[label] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms}
 
     out = {}
     for arch, (H, Hkv, (q, k, v), _) in serving.items():
@@ -994,7 +1074,7 @@ def check_flash_attention(dev, seed):
             "replaces": "src/repro/kernels/flash_attention/kernel.py:124",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "shapes": shapes}
 
 
 def check_decode_attention(dev, seed):
@@ -1052,6 +1132,30 @@ def check_decode_attention(dev, seed):
             (q, kc, vc, lens), kw, attn_tol(bf16))
         same_bits("decode_attention",
                   lambda: dk.decode_attention(q, kc, vc, lens, **kw))
+    # the decode shapes phase 14 adds: cross attention over the whole
+    # source (lengths = its rows, as many kv heads as query heads) for
+    # llama-3.2-vision-11b (1,600 image rows, Dh 128) and whisper-tiny
+    # (256 encoder rows, Dh 64), whisper's self attention, and an idle
+    # slot whose length has run past the cache (the kernel and the plain
+    # version clamp it to S)
+    cross = {}
+    for label, shape, (lo, hi), kw in (
+            ("llama-3.2-vision-11b cross B=8 S=1600 32/32 heads of 128",
+             (8, 1600, 32, 32, 128, 128), (1600, 1600), {}),
+            ("whisper-tiny cross B=8 S=256 6/6 heads of 64",
+             (8, 256, 6, 6, 64, 64), (256, 256), {}),
+            ("whisper-tiny self B=8 S=256 6/6 heads of 64",
+             (8, 256, 6, 6, 64, 64), (33, 255), {}),
+            ("qwen2-0.5b self B=8 S=320 14/2 heads of 64, an idle slot "
+             "past the cache", (8, 320, 14, 2, 64, 64), (33, 287), {})):
+        q, kc, vc, lens = inputs(*shape, bf16, bf16, lo=lo, hi=hi)
+        if "idle" in label:
+            lens[2] = shape[1] + 40
+        cross[label] = (check_attention_case(
+            "decode_attention", dk.decode_attention, dr.decode_attend,
+            (q, kc, vc, lens), kw, attn_tol(bf16)), (q, kc, vc, lens))
+        same_bits("decode_attention",
+                  lambda: dk.decode_attention(q, kc, vc, lens, **kw))
     B, S, H, Hkv, Dh = 8, 512, 14, 2, 64
     cases = [((B, S, H, Hkv, Dh, Dh, bf16, bf16, 65), {"window": 64}),
              ((B, S, H, Hkv, Dh, Dh, f32, bf16), {}),
@@ -1080,6 +1184,7 @@ def check_decode_attention(dev, seed):
             f"S=4096 lengths {long_lens} window {window} (splits "
             f"{dk.plan_splits(len(long_lens), Hkv, 4096)})")
     err = max(*(e for *_, e in serving.values()), *families.values(),
+              *(e for e, _ in cross.values()),
               *(e for label, e in errs.items() if "float32/float32" not in
                 label))
     log(f"decode_attention vs plain, serving shapes B=8 S=512 Dh=64 bf16 "
@@ -1089,7 +1194,29 @@ def check_decode_attention(dev, seed):
         f"{serving['zamba2-1.2b'][3]} (tolerance 2e-2 with bf16, 5e-5 f32; "
         f"the plain version casts p to bf16 as the JAX oracle does, the "
         f"kernel keeps it f32); phases 10 and 11's shapes, bf16: "
-        f"{families}; two calls bitwise equal; other cases {errs}")
+        f"{families}; phase 14's shapes (splits "
+        f"{dk.plan_splits(8, 32, 1600)} over 1,600 rows, "
+        f"{dk.plan_splits(8, 6, 256)} over 256): "
+        f"{ {k: e for k, (e, _) in cross.items()} }; two calls bitwise "
+        f"equal; other cases {errs}")
+    shapes = {}
+    for label in ("llama-3.2-vision-11b cross B=8 S=1600 32/32 heads of 128",
+                  "whisper-tiny cross B=8 S=256 6/6 heads of 64"):
+        e, (q, kc, vc, lens) = cross[label]
+        cb, cs, ch, cd = kc.shape
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        # q read once, every cache row read once, o written once, lengths
+        # read; products 2 (Dh + Dv) per (query head, row)
+        nbytes = q.numel() * 2 * 2 + kc.numel() * 2 * 2 + cb * 4
+        flops = 2 * (cd + cd) * ch * cb * cs
+        ms, plain_ms, library_ms, bound_ms, bound_by = attention_times(
+            "decode_attention", dk.decode_attention, dr.decode_attend, sdpa,
+            (q, kc, vc, lens), nbytes, flops,
+            f"{label}, every length {cs} (library: SDPA, no mask)")
+        shapes[label] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms}
 
     out = {}
     for arch, (H, Hkv, (q, kc, vc, lens), _) in serving.items():
@@ -1118,7 +1245,7 @@ def check_decode_attention(dev, seed):
             "replaces": "src/repro/kernels/decode_attention/kernel.py:96",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "shapes": shapes}
 
 
 def ssd_flops(S, chunk, N, P):
@@ -2184,10 +2311,32 @@ def microbatch(sv, reqs, dev):
     return torch.from_numpy(toks).to(dev), lens_t, real, nxt
 
 
-def teacher_forced(sv, mapper, reqs, dev, spec):
+@contextmanager
+def cross_zeroed():
+    """Every cross-attention sublayer's output zeroed (its state kept):
+    the control of the teacher-forced checks with memories."""
+    from repro_torch.models.layers import attention
+    real = attention.apply
+
+    def apply(p, x, state, ctx, **kw):
+        out, st = real(p, x, state, ctx, **kw)
+        return (out * 0 if kw.get("is_cross") else out), st
+
+    attention.apply = apply
+    try:
+        yield
+    finally:
+        attention.apply = real
+
+
+def teacher_forced(sv, mapper, reqs, dev, spec, aux=None):
     """One microbatch's full-width prefill logits and one decode step's
     logits, kernels against plain versions (a MoE model's routing of the
-    kernel run replayed in the plain runs).  Returns the max abs
+    kernel run replayed in the plain runs).  ``aux`` holds the
+    microbatch's memories (whisper's ``enc_frames``, the vision model's
+    ``image_embeds``); with them, a control run (the plain versions with
+    every cross-attention output zeroed) must lie outside the tolerance.
+    Returns the max abs
     difference over real positions and the top-1 agreement, and checks
     the top-1 token wherever the plain run's top-2 margin exceeds the
     tolerance (with ``spec.top1``, at one position at least).  The
@@ -2201,9 +2350,10 @@ def teacher_forced(sv, mapper, reqs, dev, spec):
     from repro_torch.models import lm
     toks, lens_t, real, nxt = microbatch(sv, reqs, dev)
     tol = spec.tol
+    aux = aux or {}
 
     def run(ctx):
-        lg, st = lm.prefill(mapper.model, {"tokens": toks}, ctx,
+        lg, st = lm.prefill(mapper.model, {"tokens": toks, **aux}, ctx,
                             sv["cache_len"], full_logits=True)
         lg = lg[real].float()
         dl, _ = lm.decode_step(mapper.model, nxt, st, lens_t, ctx)
@@ -2223,8 +2373,23 @@ def teacher_forced(sv, mapper, reqs, dev, spec):
                             for a, b in zip(want, f32))
                 tol = floor + spec.margin
                 del f32
+            control = None
+            if aux:
+                with cross_zeroed():
+                    pin.replay()
+                    off = run(mapper.ctx)
+                control = max(float((a - b).abs().max())
+                              for a, b in zip(off, want))
+                del off
     torch.cuda.synchronize()
     res = {"tolerance": tol, "bf16_vs_f32_plain": floor}
+    if control is not None:
+        res["control: plain, cross-attention output zeroed"] = control
+        if not control > tol:
+            raise AssertionError(f"teacher-forced control: the plain path "
+                                 f"with cross-attention zeroed lies "
+                                 f"{control} from the plain path, inside "
+                                 f"the tolerance {tol}")
     if pin.decisions:
         res["routing flips replayed"] = f"{pin.flips} of {pin.decisions}"
     for name, a, b in (("prefill", got[0], want[0]),
@@ -2257,15 +2422,18 @@ def teacher_forced(sv, mapper, reqs, dev, spec):
 BLOCK_TOL = 2.0**-5
 
 
-def per_block(sv, mapper, reqs, dev):
+def per_block(sv, mapper, reqs, dev, aux=None):
     """Teacher forcing block by block, for one microbatch: every block of
-    the stack, and the final norm and unembedding, gets the plain path's
-    input (and, in one decode step, the plain prefill's state), once with
-    the kernels and once with the plain versions (a MoE block's routing
-    of the kernel run replayed); outputs and new states must agree within
-    ``BLOCK_TOL`` of their largest magnitude.  Errors do not compound
-    across blocks here, as they do end to end.  Returns the largest error
-    relative to that magnitude, at prefill and decode."""
+    the stack (whisper's encoder blocks and encoder norm first, on the
+    microbatch's ``aux`` frames; the vision model's cross blocks over its
+    ``aux`` image embeddings), and the final norm and unembedding, gets
+    the plain path's input (and, in one decode step, the plain prefill's
+    state), once with the kernels and once with the plain versions (a
+    MoE block's routing of the kernel run replayed); outputs and new
+    states must agree within ``BLOCK_TOL`` of their largest magnitude.
+    Errors do not compound across blocks here, as they do end to end.
+    Returns the largest error relative to that magnitude, at prefill and
+    decode."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.layers import norms
@@ -2322,7 +2490,32 @@ def per_block(sv, mapper, reqs, dev):
                        positions=lm._positions(toks.shape, dev))
     x = xk = lm._embed(model, toks, ctx)
     states, growth = [], []
+    aux = aux or {}
     with pinned_routing() as pin:
+        if "enc_frames" in aux:
+            frames = aux["enc_frames"]
+            ectx = ctx.replace(phase="train", positions=lm._positions(
+                frames.shape[:2], dev))
+            xe = frames.to(ctx.cdtype)
+            enc = model.enc_body.tree()
+            for i in range(model.enc_plan.segments[0].n_groups):
+                blk = model.enc_plan.segments[0].pattern[0]
+                p = group(enc["segments"][0][0], i)
+                (got, _, _), (want, _, _) = both(blk, p, xe, None, None,
+                                                 ectx)
+                check(f"encoder group {i} {blk.name}", "prefill", got, want)
+                xe = want
+
+            def enc_norm(v):
+                return norms.apply(model.enc_norm.tree(), v,
+                                   eps=cfg.norm_eps)
+            with plain_versions():
+                memory = enc_norm(xe)
+            check("encoder norm", "prefill", enc_norm(xe), memory)
+            ctx = ctx.replace(enc_memory=memory)
+        if "image_embeds" in aux:
+            ctx = ctx.replace(image_embeds=aux["image_embeds"].to(
+                ctx.cdtype))
         for n, (name, blk, p) in enumerate(blocks):
             (got, gst, _), (want, wst, _) = both(blk, p, x, None, None, ctx)
             check(name, "prefill", (got, gst), (want, wst))
@@ -2353,7 +2546,8 @@ def per_block(sv, mapper, reqs, dev):
             want = head(x, ctx)
         check("final norm and logits", "decode", head(x, ctx), want)
     torch.cuda.synchronize()
-    out = {"blocks": len(blocks), "max_rel_err": worst,
+    n_enc = model.enc_plan.n_layers + 1 if "enc_frames" in aux else 0
+    out = {"blocks": len(blocks) + n_enc, "max_rel_err": worst,
            "tolerance": BLOCK_TOL,
            "compounded (blocks, max abs diff, max abs)": growth}
     if pin.decisions:
@@ -3691,6 +3885,497 @@ def profile_ticks(eng, state, source_fn, start, tick_s, n=8):
     return busy_us / 1e3, ops
 
 
+# ---------------------------------------------------------------- phase 14
+# The continuous-batching ServingEngine (``repro_torch.launch.serve``) at
+# full width with random bf16 weights from --seed: its configuration, the
+# requests (prompt lengths uniform in [min_prompt, prompt_len]) and the
+# new tokens each.  14a serves phase 7's first 32 requests; whisper-tiny
+# runs at prompt_bucket == cache_len, the reference's limit.
+ENGINE = {
+    "qwen2-0.5b": dict(
+        serve=dict(n_slots=8, cache_len=320, prompt_bucket=64,
+                   admit_per_tick=2, queue_capacity=64),
+        requests=32, min_prompt=32, prompt_len=256, max_new=32),
+    "whisper-tiny": dict(
+        serve=dict(n_slots=8, cache_len=256, prompt_bucket=256,
+                   admit_per_tick=2, queue_capacity=64),
+        requests=32, min_prompt=32, prompt_len=224, max_new=32),
+    "llama-3.2-vision-11b": dict(
+        serve=dict(n_slots=8, cache_len=512, prompt_bucket=64,
+                   admit_per_tick=2, queue_capacity=64),
+        requests=32, min_prompt=32, prompt_len=256, max_new=32),
+}
+# teacher-forced tolerances: qwen2-0.5b phase 7's; whisper-tiny and
+# llama-3.2-vision-11b the plain path's own bf16-vs-f32 distance,
+# measured, plus qwen2's rule for the kernels' roundings, 0.125 per 24
+# attention sublayers (whisper 12: 4 encoder, 4 decoder self, 4 cross;
+# llama 40).  Random weights leave few top-2 margins above that, so
+# neither requires a position for the top-1 check (it runs where any is).
+ENGINE_TF = {
+    "qwen2-0.5b": SERVE_ARCHS["qwen2-0.5b"],
+    "whisper-tiny": Arch({}, {}, None, 0.125 * 12 / 24, top1=False),
+    "llama-3.2-vision-11b": Arch({}, {}, None, 0.125 * 40 / 24,
+                                 top1=False),
+}
+# 14a holds its last requests back and releases them one at a time
+# whenever every slot is idle, until an idle slot has decoded at a write
+# index past cache_len (a tick decodes idle slots only while some slot is
+# active, and an idle slot is refilled while the queue holds requests)
+HELD_BACK = 8
+# 14a against phase 7's tokens: a request may part from them only at a
+# step whose top-2 logit margin (the engine's tokens teacher-forced, bf16
+# kernels) is below twice phase 7's teacher-forced tolerance: each run
+# lies within 0.125 of the plain path
+ENGINE_NEAR_TIE = 2 * 0.125
+JOURNAL, JOURNAL_REQUESTS, JOURNAL_TICKS = "requests.log", 24, 40
+
+
+def engine_requests(arch, seed, vocab):
+    """The sub-phase's requests (``launch.serve.Request``)."""
+    from repro_torch.launch.serve import Request
+    ev = ENGINE[arch]
+    if arch == "qwen2-0.5b":        # phase 7's first 32, same rids
+        base = serving_requests(serve_of(arch), seed, SERVE["requests"],
+                                vocab)[:ev["requests"]]
+    else:
+        base = serving_requests(ev, seed + 14, ev["requests"], vocab)
+    return [Request(rid=r.rid, prompt=r.prompt, max_new=ev["max_new"])
+            for r in base]
+
+
+def engine_launches(cfg):
+    """Launches of each model kernel a prefill and a decode step: one
+    attention kernel an attention sublayer (self or cross; whisper's
+    encoder runs at prefill only), one ``rmsnorm`` a norm (two a block,
+    three a whisper decoder block, the final norm, whisper's encoder
+    norm)."""
+    if cfg.encdec:
+        return ({"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers,
+                 "rmsnorm": 2 * cfg.n_enc_layers + 1 + 3 * cfg.n_layers + 1},
+                {"decode_attention": 2 * cfg.n_layers,
+                 "rmsnorm": 3 * cfg.n_layers + 1})
+    return ({"flash_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1},
+            {"decode_attention": cfg.n_layers,
+             "rmsnorm": 2 * cfg.n_layers + 1})
+
+
+def state_leaves(t):
+    """The tensors of a state tree, in order."""
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in state_leaves(t[k])]
+    if isinstance(t, (list, tuple)):
+        return [x for v in t for x in state_leaves(v)]
+    return [] if t is None else [t]
+
+
+def profiled_step(eng):
+    """One engine tick under torch.profiler: (wall s, device busy ms,
+    device operations, the top kernels), or busy None when the profiler
+    recorded no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        return wall, None, 0, []
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (wall, sum(e.device_time_total for e in ev) / 1e3, len(ev),
+            [(n[:80], round(us / 1e3, 4)) for n, us in top])
+
+
+def drive_engine(eng, reqs, held=(), profile_at=8):
+    """Submit ``reqs`` and tick ``eng`` until every request (and each
+    ``held`` one, released as ``HELD_BACK`` says) has finished.  The tick
+    ``profile_at`` runs under the profiler and is left out of the wall
+    time.  While an idle slot decodes at a write index past cache_len
+    (no admission that tick), its state is snapshot before the tick and
+    must be bitwise the same after it: the write was dropped."""
+    import torch
+    cache, n = eng.scfg.cache_len, eng.scfg.n_slots
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError(f"request {r.rid} shed")
+    held, wall, ticks = list(held), 0.0, 0
+    prof, dropped = None, None
+    while eng.queue or eng.active.any() or held:
+        if not eng.queue and not eng.active.any():
+            for r in (held[:1] if dropped is None else held):
+                eng.submit(r)
+            held = held[1:] if dropped is None else []
+        snap = None
+        if held and dropped is None and not eng.queue and eng.active.any():
+            cur = eng.cur_index.cpu()
+            past = [s for s in range(n)
+                    if not eng.active[s] and int(cur[s]) >= cache]
+            if past:
+                w = past[0]
+                snap = (w, int(cur[w]), [x[:, w].clone() for x in
+                                         state_leaves(eng.states)])
+        if eng.tick == profile_at:
+            prof = profiled_step(eng)
+        else:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            ticks += 1
+        if snap is not None:
+            w, idx, before = snap
+            after = [x[:, w] for x in state_leaves(eng.states)]
+            if not all(torch.equal(a, b) for a, b in zip(before, after)):
+                raise AssertionError(f"idle slot {w}'s write at index {idx} "
+                                     f"(cache_len {cache}) changed its state")
+            dropped = (eng.tick - 1, w, idx)
+    return {"ticks": ticks, "wall": wall, "profile": prof,
+            "dropped": dropped}
+
+
+class EngineReader(Reader):
+    """A thread asking the serving engine's status server for
+    ``/status``, one request's ``/slate/requests/<rid>`` (in turn) and
+    ``/metrics`` while it serves, then a short pause."""
+
+    def __init__(self, port, rids, pause_s=0.2):
+        super().__init__(port, pause_s)
+        self.rids, self.seen, self.ticks = list(rids), {}, []
+
+    def _loop(self):
+        import urllib.error
+        i = 0
+        while not self._stop.is_set():
+            try:
+                self.ticks.append(json.loads(self.get("/status"))["tick"])
+                rid = self.rids[i % len(self.rids)]
+                i += 1
+                try:
+                    self.seen[rid] = json.loads(
+                        self.get(f"/slate/requests/{rid}"))
+                except urllib.error.HTTPError as e:
+                    if e.code != 404:     # a held-back request: not yet
+                        raise
+                self.metrics = self.get("/metrics")
+                self.rounds += 1
+            except Exception as e:         # recorded, raised by check()
+                self.errors.append(repr(e))
+                return
+            self._stop.wait(self.pause_s)
+
+
+def engine_margins(model, reqs, tokens, dev, chunk=8):
+    """Each request's top-2 logit margin at each of its generated tokens:
+    a teacher-forced bf16 prefill (kernels) over the prompt and the
+    tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.context import Ctx
+    out = {}
+    for i in range(0, len(reqs), chunk):
+        part = reqs[i:i + chunk]
+        seqs = [np.concatenate([r.prompt, np.asarray(tokens[r.rid][:-1],
+                                                      np.int32)])
+                for r in part]
+        L = max(len(x) for x in seqs)
+        toks = np.zeros((len(part), L), np.int32)
+        for j, x in enumerate(seqs):
+            toks[j, :len(x)] = x
+        logits, _ = lm.prefill(model, {"tokens": torch.from_numpy(toks).to(
+            dev)}, Ctx(cdtype=torch.bfloat16), L, full_logits=True)
+        for j, r in enumerate(part):
+            P = len(r.prompt)
+            rows = logits[j, P - 1:P - 1 + len(tokens[r.rid])].float()
+            top = torch.topk(rows, 2, dim=-1).values
+            out[r.rid] = (top[:, 0] - top[:, 1]).cpu().numpy()
+        del logits
+    return out
+
+
+def engine_path(dev, seed, card, arch):
+    """Phase 14a-c: ``arch`` served by the ``ServingEngine`` on the card;
+    returns the launches of the path's kernels in its run."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.kernels.slate_update import kernel as uk
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.launch.serve import (ServeConfig, ServingEngine,
+                                          set_lm_params)
+    from repro_torch.models import lm
+    from repro_torch.models.context import Ctx
+
+    t_phase = time.perf_counter()
+    cfg, ev = get_config(arch), ENGINE[arch]
+    t0 = time.perf_counter()
+    model, _ = lm.init(lm.build(cfg), torch.Generator(device=dev).manual_seed(
+        seed), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"engine {arch} at full width ({describe(cfg, {})}); {n_params} "
+        f"parameters (config count {cfg.param_count()}) drawn on the card "
+        f"in bf16 in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    eng = ServingEngine(cfg, ServeConfig(**ev["serve"]), device=dev)
+    params = set_lm_params(eng, model)
+    del model
+    reqs = engine_requests(arch, seed, cfg.vocab_size)
+    held = reqs[-HELD_BACK:] if arch == "qwen2-0.5b" else []
+    kernels = (fk.flash_attention, dk.decode_attention, rk.rmsnorm,
+               sk.ssd_scan, uk.slate_update, lk.slate_lookup)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    for k in (fk.flash_attention, rk.rmsnorm):
+        k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
+    server = reader = None
+    if arch == "qwen2-0.5b":
+        server = eng.status_server(0)
+        reader = EngineReader(server.port, [r.rid for r in reqs])
+        reader.start()
+    try:
+        run = drive_engine(eng, reqs[:len(reqs) - len(held)], held)
+    finally:
+        if reader is not None:
+            reader.stop()
+    launches = {k.__name__: k.launches for k in kernels if k.launches}
+    routes = {k.__name__: dict(k.launches_by_route)
+              for k in (fk.flash_attention, rk.rmsnorm)}
+    gib = torch.cuda.memory_allocated() / 2**30
+    per_prefill, per_decode = engine_launches(cfg)
+    want = {}
+    for per, n in ((per_prefill, eng.prefills), (per_decode,
+                                                 eng.decode_steps)):
+        for k, m in per.items():
+            want[k] = want.get(k, 0) + m * n
+    log(f"engine {arch}: {eng.prefills} prefills and {eng.decode_steps} "
+        f"decode steps in {eng.tick} ticks; launches {launches}, expected "
+        f"{want} (a prefill {per_prefill}, a decode step {per_decode}); "
+        f"routes {routes}")
+    if launches != want or routes["flash_attention"]["wgmma"] != \
+            want["flash_attention"] or eng.prefills != len(reqs):
+        raise AssertionError(f"engine {arch}: launches {launches}, "
+                             f"expected {want}, routes {routes}")
+    stats = eng.stats()
+    n_tok = stats["tokens_generated"]
+    done = {r.rid: r for r in eng.finished}
+    if sorted(done) != sorted(r.rid for r in reqs) or any(
+            len(r.tokens_out) != ev["max_new"] for r in eng.finished) \
+            or stats["shed"] or stats["queued"] or stats["active"]:
+        raise AssertionError(f"engine {arch}: stats {stats}")
+    tick_s = run["wall"] / run["ticks"]
+    wall, busy, ops, top = run["profile"]
+    idle = None if busy is None else 1 - busy / 1e3 / tick_s
+    log(f"engine {arch} end to end: {len(reqs)} requests (prompts "
+        f"{ev['min_prompt']}-{ev['prompt_len']}, bucket "
+        f"{ev['serve']['prompt_bucket']}, cache {ev['serve']['cache_len']}, "
+        f"{ev['serve']['n_slots']} slots) x {ev['max_new']} tokens in "
+        f"{eng.tick} ticks: {tick_s * 1e3:.3f} ms/tick over the "
+        f"{run['ticks']} unprofiled ticks, "
+        f"{n_tok * run['ticks'] / eng.tick / run['wall']:.2f} generated "
+        f"tokens/s; profiled tick (the 9th): "
+        f"device busy {busy} ms, {ops} device operations, wall "
+        f"{wall * 1e3:.3f} ms, idle share against the unprofiled ms/tick "
+        f"{idle}; top {top}; {gib:.2f} GiB allocated; mean latency "
+        f"{stats['mean_latency_ticks']} ticks; {card}")
+    if reader is not None:
+        reader.check()
+        final = {r.rid: json.loads(reader.get(f"/slate/requests/{r.rid}"))
+                 for r in reqs}
+        status = json.loads(reader.get("/status"))
+        server.close()
+        bad = [rid for rid, got in final.items()
+               if got != {"tokens_out": done[rid].tokens_out, "done": True}]
+        seen_live = sum(not v["done"] for v in reader.seen.values())
+        if bad or status["finished"] != len(reqs) or not reader.rounds \
+                or "finished" not in reader.metrics:
+            raise AssertionError(f"status server: requests {bad}, status "
+                                 f"{status}, {reader.rounds} rounds")
+        log(f"status server while serving: {reader.rounds} rounds of "
+            f"/status, /slate/requests/<rid> and /metrics at ticks "
+            f"{reader.ticks[:3]}...{reader.ticks[-3:]}, {seen_live} reads "
+            f"of a request in flight; after the run every "
+            f"/slate/requests/<rid> equals its tokens; /status {status}")
+    if arch == "qwen2-0.5b":
+        if run["dropped"] is None:
+            raise AssertionError("no idle slot decoded past cache_len")
+        t, w, idx = run["dropped"]
+        log(f"engine {arch}: at tick {t} idle slot {w} decoded at write "
+            f"index {idx} (cache_len {ev['serve']['cache_len']}): no fault, "
+            f"its state bitwise unchanged (the write dropped); "
+            f"cur_index at the end {eng.cur_index.tolist()}")
+        tokens = {rid: r.tokens_out for rid, r in done.items()}
+        phase7 = SERVED[arch]
+        parts = [r for r in reqs
+                 if not np.array_equal(tokens[r.rid], phase7[r.rid])]
+        margins = engine_margins(params, parts, tokens, dev)
+        at = {}                 # rid -> (first differing step, its margin)
+        for r in parts:
+            first = int(np.argmax(np.asarray(tokens[r.rid])
+                                  != phase7[r.rid]))
+            at[r.rid] = (first, float(margins[r.rid][first]))
+            if not at[r.rid][1] < ENGINE_NEAR_TIE:
+                raise AssertionError(
+                    f"request {r.rid}: the engine's tokens part from phase "
+                    f"7's at step {first}, top-2 margin {at[r.rid][1]} "
+                    f"(near-tie below {ENGINE_NEAR_TIE})")
+        log(f"engine {arch} against phase 7 (and phase 13c, bitwise equal "
+            f"to it): {len(reqs) - len(parts)} of {len(reqs)} requests "
+            f"token for token; {len(parts)} part at a near-tie (rid: "
+            f"(step, top-2 margin) {at}, below {ENGINE_NEAR_TIE})")
+    # teacher forcing with random memories: the engine feeds zeros, which
+    # null cross-attention
+    sv = dict(prompt_len=256, bucket=8, cache_len=ev["serve"]["cache_len"])
+    mapper = SimpleNamespace(model=params, ctx=Ctx(cdtype=torch.bfloat16),
+                             cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    aux = {}
+    if cfg.encdec:
+        aux["enc_frames"] = torch.randn(
+            (sv["bucket"], sv["prompt_len"], cfg.d_model), generator=gen,
+            device=dev)
+    if cfg.cross_attn_every:
+        aux["image_embeds"] = torch.randn(
+            (sv["bucket"], cfg.n_image_tokens, cfg.d_model), generator=gen,
+            device=dev)
+    del eng
+    torch.cuda.empty_cache()
+    tf = teacher_forced(sv, mapper, reqs, dev, ENGINE_TF[arch], aux)
+    log(f"engine {arch} teacher-forced, one microbatch of 8"
+        f"{' with random memories' if aux else ''}, kernels vs plain "
+        f"versions: {tf}")
+    torch.cuda.empty_cache()
+    pb = per_block(sv, mapper, reqs, dev, aux)
+    log(f"engine {arch} teacher-forced block by block: {pb}")
+    del mapper, params, aux
+    torch.cuda.empty_cache()
+    log(f"engine {arch}: the phase took {time.perf_counter() - t_phase:.1f}"
+        f" s wall")
+    return launches
+
+
+def serve_child(d, seed, dev=None):
+    """Phase 14d's crash run (``--serve-child DIR``, a process of its
+    own): qwen2-0.5b served with a journal in ``DIR``; after
+    ``JOURNAL_TICKS`` ticks it writes the accepted and finished rids to
+    ``DIR/child.json`` and kills itself with SIGKILL."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (ServeConfig, ServingEngine,
+                                          set_lm_params)
+    from repro_torch.models import lm
+    dev = dev or torch.device("cuda", 0)
+    cfg = get_config("qwen2-0.5b")
+    model, _ = lm.init(lm.build(cfg), torch.Generator(device=dev).manual_seed(
+        seed), dtype=torch.bfloat16)
+    eng = ServingEngine(cfg, ServeConfig(**ENGINE["qwen2-0.5b"]["serve"]),
+                        journal=str(Path(d) / JOURNAL), device=dev)
+    set_lm_params(eng, model)
+    reqs = engine_requests("qwen2-0.5b", seed,
+                           cfg.vocab_size)[:JOURNAL_REQUESTS]
+    accepted = [r.rid for r in reqs if eng.submit(r)]
+    eng.run(JOURNAL_TICKS)
+    with open(Path(d) / "child.json", "w") as f:
+        json.dump({"accepted": accepted,
+                   "finished": [r.rid for r in eng.finished]}, f)
+    import os
+    import signal
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def serve_recover(d, seed, dev=None):
+    """Phase 14d's recovery (``--serve-recover DIR``, a fresh process): a
+    new engine on the crashed run's journal recovers the accepted but
+    unfinished requests, resubmits them, serves them to the end and
+    writes what it saw to ``DIR/recovered.json``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import (ServeConfig, ServingEngine,
+                                          set_lm_params)
+    from repro_torch.models import lm
+    dev = dev or torch.device("cuda", 0)
+    cfg = get_config("qwen2-0.5b")
+    model, _ = lm.init(lm.build(cfg), torch.Generator(device=dev).manual_seed(
+        seed), dtype=torch.bfloat16)
+    eng = ServingEngine(cfg, ServeConfig(**ENGINE["qwen2-0.5b"]["serve"]),
+                        journal=str(Path(d) / JOURNAL), device=dev)
+    set_lm_params(eng, model)
+    t0 = time.perf_counter()
+    pending = eng.recover_requests()
+    t_replay = time.perf_counter() - t0
+    shed = [r.rid for r in pending if not eng.submit(r, journal=False)]
+    while eng.queue or eng.active.any():
+        eng.step()
+    out = {"pending": [r.rid for r in pending], "shed": shed,
+           "journal_max_rid": eng.journal_max_rid, "replay_s": t_replay,
+           "finished": {str(r.rid): len(r.tokens_out) for r in eng.finished},
+           "again": [r.rid for r in eng.recover_requests()]}
+    eng.journal.close()
+    with open(Path(d) / "recovered.json", "w") as f:
+        json.dump(out, f)
+
+
+def engine_journal(seed, card):
+    """Phase 14d: the request journal through a crash.  A child serving
+    qwen2-0.5b is killed by SIGKILL mid-run; a fresh process recovers
+    exactly the accepted-but-unfinished requests and finishes each."""
+    import signal
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        child = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-child",
+             d, "--seed", str(seed)], capture_output=True, text=True,
+            timeout=600)
+        if child.returncode != -signal.SIGKILL:
+            raise AssertionError(
+                f"the serving child ended with {child.returncode}, not "
+                f"SIGKILL: {child.stdout[-2000:]} {child.stderr[-4000:]}")
+        t_crash = time.perf_counter() - t0
+        seen = json.loads((Path(d) / "child.json").read_text())
+        nbytes = (Path(d) / JOURNAL).stat().st_size
+        t0 = time.perf_counter()
+        rec = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-recover",
+             d, "--seed", str(seed)], capture_output=True, text=True,
+            timeout=600)
+        if rec.returncode != 0:
+            raise AssertionError(f"the recovery ended with {rec.returncode}:"
+                                 f" {rec.stdout[-2000:]} {rec.stderr[-4000:]}")
+        t_rec = time.perf_counter() - t0
+        got = json.loads((Path(d) / "recovered.json").read_text())
+    owed = sorted(set(seen["accepted"]) - set(seen["finished"]))
+    ok = (got["pending"] == owed and not got["shed"] and got["again"] == []
+          and sorted(int(k) for k in got["finished"]) == owed
+          and all(n == ENGINE["qwen2-0.5b"]["max_new"]
+                  for n in got["finished"].values())
+          and got["journal_max_rid"] == max(seen["accepted"])
+          and 0 < len(seen["finished"]) < len(seen["accepted"]))
+    log(f"engine journal: a child served qwen2-0.5b for {JOURNAL_TICKS} "
+        f"ticks ({len(seen['accepted'])} accepted, "
+        f"{len(seen['finished'])} finished, journal {nbytes} bytes) and was "
+        f"killed by SIGKILL ({t_crash:.1f} s wall with process start); a "
+        f"fresh process recovered {len(got['pending'])} requests "
+        f"{got['pending']} (replay {got['replay_s']:.4f} s; owed {owed}), "
+        f"resubmitted and finished each with "
+        f"{sorted(set(got['finished'].values()))} tokens; a second "
+        f"recovery found {got['again']} ({t_rec:.1f} s wall); {card}")
+    if not ok:
+        raise AssertionError(f"engine journal: child {seen}, recovery {got}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=128)
@@ -3698,6 +4383,17 @@ def main(argv=None):
     ap.add_argument("--durable-child", metavar="DIR",
                     help="run phase 12's crash run in DIR (phase 12 starts "
                     "this process itself)")
+    ap.add_argument("--serve-child", metavar="DIR",
+                    help="run phase 14d's crash run in DIR (phase 14d "
+                    "starts this process itself)")
+    ap.add_argument("--serve-recover", metavar="DIR",
+                    help="run phase 14d's recovery in DIR (phase 14d "
+                    "starts this process itself)")
+    ap.add_argument("--only", metavar="PHASES",
+                    help="comma-separated phases to run (3, 5-14; 4 and "
+                    "the kernel line's every-kernel check are skipped), for "
+                    "working on one phase; the last line then reports a "
+                    "partial run")
     args = ap.parse_args(argv)
 
     import torch
@@ -3712,6 +4408,11 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT / "src"))
     if args.durable_child:
         durable_child(args.durable_child, args.seed)
+    if args.serve_child:
+        serve_child(args.serve_child, args.seed)
+    if args.serve_recover:
+        serve_recover(args.serve_recover, args.seed)
+        return 0
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
@@ -3732,6 +4433,14 @@ def main(argv=None):
     log(f"built {sorted(libs)} with {_build.nvcc_path()} in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    # --only: the phases asked for and those whose results they read
+    only = None if not args.only else {int(p) for p in args.only.split(",")}
+    need = set(only or ())
+    if need & {6, 12, 13}:
+        need.add(5)
+    if need & {13, 14}:
+        need.add(7)
+    runs = lambda phase: only is None or phase in need   # noqa: E731
     entries = [check_slate_update(dev, args.seed),
                *check_slate_lookup(dev, args.seed),
                check_countmin(dev, args.seed),
@@ -3739,26 +4448,41 @@ def main(argv=None):
                check_flash_attention(dev, args.seed),
                check_decode_attention(dev, args.seed),
                check_ssd_scan(dev, args.seed),
-               check_rmsnorm(dev, args.seed)]
+               check_rmsnorm(dev, args.seed)] if runs(3) else []
     torch.cuda.empty_cache()
-    check_no_host_sync(dev, args.seed)
-    torch.cuda.empty_cache()
+    if only is None:
+        check_no_host_sync(dev, args.seed)
+        torch.cuda.empty_cache()
     # each path's launches, counted from 0 just before it runs
     by_path = {}
-    by_path["main"], ref, off_s, off_prof = end_to_end(
-        dev, args.ticks, args.seed, card)
-    torch.cuda.empty_cache()
-    by_path["telemetry"] = telemetry_path(dev, args.ticks, args.seed, card,
-                                          ref, off_s, off_prof)
-    torch.cuda.empty_cache()
-    for arch in SERVE_ARCHS:
-        by_path[f"serving {arch}"] = serving_path(dev, args.seed, card, arch)
+    if runs(5):
+        by_path["main"], ref, off_s, off_prof = end_to_end(
+            dev, args.ticks, args.seed, card)
         torch.cuda.empty_cache()
-    by_path["durable"] = durable_path(dev, args.seed, card, off_s)
-    torch.cuda.empty_cache()
-    by_path["app counting"] = app_counting_path(dev, args.seed, card, off_s)
-    by_path["app trends"] = app_trends_path(dev, args.seed, card)
-    by_path["app serving"] = app_serving_path(dev, args.seed, card)
+    if runs(6):
+        by_path["telemetry"] = telemetry_path(dev, args.ticks, args.seed,
+                                              card, ref, off_s, off_prof)
+        torch.cuda.empty_cache()
+    for phase, arch in enumerate(SERVE_ARCHS, 7):
+        if runs(phase):
+            by_path[f"serving {arch}"] = serving_path(dev, args.seed, card,
+                                                      arch)
+            torch.cuda.empty_cache()
+    if runs(12):
+        by_path["durable"] = durable_path(dev, args.seed, card, off_s)
+        torch.cuda.empty_cache()
+    if runs(13):
+        by_path["app counting"] = app_counting_path(dev, args.seed, card,
+                                                    off_s)
+        by_path["app trends"] = app_trends_path(dev, args.seed, card)
+        by_path["app serving"] = app_serving_path(dev, args.seed, card)
+        torch.cuda.empty_cache()
+    if runs(14):
+        for arch in ENGINE:
+            by_path[f"engine {arch}"] = engine_path(dev, args.seed, card,
+                                                    arch)
+            torch.cuda.empty_cache()
+        engine_journal(args.seed, card)
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}
@@ -3770,14 +4494,17 @@ def main(argv=None):
             e["launches_by_route"] = {r: sum(
                 n[rk][r] for n in by_path.values() if rk in n)
                 for r in ("cand", "keys", "find")}
-        if e["launches"] <= 0:
+        if e["launches"] <= 0 and only is None:
             raise AssertionError(f"{e['name']} never ran on a path")
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_route", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "by_mix",
-            "fused", "routes"]
+            "fused", "routes", "shapes"]
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                 for e in entries]}))
+    if only is not None:
+        log(json.dumps({"partial run of phases": sorted(need | {1, 2})}))
+        return 0
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

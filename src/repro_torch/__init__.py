@@ -37,7 +37,11 @@ Ported so far, slice by slice:
 7. the ``App`` front door on one shard: the planner, ``ops``,
    ``RuntimeConfig``, ``ModelMapper`` and the rankers, ``build_serve_app``,
    the synthetic sources and the stream launcher
-   (``python -m repro_torch.launch.stream``).
+   (``python -m repro_torch.launch.stream``);
+8. the continuous-batching ``ServingEngine`` (``repro_torch.launch.
+   serve``, with its request journal) and the last two model families,
+   whisper's encoder-decoder and llama-3.2-vision's cross-attention
+   layers.
 
 The multi-shard engine (``DistributedEngine``, ``DistConfig``,
 ``AutoscalePolicy``, ``MigrationReport``, ``LoadAutoscaler``) is not

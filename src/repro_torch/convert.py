@@ -17,10 +17,12 @@ it and ``state_to_numpy`` strips it.
 For the model stack, ``lm_params_from_numpy`` / ``lm_params_to_numpy``
 carry the JAX parameter tree (layer leaves stacked ``[n_groups, ...]``)
 into an ``lm.Model`` and back (zamba2's ``extra`` dict and the ``None``
-at its shared block's position included), ``mapper_head_from_numpy``
-the ``ModelMapper`` classify head, and ``lm_states_from_numpy`` /
-``lm_states_to_numpy`` the decode states (bf16 KV caches and MLA
-latent caches, f32 Mamba-2, mLSTM and sLSTM states).  JAX's bf16
+at its shared block's position, whisper's ``enc_body`` and
+``enc_norm``, and the cross-attention layers' full-head ``wk`` / ``wv``
+included), ``mapper_head_from_numpy`` the ``ModelMapper`` classify head,
+and ``lm_states_from_numpy`` / ``lm_states_to_numpy`` the decode states
+(bf16 KV caches, cross caches and MLA latent caches, whisper's
+``{"self", "cross"}`` pairs, f32 Mamba-2, mLSTM and sLSTM states).  JAX's bf16
 reaches numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses: both directions go through a ``uint16`` view, so the trip is
 bitwise.
@@ -161,8 +163,9 @@ def lm_params_to_numpy(model):
 
 def lm_states_from_numpy(states, device=None):
     """JAX decode states (``lm.prefill`` / ``lm.decode_states``: a list
-    per segment of tuples per block of ``{"k", "v"}`` or MLA ``{"c_kv",
-    "k_rope"}`` caches, Mamba-2 ``{"conv", "ssd"}``, mLSTM ``{"conv",
+    per segment of tuples per block of ``{"k", "v"}`` (self or cross),
+    whisper's ``{"self": {"k", "v"}, "cross": {"k", "v"}}`` or MLA
+    ``{"c_kv", "k_rope"}`` caches, Mamba-2 ``{"conv", "ssd"}``, mLSTM ``{"conv",
     "mem"}`` or sLSTM ``{"h", "c", "n", "m"}`` states) -> the port's, on
     ``device`` (default ``cuda``), each leaf in its own dtype."""
     dev = resolve_device(device)

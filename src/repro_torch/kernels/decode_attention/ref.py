@@ -26,7 +26,7 @@ def _rep(x, rep):
 def decode_attend(q, k_cache, v_cache, lengths, *, window: int = 0):
     """q: [B,Sq,H,Dh] (Sq small); caches: [B,S,Hkv,D*]; lengths: [B], the
     number of valid cache rows (the new token's k/v already written at
-    lengths - 1).  Returns [B,Sq,H,Dv] in q's dtype."""
+    lengths - 1; clamped to [0, S]).  Returns [B,Sq,H,Dv] in q's dtype."""
     B, Sq, H, Dh = q.shape
     _, S, Hkv, Dv = v_cache.shape
     rep = H // Hkv
@@ -35,7 +35,10 @@ def decode_attend(q, k_cache, v_cache, lengths, *, window: int = 0):
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(f32),
                      _rep(k_cache, rep).to(f32)) * scale
     cols = torch.arange(S, device=q.device)[None, None, None, :]
-    lens = lengths.to(cols.dtype)[:, None, None, None]
+    # lengths past the cache are clamped to S, as the kernel clamps them
+    # (an idle serving slot's cur_index + 1 runs past the cache; the JAX
+    # oracle differs there only under a window, in rows nothing reads)
+    lens = lengths.to(cols.dtype).clamp(0, S)[:, None, None, None]
     valid = cols < lens
     if window:
         valid &= cols >= lens - window

@@ -1,2 +1,4 @@
-"""Command-line launchers of the port (``python -m repro_torch.launch.
-stream``)."""
+"""Command-line launchers and drivers of the port: the stream launcher
+(``python -m repro_torch.launch.stream``), the continuous-batching
+serving driver (``python -m repro_torch.launch.serve``, ``serve.
+ServingEngine``) and its step functions (``cells``)."""

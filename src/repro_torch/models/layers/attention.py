@@ -1,5 +1,5 @@
-"""GQA self-attention sublayer, prefill and decode phases (port of
-``repro.models.layers.attention``).
+"""GQA self / cross attention sublayer, train, prefill and decode phases
+(port of ``repro.models.layers.attention``).
 
 State protocol (threaded by the layer stack):
   - train:    state None -> None
@@ -8,10 +8,12 @@ State protocol (threaded by the layer stack):
   - decode:   caches in -> the same caches with the new token's k/v
               written at ``ctx.cur_index`` *in place* (the JAX package
               returns updated copies; the port's caller keeps using the
-              tensors it passed).
-
-Cross-attention (whisper's decoder, the vision layers) waits for the
-slice that ports those families.
+              tensors it passed).  A write at an index past the cache
+              is dropped, as JAX's scatter drops it.
+Cross-attention (whisper's decoder over ``ctx.enc_memory``, the vision
+layers over ``ctx.image_embeds``) projects the source k/v once at
+prefill, keeps them as its state (bf16, the source's length) and reads
+them unchanged at every decode step.
 """
 from __future__ import annotations
 
@@ -26,16 +28,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import rope as rope_mod
 
-CROSS_TODO = ("cross-attention (whisper's decoder, llama-3.2-vision's "
-              "image layers) is ported with those families by ROADMAP "
-              "queue 1 item 12")
-
 
 def init(gen, cfg: ModelConfig, *, is_cross: bool = False):
-    if is_cross:
-        raise NotImplementedError(CROSS_TODO)
     D = cfg.d_model
     H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    if is_cross:
+        Hkv = H  # cross layers use full-head kv in the assigned archs
     dev = gen.device
     pairs = {
         "wq": iu.dense(gen, (D, H, Dh), ("fsdp", "tp", None)),
@@ -44,7 +42,7 @@ def init(gen, cfg: ModelConfig, *, is_cross: bool = False):
         "wo": iu.dense(gen, (H, Dh, D), ("tp", None, "fsdp"),
                        scale=1.0 / (H * Dh) ** 0.5),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not is_cross:
         pairs["bq"] = iu.zeros((H, Dh), ("tp", None), device=dev)
         pairs["bk"] = iu.zeros((Hkv, Dh), ("tp", None), device=dev)
         pairs["bv"] = iu.zeros((Hkv, Dh), ("tp", None), device=dev)
@@ -52,11 +50,12 @@ def init(gen, cfg: ModelConfig, *, is_cross: bool = False):
 
 
 def state_spec(cfg: ModelConfig, batch: int, cache_len: int,
-               *, is_cross: bool = False):
-    """Pytree of (shape, dtype, logical spec) for the decode-time cache."""
-    if is_cross:
-        raise NotImplementedError(CROSS_TODO)
-    sh = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+               *, is_cross: bool = False, source_len: int = 0):
+    """Pytree of (shape, dtype, logical spec) for the decode-time cache: a
+    cross layer's holds ``source_len`` rows of full-head k/v."""
+    Hkv = cfg.n_heads if is_cross else cfg.n_kv_heads
+    slen = source_len if is_cross else cache_len
+    sh = (batch, slen, Hkv, cfg.resolved_head_dim)
     spec = ("act_batch", "kv_seq", "kv_heads", None)
     return {"k": (sh, torch.bfloat16, spec), "v": (sh, torch.bfloat16, spec)}
 
@@ -67,10 +66,10 @@ def _proj(x, w, cd):
     return (x.to(cd) @ w.to(cd).reshape(D, H * K)).unflatten(-1, (H, K))
 
 
-def _proj_qkv(p, x, cd):
+def _proj_qkv(p, x, kv_src, cd):
     q = _proj(x, p["wq"], cd)
-    k = _proj(x, p["wk"], cd)
-    v = _proj(x, p["wv"], cd)
+    k = _proj(kv_src, p["wk"], cd)
+    v = _proj(kv_src, p["wv"], cd)
     if "bq" in p:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -78,31 +77,63 @@ def _proj_qkv(p, x, cd):
     return q, k, v
 
 
-def _write_cache(cache, new, idx):
-    """Write new [B,1,H,D] at per-request position idx [B], in place.
-    Every idx must lie below the cache length (JAX's scatter drops
-    out-of-range writes; a CUDA index_put_ would fault)."""
-    b = torch.arange(cache.shape[0], device=cache.device)
-    cache[b, idx.to(torch.int64)] = new[:, 0].to(cache.dtype)
-    return cache
+def _write_caches(caches, news, idx):
+    """Write each new [B,1,...] into its cache [B,S,...] (one S for all)
+    at per-request position idx [B] (>= 0), in place; returns the caches.
+    A write at idx >= S is dropped, as JAX's scatter drops it (a serving
+    engine decodes idle slots too, and their index runs on past the
+    cache): the index is clamped and the row already there written back,
+    with no host sync.  The rows are worked out once for all the caches."""
+    S = caches[0].shape[1]
+    b = torch.arange(caches[0].shape[0], device=caches[0].device)
+    idx = idx.to(torch.int64)
+    row = idx.clamp(0, S - 1)
+    past = idx >= S
+    for cache, new in zip(caches, news):
+        new = new[:, 0].to(cache.dtype)
+        keep = past.view((-1,) + (1,) * (new.ndim - 1))
+        cache[b, row] = torch.where(keep, cache[b, row], new)
+    return caches
+
+
+def _out(y, p, cd):
+    """einsum("bshk,hkd->bsd") as one matmul over the flattened heads."""
+    B, S, H, Dv = y.shape
+    wo = p["wo"].to(cd)
+    return y.to(cd).reshape(B, S, H * Dv) @ wo.reshape(H * Dv, wo.shape[-1])
 
 
 def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig, causal: bool = True,
-          window: int = 0, is_cross: bool = False,
+          window: int = 0, is_cross: bool = False, cross_source: str = "",
           rope_theta: Optional[float] = None):
-    if is_cross:
-        raise NotImplementedError(CROSS_TODO)
     cd = ctx.cdtype
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
 
-    q, k, v = _proj_qkv(p, x, cd)
+    if is_cross:
+        if ctx.is_decode and state is not None:
+            q = _proj(x, p["wq"], cd)
+            k, v = state["k"], state["v"]
+            lengths = torch.full((x.shape[0],), k.shape[1], dtype=torch.int32,
+                                 device=x.device)
+            y = dec_ops.decode_attend(q, k, v, lengths)
+            new_state = state
+        else:
+            src = ctx.image_embeds if cross_source == "image" \
+                else ctx.enc_memory
+            q, k, v = _proj_qkv(p, x, src, cd)
+            y = attn_ops.mha(q, k, v, causal=False)
+            new_state = {"k": k.to(torch.bfloat16),
+                         "v": v.to(torch.bfloat16)}
+        return _out(y, p, cd), new_state
+
+    q, k, v = _proj_qkv(p, x, x, cd)
     positions = ctx.positions
     q = rope_mod.apply_rope(q, positions, theta=theta)
     k = rope_mod.apply_rope(k, positions, theta=theta)
 
     if ctx.phase == "decode":
-        kc = _write_cache(state["k"], k, ctx.cur_index)
-        vc = _write_cache(state["v"], v, ctx.cur_index)
+        kc, vc = _write_caches((state["k"], state["v"]), (k, v),
+                               ctx.cur_index)
         lengths = (ctx.cur_index + 1).to(torch.int32)
         y = dec_ops.decode_attend(q, kc, vc, lengths, window=window)
         new_state = {"k": kc, "v": vc}
@@ -115,8 +146,4 @@ def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig, causal: bool = True,
             new_state = {"k": padded(k), "v": padded(v)}
         else:
             new_state = None
-
-    B, S, H, Dv = y.shape
-    wo = p["wo"].to(cd)
-    out = y.to(cd).reshape(B, S, H * Dv) @ wo.reshape(H * Dv, wo.shape[-1])
-    return out, new_state
+    return _out(y, p, cd), new_state

@@ -20,7 +20,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import norms
 from repro_torch.models.layers import rope as rope_mod
-from repro_torch.models.layers.attention import _proj, _write_cache
+from repro_torch.models.layers.attention import _proj, _write_caches
 
 
 def init(gen, cfg: ModelConfig):
@@ -94,8 +94,8 @@ def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
     c_kv, k_rope = _latent(p, x, ctx, cd)
 
     if ctx.phase == "decode":
-        c_cache = _write_cache(state["c_kv"], c_kv, ctx.cur_index)
-        kr_cache = _write_cache(state["k_rope"], k_rope, ctx.cur_index)
+        c_cache, kr_cache = _write_caches(
+            (state["c_kv"], state["k_rope"]), (c_kv, k_rope), ctx.cur_index)
         k, v = _decompress(p, c_cache, kr_cache, cd)
         lengths = (ctx.cur_index + 1).to(torch.int32)
         y = dec_ops.decode_attend(q, k, v, lengths)

@@ -4,9 +4,10 @@
 ``Model`` is an ``nn.Module`` whose submodules mirror the JAX package's
 parameter tree leaf for leaf (``embed``, ``body.segments[i][j].<block
 params>`` stacked on a leading group axis, ``final_norm``, ``head`` when
-untied), so ``repro_torch.convert`` carries weights across by name.  The
-phase functions are plain functions over it with the JAX signatures
-minus ``params``.  The port serves only: parameters carry no gradients,
+untied, whisper's ``enc_body`` and ``enc_norm``), so
+``repro_torch.convert`` carries weights across by name.  The phase
+functions are plain functions over it with the JAX signatures minus
+``params``.  The port serves only: parameters carry no gradients,
 and ``lm_loss`` / ``train_loss`` wait for the training slice.
 """
 from __future__ import annotations
@@ -127,6 +128,10 @@ def init(model: Model, gen: torch.Generator,
         head, specs["head"] = iu.dense(
             gen, (cfg.d_model, cfg.vocab_size), ("fsdp", "tp"), scale=0.02)
         params["head"] = one(head)
+    if model.enc_plan is not None:
+        params["enc_body"], specs["enc_body"] = init_stack(
+            gen, model.enc_plan, cast=cast)
+        params["enc_norm"], specs["enc_norm"] = norms.init(gen, cfg.d_model)
     return model.load_tree(params), specs
 
 
@@ -164,6 +169,19 @@ def _embed(model: Model, tokens, ctx: Ctx):
     return x
 
 
+def encode(model: Model, enc_frames, ctx: Ctx):
+    """whisper's encoder over precomputed (stub) frame embeddings
+    ``[B, S_enc, D]``: bidirectional blocks at phase "train" (no state),
+    then the encoder norm."""
+    x = enc_frames.to(ctx.cdtype)
+    ectx = ctx.replace(phase="train",
+                       positions=_positions(enc_frames.shape[:2],
+                                            enc_frames.device))
+    x, _, _ = apply_stack(model.enc_body.tree(), model.enc_plan, x, None,
+                          ectx)
+    return norms.apply(model.enc_norm.tree(), x, eps=model.cfg.norm_eps)
+
+
 def _positions(bs, device):
     b, s = bs
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(
@@ -197,25 +215,28 @@ def logits_for(model: Model, hidden, ctx: Ctx):
 
 def prefill(model: Model, batch: Dict[str, Any], ctx: Ctx, cache_len: int,
             *, full_logits: bool = False):
-    """batch["tokens"] [B,S] -> (logits [B,S or 1,V], states with caches
-    padded to ``cache_len``)."""
+    """batch["tokens"] [B,S] (+ whisper's ``enc_frames`` [B,S_enc,D], the
+    vision model's ``image_embeds`` [B,n_img,D]) -> (logits [B,S or
+    1,V], states: self-attention caches padded to ``cache_len``, cross
+    caches the memory's length)."""
     tokens = batch["tokens"]
-    if model.enc_plan is not None or model.cfg.cross_attn_every:
-        raise NotImplementedError("encoder memories and image embeddings "
-                                  "come with their families (ROADMAP queue "
-                                  "1 item 12)")
     ctx = ctx.replace(phase="prefill",
                       positions=_positions(tokens.shape, tokens.device),
                       cache_len=cache_len)
+    if model.enc_plan is not None:
+        ctx = ctx.replace(enc_memory=encode(model, batch["enc_frames"], ctx))
+    if model.cfg.cross_attn_every:
+        ctx = ctx.replace(image_embeds=batch["image_embeds"].to(ctx.cdtype))
     hidden, states, _ = forward(model, tokens, ctx)
     sel = hidden if full_logits else hidden[:, -1:]
     return logits_for(model, sel, ctx), states
 
 
 def decode_step(model: Model, token, states, cur_index, ctx: Ctx):
-    """token [B,1]; cur_index [B] (write position, below the cache
-    length).  Returns (logits [B,1,V], states) — the caches in ``states``
-    are updated in place and returned."""
+    """token [B,1]; cur_index [B] (write position; a write past the cache
+    is dropped, as in JAX).  Returns (logits [B,1,V], states) — the
+    caches in ``states`` are updated in place and returned; cross caches
+    are read, never written."""
     ctx = ctx.replace(phase="decode", positions=cur_index[:, None],
                       cur_index=cur_index,
                       cache_len=_states_cache_len(states))

@@ -16,7 +16,7 @@ group.
 The decode contract.  Decode threads the (large, mostly unchanged)
 per-layer states the way the JAX package's scan carry does, but in
 place: each group's block gets views of its slice of the stacked state
-and must write its new state into those views (``attention._write_cache``
+and must write its new state into those views (``attention._write_caches``
 writes the new token's k/v, and MLA's latents; ``mamba2.apply`` and the
 xLSTM layers ``copy_`` their recurrent states), so no state is copied or
 re-emitted.  ``apply_stack``

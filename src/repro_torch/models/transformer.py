@@ -6,11 +6,13 @@ attention + gated-FFN block repeated; gemma3: windowed local layers with
 their own rope theta, every ``global_every``-th layer global, then a tail
 of locals), the hybrid family (zamba2: groups of Mamba-2 blocks, each
 closed by one weight-shared attention block, then a tail of Mamba-2
-blocks), the xLSTM family (alternating mLSTM / sLSTM blocks) and the
+blocks), the xLSTM family (alternating mLSTM / sLSTM blocks), the
 DeepSeek family (leading dense layers, then MoE layers; MLA attention
-where the config has it).  whisper's encoder-decoder and
-llama-3.2-vision's cross-attention raise ``NotImplementedError`` naming
-the item of ROADMAP queue 1 that ports them.
+where the config has it), llama-3.2-vision (groups of self-attention
+blocks, each closed by a cross-attention block over the image
+embeddings) and whisper (a bidirectional encoder plan, and decoder
+blocks of self-attention, cross-attention over the encoder output and a
+gated FFN).
 """
 from __future__ import annotations
 
@@ -31,16 +33,18 @@ def _norm(cfg, p, x):
 def attn_ffn_block(cfg: ModelConfig, name: str, *, causal: bool = True,
                    window: int = 0,
                    rope_theta: Optional[float] = None,
-                   use_moe: bool = False, use_mla: bool = False,
-                   use_extra: bool = False) -> BlockDef:
-    """Pre-norm self-attention (or MLA) + gated FFN (or MoE) block; with
-    ``use_extra`` its parameters are the plan's shared (unstacked) ones,
-    its state per group.  (The JAX package's cross-attention variant
-    comes with whisper and llama-3.2-vision, ROADMAP queue 1 item 12.)"""
+                   use_moe: bool = False, cross: bool = False,
+                   cross_source: str = "", use_extra: bool = False,
+                   use_mla: bool = False, source_len: int = 0) -> BlockDef:
+    """Pre-norm attention (self, MLA, or with ``cross`` cross-attention
+    over ``cross_source``'s memory of ``source_len`` rows) + gated FFN
+    (or MoE) block; with ``use_extra`` its parameters are the plan's
+    shared (unstacked) ones, its state per group."""
 
     def init(gen):
         ln1 = norms.init(gen, cfg.d_model, scale_offset=cfg.norm_scale_offset)
-        at = mla.init(gen, cfg) if use_mla else attention.init(gen, cfg)
+        at = mla.init(gen, cfg) if use_mla else \
+            attention.init(gen, cfg, is_cross=cross)
         ln2 = norms.init(gen, cfg.d_model, scale_offset=cfg.norm_scale_offset)
         mlp = moe.init(gen, cfg) if use_moe else \
             ffn.init(gen, cfg.d_model, cfg.d_ff)
@@ -55,7 +59,8 @@ def attn_ffn_block(cfg: ModelConfig, name: str, *, causal: bool = True,
         else:
             h, new_state = attention.apply(
                 p["attn"], h, state, ctx, cfg=cfg, causal=causal,
-                window=window, rope_theta=rope_theta)
+                window=window, is_cross=cross, cross_source=cross_source,
+                rope_theta=rope_theta)
         x = x + h
         h2 = _norm(cfg, p["ln2"], x)
         if use_moe:
@@ -67,10 +72,58 @@ def attn_ffn_block(cfg: ModelConfig, name: str, *, causal: bool = True,
     def state_spec(batch, cache_len):
         if use_mla:
             return mla.state_spec(cfg, batch, cache_len)
-        return attention.state_spec(cfg, batch, cache_len)
+        slen = source_len or cache_len
+        return attention.state_spec(cfg, batch, cache_len, is_cross=cross,
+                                    source_len=slen if cross else 0)
 
     return BlockDef(name=name, init=init, apply=apply, state_spec=state_spec,
                     use_extra=use_extra)
+
+
+def encdec_decoder_block(cfg: ModelConfig, name: str) -> BlockDef:
+    """Whisper decoder layer: causal self-attention, cross-attention over
+    the encoder output (``ctx.enc_memory``), gated FFN; state ``{"self",
+    "cross"}``, the cross cache sized ``cache_len`` as in the JAX
+    package (so a prefill's cross k/v, the prompt bucket's length, fits
+    a decode slot only when the bucket is ``cache_len``)."""
+
+    def init(gen):
+        parts = {
+            "ln1": norms.init(gen, cfg.d_model),
+            "self": attention.init(gen, cfg),
+            "ln2": norms.init(gen, cfg.d_model),
+            "cross": attention.init(gen, cfg, is_cross=True),
+            "ln3": norms.init(gen, cfg.d_model),
+            "mlp": ffn.init(gen, cfg.d_model, cfg.d_ff),
+        }
+        return ({k: v[0] for k, v in parts.items()},
+                {k: v[1] for k, v in parts.items()})
+
+    def apply(p, x, state, ctx: Ctx):
+        s_self = state["self"] if state is not None else None
+        s_cross = state["cross"] if state is not None else None
+        h, ns_self = attention.apply(p["self"], _norm(cfg, p["ln1"], x),
+                                     s_self, ctx, cfg=cfg, causal=True)
+        x = x + h
+        h, ns_cross = attention.apply(p["cross"], _norm(cfg, p["ln2"], x),
+                                      s_cross, ctx, cfg=cfg, is_cross=True,
+                                      cross_source="memory")
+        x = x + h
+        x = x + ffn.apply(p["mlp"], _norm(cfg, p["ln3"], x), ctx, act=cfg.act)
+        new_state = None
+        if ns_self is not None or ns_cross is not None:
+            new_state = {"self": ns_self, "cross": ns_cross}
+        return x, new_state, 0.0
+
+    def state_spec(batch, cache_len):
+        return {
+            "self": attention.state_spec(cfg, batch, cache_len),
+            "cross": attention.state_spec(cfg, batch, cache_len,
+                                          is_cross=True,
+                                          source_len=cache_len),
+        }
+
+    return BlockDef(name=name, init=init, apply=apply, state_spec=state_spec)
 
 
 def mamba_block(cfg: ModelConfig, name: str) -> BlockDef:
@@ -119,12 +172,8 @@ def slstm_block(cfg: ModelConfig, name: str) -> BlockDef:
                     state_spec=lambda b, c: xlstm.slstm_state_spec(cfg, b, c))
 
 
-LATER = "is ported by ROADMAP queue 1 item 12 (the other model families)"
-
-
 def build_plan(cfg: ModelConfig) -> StackPlan:
-    """Backbone (decoder) plan of every family but whisper's and
-    llama-3.2-vision's."""
+    """Backbone (decoder) plan for every assigned architecture."""
     L = cfg.n_layers
     if cfg.family == "ssm":  # xlstm: alternate mLSTM / sLSTM
         assert L % 2 == 0
@@ -157,11 +206,19 @@ def build_plan(cfg: ModelConfig) -> StackPlan:
                                     use_mla=use_mla),),
             n_groups=L - nd))
         return StackPlan(segments=tuple(segs))
-    for cond, what in ((cfg.cross_attn_every, "llama-3.2-vision's "
-                        "cross-attention layers"),
-                       (cfg.encdec, "whisper's encoder-decoder")):
-        if cond:
-            raise NotImplementedError(f"{what} {LATER}")
+    if cfg.cross_attn_every:  # llama-3.2 vision
+        k = cfg.cross_attn_every
+        assert L % k == 0
+        pattern = tuple(attn_ffn_block(cfg, f"self{i}") for i in range(k - 1))
+        pattern += (attn_ffn_block(cfg, "xattn", cross=True,
+                                   cross_source="image",
+                                   source_len=cfg.n_image_tokens),)
+        return StackPlan(segments=(Segment(pattern=pattern,
+                                           n_groups=L // k),))
+    if cfg.encdec:  # whisper decoder
+        return StackPlan(segments=(
+            Segment(pattern=(encdec_decoder_block(cfg, "dec"),),
+                    n_groups=L),))
     if cfg.global_every:  # gemma3: local:global interleave
         k = cfg.global_every
         theta_local = cfg.rope_theta_local or cfg.rope_theta
@@ -187,6 +244,9 @@ def build_plan(cfg: ModelConfig) -> StackPlan:
 
 
 def build_encoder_plan(cfg: ModelConfig) -> Optional[StackPlan]:
+    """whisper's encoder: bidirectional attention + FFN blocks."""
     if not cfg.encdec:
         return None
-    raise NotImplementedError(f"whisper's encoder-decoder {LATER}")
+    return StackPlan(segments=(
+        Segment(pattern=(attn_ffn_block(cfg, "enc", causal=False),),
+                n_groups=cfg.n_enc_layers),))

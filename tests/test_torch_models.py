@@ -264,9 +264,10 @@ def test_params_and_states_round_trip_bitwise(model):
 
 def test_init_and_configs():
     """Random init draws from a torch.Generator with the JAX package's
-    shapes and scales; every config copies across; the families not
-    ported yet (whisper, llama-3.2-vision) raise NotImplementedError
-    naming the ROADMAP item that ports them."""
+    shapes and scales; every config copies across; whisper's
+    encoder-decoder and llama-3.2-vision's cross-attention layers build
+    with the JAX package's parameter shapes and specs (the cross layers'
+    full-head ``wk`` / ``wv``, whisper's ``enc_body`` and ``enc_norm``)."""
     from repro.configs.registry import ARCHS as J_ARCHS
     from repro_torch.configs.registry import ARCHS
     assert set(ARCHS) == set(J_ARCHS)
@@ -287,9 +288,18 @@ def test_init_and_configs():
     wq = a.body.segments[0][0].attn.wq
     assert abs(float(wq.std()) - 64 ** -0.5) < 0.02
     for name in ("whisper-tiny", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            tlm.build(reduced_config(name))
+        t, tspecs = tlm.init(tlm.build(reduced_config(name)),
+                             torch.Generator().manual_seed(1))
+        j, jspecs = jlm.init(jlm.build(j_reduced_config(name)),
+                             jax.random.PRNGKey(1))
+        assert jax.tree.map(lambda x: tuple(x.shape),
+                            convert.lm_params_to_numpy(t)) == \
+            jax.tree.map(lambda x: tuple(x.shape), j), name
+        assert tspecs == jax.tree.map(
+            tuple, jspecs, is_leaf=lambda s: isinstance(s, tuple)), name
     assert transformer.build_encoder_plan(cfg) is None
+    assert transformer.build_encoder_plan(
+        reduced_config("whisper-tiny")).n_layers == 2
     # the dense decoders, the hybrid, xLSTM, gemma3 and DeepSeek families
     # build
     for name in ("gemma-7b", "qwen1.5-110b", "zamba2-1.2b", "xlstm-350m",
@@ -298,7 +308,8 @@ def test_init_and_configs():
 
 
 @pytest.mark.parametrize("name", ["qwen2-0.5b", "zamba2-1.2b", "xlstm-350m",
-                                  "gemma3-1b", "deepseek-v2-lite-16b"])
+                                  "gemma3-1b", "deepseek-v2-lite-16b",
+                                  "whisper-tiny", "llama-3.2-vision-11b"])
 def test_init_in_a_compute_dtype_equals_for_compute(name):
     """``lm.init(..., dtype=bf16)`` casts each block as it is drawn and
     gives bit for bit ``for_compute(init(...), bf16)``: the same draws,

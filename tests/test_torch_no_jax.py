@@ -106,3 +106,12 @@ def test_port_imports_no_jax(path):
     missing = card_missing_imports(text)
     assert not missing, f"{path} imports what the card's machine lacks: " \
         f"{missing}"
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/launch/serve.py", "src/repro_torch/launch/cells.py",
+    "examples/torch_serve_lm.py", "tests/test_torch_serve_kernel.py"])
+def test_serving_slice_files_are_checked(rel):
+    """The serving slice's modules, example and card-only tests are among
+    the files the check above reads."""
+    assert ROOT / rel in _port_files()
