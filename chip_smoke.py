@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--ticks 128] [--seed 0] [--only 3,14]
+    python3 chip_smoke.py [--ticks 128] [--seed 0]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's kernels from ``src/repro_torch/csrc`` into
@@ -262,13 +262,17 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    in bf16), cache 512, bucket 64, prompts 32-256.  Each: exact launches
    from the schedule (a prefill an admission, a decode step a tick with
    an active slot; ``engine_launches``), ``flash_attention`` all on
-   ``wgmma``; ms/tick, generated tokens/s, one profiled tick's busy ms,
-   device operations and idle share, GiB allocated; then one microbatch
-   teacher-forced (prefill and a decode step) and block by block,
-   kernels against plain versions, with random ``enc_frames`` /
-   ``image_embeds`` (the engine's zero memories null cross-attention),
-   whose control (the plain path with every cross-attention output
-   zeroed) must lie outside the tolerance.  (d) the request journal: a
+   ``wgmma``; ms/tick and generated tokens/s over the unprofiled ticks
+   (the tokens those ticks emitted over their wall time), one profiled
+   tick's busy ms, device operations and idle share (of that tick's own
+   wall), GiB allocated; then one microbatch teacher-forced (prefill and
+   a decode step) and block by block, kernels against plain versions,
+   with random ``enc_frames`` / ``image_embeds`` (the engine's zero
+   memories null cross-attention), whose control (the plain path with
+   every cross-attention output zeroed) must lie outside the tolerance;
+   block by block, each cross-attention sublayer's own output is held
+   within 2**-5 of its magnitude too, the gate for cross attention (a
+   zeroed one reads 1 there).  (d) the request journal: a
    child (this script with ``--serve-child DIR``) serves qwen2-0.5b for
    40 ticks and kills itself with SIGKILL; a fresh process
    (``--serve-recover DIR``) recovers exactly the accepted but
@@ -2312,19 +2316,25 @@ def microbatch(sv, reqs, dev):
 
 
 @contextmanager
-def cross_zeroed():
-    """Every cross-attention sublayer's output zeroed (its state kept):
-    the control of the teacher-forced checks with memories."""
+def cross_tap(zero=False):
+    """Every cross-attention sublayer's output appended to the yielded
+    list, and with ``zero`` zeroed (its state kept): the control of the
+    checks with memories."""
     from repro_torch.models.layers import attention
     real = attention.apply
+    outs = []
 
     def apply(p, x, state, ctx, **kw):
         out, st = real(p, x, state, ctx, **kw)
-        return (out * 0 if kw.get("is_cross") else out), st
+        if kw.get("is_cross"):
+            outs.append(out)
+            if zero:
+                out = out * 0
+        return out, st
 
     attention.apply = apply
     try:
-        yield
+        yield outs
     finally:
         attention.apply = real
 
@@ -2375,7 +2385,7 @@ def teacher_forced(sv, mapper, reqs, dev, spec, aux=None):
                 del f32
             control = None
             if aux:
-                with cross_zeroed():
+                with cross_tap(zero=True):
                     pin.replay()
                     off = run(mapper.ctx)
                 control = max(float((a - b).abs().max())
@@ -2432,8 +2442,15 @@ def per_block(sv, mapper, reqs, dev, aux=None):
     MoE block's routing of the kernel run replayed); outputs and new
     states must agree within ``BLOCK_TOL`` of their largest magnitude.
     Errors do not compound across blocks here, as they do end to end.
-    Returns the largest error relative to that magnitude, at prefill and
-    decode."""
+    With ``aux`` this is the gate for cross attention: each cross-attention
+    sublayer's output, kernels against plain versions on the same input,
+    must agree within ``BLOCK_TOL`` of its own largest magnitude (a
+    cross-attention that the kernels lost reads 1 there, the control: the
+    plain path with that output zeroed); and each block that holds one
+    runs plain with it zeroed once more, for how far the block's output
+    moves (reported).  Returns the largest error relative to that
+    magnitude, at prefill and decode, the cross sublayers' own and the
+    controls."""
     import torch
     from repro_torch.models import lm
     from repro_torch.models.layers import norms
@@ -2477,14 +2494,47 @@ def per_block(sv, mapper, reqs, dev, aux=None):
                         scale_offset=cfg.norm_scale_offset)
         return lm.logits_for(model, x, ctx)
 
-    def both(blk, p, x, st_got, st_want, ctx):
+    controls = {"prefill": [], "decode": []}
+    cross = {"prefill": 0.0, "decode": 0.0}
+    gate = {"prefill": [], "decode": []}
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def both(blk, p, x, st_got, st_want, ctx, phase=None):
+        """The block with the kernels and with the plain versions; with
+        ``phase`` its cross-attention sublayers checked, and the controls
+        run on a copy of its state (the plain versions decode in place)."""
+        st_off = copy(st_want) if phase and aux and st_want is not None \
+            else None
         pin.record()
-        got = blk.apply(p, x, st_got, ctx)
+        with cross_tap() as xg:
+            got = blk.apply(p, x, st_got, ctx)
         pin.replay()
-        with plain_versions():
+        with plain_versions(), cross_tap() as xw:
             want = blk.apply(p, x, st_want, ctx)
+        if phase and xw:
+            for a, b in zip(xg, xw, strict=True):
+                err = rel(a, b)
+                if not err <= BLOCK_TOL:
+                    raise AssertionError(
+                        f"per-block teacher forcing, {phase}, {blk.name}'s "
+                        f"cross-attention: kernels against plain versions "
+                        f"{err} of its largest value")
+                cross[phase] = max(cross[phase], err)
+            pin.replay()
+            with plain_versions(), cross_tap(zero=True) as xo:
+                off = blk.apply(p, x, st_off, ctx)[0]
+            gate[phase] += [rel(torch.zeros_like(b), b) for b in xo]
+            controls[phase].append(rel(off, want[0]))
+            del off
         pin.off()
         return got, want
+
+    def copy(t):
+        return {k: copy(v) for k, v in t.items()} if isinstance(
+            t, dict) else t.clone()
 
     ctx = ctx0.replace(phase="prefill", cache_len=sv["cache_len"],
                        positions=lm._positions(toks.shape, dev))
@@ -2517,7 +2567,8 @@ def per_block(sv, mapper, reqs, dev, aux=None):
             ctx = ctx.replace(image_embeds=aux["image_embeds"].to(
                 ctx.cdtype))
         for n, (name, blk, p) in enumerate(blocks):
-            (got, gst, _), (want, wst, _) = both(blk, p, x, None, None, ctx)
+            (got, gst, _), (want, wst, _) = both(blk, p, x, None, None, ctx,
+                                                 "prefill")
             check(name, "prefill", (got, gst), (want, wst))
             states.append(wst)
             x = want
@@ -2535,11 +2586,10 @@ def per_block(sv, mapper, reqs, dev, aux=None):
         ctx = ctx0.replace(phase="decode", positions=lens_t[:, None],
                            cur_index=lens_t)
         x = lm._embed(model, nxt, ctx)
-        copy = lambda t: {k: copy(v) for k, v in t.items()} if isinstance(
-            t, dict) else t.clone()
         for (name, blk, p), st in zip(blocks, states):
             gst, wst = copy(st), copy(st)
-            (got, _, _), (want, _, _) = both(blk, p, x, gst, wst, ctx)
+            (got, _, _), (want, _, _) = both(blk, p, x, gst, wst, ctx,
+                                             "decode")
             check(name, "decode", (got, gst), (want, wst))
             x = want
         with plain_versions():
@@ -2550,6 +2600,16 @@ def per_block(sv, mapper, reqs, dev, aux=None):
     out = {"blocks": len(blocks) + n_enc, "max_rel_err": worst,
            "tolerance": BLOCK_TOL,
            "compounded (blocks, max abs diff, max abs)": growth}
+    if aux:
+        out["cross-attention sublayers"] = {
+            "max_rel_err": cross, "tolerance": BLOCK_TOL,
+            "control: output zeroed (least)": {
+                ph: min(g) for ph, g in gate.items()},
+            f"control, seen by the block check (least of "
+            f"{len(controls['prefill'])} blocks)": {
+                ph: min(c) for ph, c in controls.items()}}
+        if not min(min(g) for g in gate.values()) > BLOCK_TOL:
+            raise AssertionError(f"per-block control: {out}")
     if pin.decisions:
         out["routing flips replayed"] = f"{pin.flips} of {pin.decisions}"
     return out
@@ -3911,6 +3971,9 @@ ENGINE = {
 # attention sublayers (whisper 12: 4 encoder, 4 decoder self, 4 cross;
 # llama 40).  Random weights leave few top-2 margins above that, so
 # neither requires a position for the top-1 check (it runs where any is).
+# At llama's width the zeroed-cross control clears this tolerance by
+# little: the gate for cross attention is per_block's check of each
+# cross sublayer's own output.
 ENGINE_TF = {
     "qwen2-0.5b": SERVE_ARCHS["qwen2-0.5b"],
     "whisper-tiny": Arch({}, {}, None, 0.125 * 12 / 24, top1=False),
@@ -3959,13 +4022,26 @@ def engine_launches(cfg):
              "rmsnorm": 2 * cfg.n_layers + 1})
 
 
-def state_leaves(t):
-    """The tensors of a state tree, in order."""
-    if isinstance(t, dict):
-        return [x for k in sorted(t) for x in state_leaves(t[k])]
-    if isinstance(t, (list, tuple)):
-        return [x for v in t for x in state_leaves(v)]
-    return [] if t is None else [t]
+def count_calls(eng):
+    """Count the engine's model calls (one prefill an admission, one
+    decode step a tick with an active slot) and the tokens they emit (one
+    a prefill, one an active slot a decode step), by wrapping its steps;
+    returns the counts, which grow as it serves."""
+    calls = {"prefill": 0, "decode": 0, "tokens": 0}
+    prefill, decode = eng._prefill, eng._decode
+
+    def counted_prefill(*a):
+        calls["prefill"] += 1
+        calls["tokens"] += 1
+        return prefill(*a)
+
+    def counted_decode(*a):
+        calls["decode"] += 1
+        calls["tokens"] += int(eng.active.sum())
+        return decode(*a)
+
+    eng._prefill, eng._decode = counted_prefill, counted_decode
+    return calls
 
 
 def profiled_step(eng):
@@ -3992,19 +4068,24 @@ def profiled_step(eng):
             [(n[:80], round(us / 1e3, 4)) for n, us in top])
 
 
-def drive_engine(eng, reqs, held=(), profile_at=8):
+def drive_engine(eng, calls, reqs, held=(), profile_at=8):
     """Submit ``reqs`` and tick ``eng`` until every request (and each
     ``held`` one, released as ``HELD_BACK`` says) has finished.  The tick
     ``profile_at`` runs under the profiler and is left out of the wall
-    time.  While an idle slot decodes at a write index past cache_len
-    (no admission that tick), its state is snapshot before the tick and
-    must be bitwise the same after it: the write was dropped."""
+    time and of the tokens (``calls``, from ``count_calls``) counted over
+    the other ticks.  While an idle slot decodes at a write index past
+    cache_len (no admission that tick), its state is snapshot before the
+    tick and must be bitwise the same after it: the write was dropped."""
     import torch
+    from repro_torch.core.event import flatten_sorted
     cache, n = eng.scfg.cache_len, eng.scfg.n_slots
+
+    def leaves():
+        return [x for x in flatten_sorted(eng.states)[0] if x is not None]
     for r in reqs:
         if not eng.submit(r):
             raise AssertionError(f"request {r.rid} shed")
-    held, wall, ticks = list(held), 0.0, 0
+    held, wall, ticks, tokens = list(held), 0.0, 0, 0
     prof, dropped = None, None
     while eng.queue or eng.active.any() or held:
         if not eng.queue and not eng.active.any():
@@ -4019,23 +4100,25 @@ def drive_engine(eng, reqs, held=(), profile_at=8):
             if past:
                 w = past[0]
                 snap = (w, int(cur[w]), [x[:, w].clone() for x in
-                                         state_leaves(eng.states)])
+                                         leaves()])
+        n0 = calls["tokens"]
         if eng.tick == profile_at:
-            prof = profiled_step(eng)
+            prof = (*profiled_step(eng), calls["tokens"] - n0)
         else:
             t0 = time.perf_counter()
             eng.step()
             torch.cuda.synchronize()
             wall += time.perf_counter() - t0
             ticks += 1
+            tokens += calls["tokens"] - n0
         if snap is not None:
             w, idx, before = snap
-            after = [x[:, w] for x in state_leaves(eng.states)]
+            after = [x[:, w] for x in leaves()]
             if not all(torch.equal(a, b) for a, b in zip(before, after)):
                 raise AssertionError(f"idle slot {w}'s write at index {idx} "
                                      f"(cache_len {cache}) changed its state")
             dropped = (eng.tick - 1, w, idx)
-    return {"ticks": ticks, "wall": wall, "profile": prof,
+    return {"ticks": ticks, "wall": wall, "tokens": tokens, "profile": prof,
             "dropped": dropped}
 
 
@@ -4145,8 +4228,9 @@ def engine_path(dev, seed, card, arch):
         server = eng.status_server(0)
         reader = EngineReader(server.port, [r.rid for r in reqs])
         reader.start()
+    calls = count_calls(eng)
     try:
-        run = drive_engine(eng, reqs[:len(reqs) - len(held)], held)
+        run = drive_engine(eng, calls, reqs[:len(reqs) - len(held)], held)
     finally:
         if reader is not None:
             reader.stop()
@@ -4155,40 +4239,42 @@ def engine_path(dev, seed, card, arch):
               for k in (fk.flash_attention, rk.rmsnorm)}
     gib = torch.cuda.memory_allocated() / 2**30
     per_prefill, per_decode = engine_launches(cfg)
+    stats = eng.stats()
+    n_tok = stats["tokens_generated"]
     want = {}
-    for per, n in ((per_prefill, eng.prefills), (per_decode,
-                                                 eng.decode_steps)):
+    for per, n in ((per_prefill, calls["prefill"]),
+                   (per_decode, calls["decode"])):
         for k, m in per.items():
             want[k] = want.get(k, 0) + m * n
-    log(f"engine {arch}: {eng.prefills} prefills and {eng.decode_steps} "
+    log(f"engine {arch}: {calls['prefill']} prefills and {calls['decode']} "
         f"decode steps in {eng.tick} ticks; launches {launches}, expected "
         f"{want} (a prefill {per_prefill}, a decode step {per_decode}); "
         f"routes {routes}")
     if launches != want or routes["flash_attention"]["wgmma"] != \
-            want["flash_attention"] or eng.prefills != len(reqs):
+            want["flash_attention"] or calls["prefill"] != len(reqs) or \
+            calls["tokens"] != n_tok:
         raise AssertionError(f"engine {arch}: launches {launches}, "
-                             f"expected {want}, routes {routes}")
-    stats = eng.stats()
-    n_tok = stats["tokens_generated"]
+                             f"expected {want}, routes {routes}, calls "
+                             f"{calls}, tokens {n_tok}")
     done = {r.rid: r for r in eng.finished}
     if sorted(done) != sorted(r.rid for r in reqs) or any(
             len(r.tokens_out) != ev["max_new"] for r in eng.finished) \
             or stats["shed"] or stats["queued"] or stats["active"]:
         raise AssertionError(f"engine {arch}: stats {stats}")
     tick_s = run["wall"] / run["ticks"]
-    wall, busy, ops, top = run["profile"]
-    idle = None if busy is None else 1 - busy / 1e3 / tick_s
+    wall, busy, ops, top, prof_tok = run["profile"]
+    idle = None if busy is None else 1 - busy / 1e3 / wall
     log(f"engine {arch} end to end: {len(reqs)} requests (prompts "
         f"{ev['min_prompt']}-{ev['prompt_len']}, bucket "
         f"{ev['serve']['prompt_bucket']}, cache {ev['serve']['cache_len']}, "
         f"{ev['serve']['n_slots']} slots) x {ev['max_new']} tokens in "
-        f"{eng.tick} ticks: {tick_s * 1e3:.3f} ms/tick over the "
-        f"{run['ticks']} unprofiled ticks, "
-        f"{n_tok * run['ticks'] / eng.tick / run['wall']:.2f} generated "
-        f"tokens/s; profiled tick (the 9th): "
-        f"device busy {busy} ms, {ops} device operations, wall "
-        f"{wall * 1e3:.3f} ms, idle share against the unprofiled ms/tick "
-        f"{idle}; top {top}; {gib:.2f} GiB allocated; mean latency "
+        f"{eng.tick} ticks: {tick_s * 1e3:.3f} ms/tick and "
+        f"{run['tokens'] / run['wall']:.2f} generated tokens/s over the "
+        f"{run['ticks']} unprofiled ticks ({run['tokens']} of the "
+        f"{n_tok} tokens); the profiled tick (the 9th, {prof_tok} tokens): "
+        f"wall {wall * 1e3:.3f} ms under the profiler, device busy {busy} "
+        f"ms, {ops} device operations, idle share of that tick {idle}; "
+        f"top {top}; {gib:.2f} GiB allocated; mean latency "
         f"{stats['mean_latency_ticks']} ticks; {card}")
     if reader is not None:
         reader.check()
@@ -4389,11 +4475,6 @@ def main(argv=None):
     ap.add_argument("--serve-recover", metavar="DIR",
                     help="run phase 14d's recovery in DIR (phase 14d "
                     "starts this process itself)")
-    ap.add_argument("--only", metavar="PHASES",
-                    help="comma-separated phases to run (3, 5-14; 4 and "
-                    "the kernel line's every-kernel check are skipped), for "
-                    "working on one phase; the last line then reports a "
-                    "partial run")
     args = ap.parse_args(argv)
 
     import torch
@@ -4433,14 +4514,6 @@ def main(argv=None):
     log(f"built {sorted(libs)} with {_build.nvcc_path()} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # --only: the phases asked for and those whose results they read
-    only = None if not args.only else {int(p) for p in args.only.split(",")}
-    need = set(only or ())
-    if need & {6, 12, 13}:
-        need.add(5)
-    if need & {13, 14}:
-        need.add(7)
-    runs = lambda phase: only is None or phase in need   # noqa: E731
     entries = [check_slate_update(dev, args.seed),
                *check_slate_lookup(dev, args.seed),
                check_countmin(dev, args.seed),
@@ -4448,41 +4521,31 @@ def main(argv=None):
                check_flash_attention(dev, args.seed),
                check_decode_attention(dev, args.seed),
                check_ssd_scan(dev, args.seed),
-               check_rmsnorm(dev, args.seed)] if runs(3) else []
+               check_rmsnorm(dev, args.seed)]
     torch.cuda.empty_cache()
-    if only is None:
-        check_no_host_sync(dev, args.seed)
-        torch.cuda.empty_cache()
+    check_no_host_sync(dev, args.seed)
+    torch.cuda.empty_cache()
     # each path's launches, counted from 0 just before it runs
     by_path = {}
-    if runs(5):
-        by_path["main"], ref, off_s, off_prof = end_to_end(
-            dev, args.ticks, args.seed, card)
+    by_path["main"], ref, off_s, off_prof = end_to_end(
+        dev, args.ticks, args.seed, card)
+    torch.cuda.empty_cache()
+    by_path["telemetry"] = telemetry_path(dev, args.ticks, args.seed, card,
+                                          ref, off_s, off_prof)
+    torch.cuda.empty_cache()
+    for arch in SERVE_ARCHS:
+        by_path[f"serving {arch}"] = serving_path(dev, args.seed, card, arch)
         torch.cuda.empty_cache()
-    if runs(6):
-        by_path["telemetry"] = telemetry_path(dev, args.ticks, args.seed,
-                                              card, ref, off_s, off_prof)
+    by_path["durable"] = durable_path(dev, args.seed, card, off_s)
+    torch.cuda.empty_cache()
+    by_path["app counting"] = app_counting_path(dev, args.seed, card, off_s)
+    by_path["app trends"] = app_trends_path(dev, args.seed, card)
+    by_path["app serving"] = app_serving_path(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    for arch in ENGINE:
+        by_path[f"engine {arch}"] = engine_path(dev, args.seed, card, arch)
         torch.cuda.empty_cache()
-    for phase, arch in enumerate(SERVE_ARCHS, 7):
-        if runs(phase):
-            by_path[f"serving {arch}"] = serving_path(dev, args.seed, card,
-                                                      arch)
-            torch.cuda.empty_cache()
-    if runs(12):
-        by_path["durable"] = durable_path(dev, args.seed, card, off_s)
-        torch.cuda.empty_cache()
-    if runs(13):
-        by_path["app counting"] = app_counting_path(dev, args.seed, card,
-                                                    off_s)
-        by_path["app trends"] = app_trends_path(dev, args.seed, card)
-        by_path["app serving"] = app_serving_path(dev, args.seed, card)
-        torch.cuda.empty_cache()
-    if runs(14):
-        for arch in ENGINE:
-            by_path[f"engine {arch}"] = engine_path(dev, args.seed, card,
-                                                    arch)
-            torch.cuda.empty_cache()
-        engine_journal(args.seed, card)
+    engine_journal(args.seed, card)
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}
@@ -4494,7 +4557,7 @@ def main(argv=None):
             e["launches_by_route"] = {r: sum(
                 n[rk][r] for n in by_path.values() if rk in n)
                 for r in ("cand", "keys", "find")}
-        if e["launches"] <= 0 and only is None:
+        if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} never ran on a path")
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_route", "max_abs_err", "ms",
@@ -4502,9 +4565,6 @@ def main(argv=None):
             "fused", "routes", "shapes"]
     log(json.dumps({"kernels": [{k: e[k] for k in keys if k in e}
                                 for e in entries]}))
-    if only is not None:
-        log(json.dumps({"partial run of phases": sorted(need | {1, 2})}))
-        return 0
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,10 +5,8 @@ The JAX module also builds (architecture x input shape x mesh) cells of
 abstract inputs for the dry run, the roofline and training:
 ``build_cell``, ``lower_cell``, ``make_train_step`` and the
 ``abstract_*`` helpers wait for the multi-card slice (ROADMAP queue 1
-item 16), with ``launch/mesh.py`` and ``distributed/sharding.py``.  On
-one card a mesh and its sharding rules would be identities; the step
-makers take ``mesh`` / ``rules`` as the JAX ones do and raise
-``NotImplementedError`` for anything but ``None``.
+item 16), with ``launch/mesh.py`` and ``distributed/sharding.py``, and
+so do the ``mesh`` / ``rules`` parameters of the functions here.
 
 A step's ``params`` is an ``lm.Model`` holding the weights (the port's
 model carries its parameters; ``launch.serve.lm_params`` gives the
@@ -25,20 +23,10 @@ from repro_torch.models import lm
 from repro_torch.models.context import Ctx
 
 CDTYPE = torch.bfloat16
-MESH_LATER = ("a device mesh (sharded cells) is ported with the multi-card "
-              "slice, ROADMAP queue 1 item 16")
 
 
-def one_card(mesh, rules=None) -> None:
-    """Raise unless ``mesh`` and ``rules`` are None (one card)."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(MESH_LATER)
-
-
-def concrete_states(model, batch: int, cache_len: int, mesh=None,
-                    rules=None, *, device=None):
+def concrete_states(model, batch: int, cache_len: int, *, device=None):
     """Zero-initialized decode caches on ``device`` (default ``cuda``)."""
-    one_card(mesh, rules)
     dev = resolve_device(device)
     return lm.decode_states(
         model, batch, cache_len,
@@ -46,9 +34,7 @@ def concrete_states(model, batch: int, cache_len: int, mesh=None,
                                                 device=dev))
 
 
-def make_prefill_step(model, mesh=None, rules=None, cache_len: int = 0,
-                      full_logits: bool = False):
-    one_card(mesh, rules)
+def make_prefill_step(model, cache_len: int = 0, full_logits: bool = False):
     ctx = Ctx(cdtype=CDTYPE)
 
     def prefill_step(params, batch):
@@ -58,8 +44,7 @@ def make_prefill_step(model, mesh=None, rules=None, cache_len: int = 0,
     return prefill_step
 
 
-def make_decode_step(model, mesh=None, rules=None):
-    one_card(mesh, rules)
+def make_decode_step(model):
     ctx = Ctx(cdtype=CDTYPE)
 
     def decode_step(params, token, states, cur_index):

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.core.event import EventBatch
+from repro_torch.core.event import EventBatch, flatten_sorted
 from repro_torch.launch import cells
 from repro_torch.models import lm
 from repro_torch.slates.wal import WriteAheadLog
@@ -69,25 +69,13 @@ class ServeConfig:
     eos_token: int = -1          # -1 = run to max_new
 
 
-def _zip_leaves(fn, dst, src):
-    """Call ``fn(d, s)`` on the matching tensor leaves of two state
-    trees (lists, tuples, dicts; ``None`` where a block has no state)."""
-    if dst is None:
-        return
-    if isinstance(dst, dict):
-        for k in dst:
-            _zip_leaves(fn, dst[k], src[k])
-    elif isinstance(dst, (list, tuple)):
-        for d, s in zip(dst, src):
-            _zip_leaves(fn, d, s)
-    else:
-        fn(dst, src)
-
-
 class ServingEngine:
     def __init__(self, cfg_model, serve_cfg: ServeConfig = None, mesh=None,
                  journal: Optional[str] = None, *, device=None):
-        cells.one_card(mesh)
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh (sharded serving) is ported with the "
+                "multi-card slice, ROADMAP queue 1 item 16")
         self.device = resolve_device(device)
         self.journal = WriteAheadLog(journal) if journal else None
         self.scfg = serve_cfg or ServeConfig()
@@ -120,10 +108,6 @@ class ServingEngine:
         self.telemetry = MetricsRegistry(
             TelemetryConfig(window=8), batch_size=self.scfg.n_slots)
         self._tokens_cum = 0
-        # the schedule's model calls: one prefill an admission, one
-        # decode step a tick with an active slot
-        self.prefills = 0
-        self.decode_steps = 0
 
     # ---- admission (the "M0 source mapper") ----
     def submit(self, req: Request, *, journal: bool = True) -> bool:
@@ -173,9 +157,10 @@ class ServingEngine:
     def _insert(self, new_states, slot: int, cur_value: int, tok: int):
         """Write one prefill's states into slot ``slot`` of the stacked
         states, in place."""
-        def put(d, s):
-            d[:, slot] = s[:, 0].to(d.dtype)
-        _zip_leaves(put, self.states, new_states)
+        for d, s in zip(flatten_sorted(self.states)[0],
+                        flatten_sorted(new_states)[0]):
+            if d is not None:
+                d[:, slot] = s[:, 0].to(d.dtype)
         self.cur_index[slot] = cur_value
         self.last_token[slot, 0] = tok
 
@@ -201,7 +186,6 @@ class ServingEngine:
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
             batch.update(self._aux_inputs(1, bucket))
             logits, new_states = self._prefill(lm_params(self), batch)
-            self.prefills += 1
             # last *real* prompt position; pad rows beyond P sit past the
             # decode frontier (lengths = cur_index+1) and are overwritten
             # as generation advances, so they are never attended.
@@ -232,7 +216,6 @@ class ServingEngine:
             tok, self.states, self.cur_index = self._decode(
                 lm_params(self), self.last_token, self.states,
                 self.cur_index)
-            self.decode_steps += 1
             self.last_token = tok
             # one host copy a tick: the new tokens and the write indices
             toks, cur = torch.stack([tok[:, 0], self.cur_index]).cpu().numpy()

@@ -377,7 +377,8 @@ def test_decode_attention_plain_version_clamps_lengths():
 
 def test_steps_and_mesh():
     """``cells``' decode step returns the argmax token [B, 1] int32 and
-    ``cur_index + 1``; a mesh raises, naming ROADMAP item 16."""
+    ``cur_index + 1``; the prefill step's caches hold ``cache_len`` rows;
+    an engine on a mesh raises, naming ROADMAP item 16."""
     cfg = reduced_config("qwen2-0.5b")
     eng = ts.ServingEngine(cfg, ts.ServeConfig(n_slots=2, cache_len=16),
                            device="cpu")
@@ -394,8 +395,10 @@ def test_steps_and_mesh():
     assert nxt.tolist() == [4, 21]
     with pytest.raises(NotImplementedError, match="item 16"):
         ts.ServingEngine(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        cells.make_prefill_step(eng.model, object(), None, 16)
+    logits, new = cells.make_prefill_step(eng.model, 16, full_logits=True)(
+        params, {"tokens": torch.ones((1, 8), dtype=torch.int32)})
+    assert logits.shape == (1, 8, cfg.vocab_size)
+    assert new[0][0]["k"].shape[1:3] == (1, 16)      # sized cache_len
 
 
 def test_status_server_and_cli(capsys, tmp_path):

@@ -111,6 +111,14 @@ def _engine(dev, model, **kw):
     ts.set_lm_params(eng, convert.lm_params_from_numpy(
         convert.lm_params_to_numpy(model), reduced_config("qwen2-0.5b"),
         device=dev))
+    # count the schedule's model calls: one prefill an admission, one
+    # decode step a tick with an active slot
+    eng.calls = {"prefill": 0, "decode": 0}
+    for name, step in (("prefill", eng._prefill), ("decode", eng._decode)):
+        def counted(*a, _name=name, _step=step):
+            eng.calls[_name] += 1
+            return _step(*a)
+        setattr(eng, f"_{name}", counted)
     return eng
 
 
@@ -143,7 +151,7 @@ def test_serving_engine_on_card_matches_cpu():
     for rid in a:
         assert a[rid].done_tick == b[rid].done_tick
         assert a[rid].tokens_out[0] == b[rid].tokens_out[0]
-    assert card.prefills == 5 and card.decode_steps == cpu.decode_steps
+    assert card.calls["prefill"] == 5 and card.calls == cpu.calls
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-11b"])
