@@ -277,13 +277,44 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    40 ticks and kills itself with SIGKILL; a fresh process
    (``--serve-recover DIR``) recovers exactly the accepted but
    unfinished requests, resubmits and finishes each.
+15. drives the multi-shard engine (``repro_torch.core.distributed``)
+   with 8 shards on the card.  (a) Phase 5's workflow and feed (the
+   same events each tick, as ``[8, 8,192]`` sources) on
+   ``DistConfig(batch_size=32,768, queue_capacity=131,072, chunk_size=8,
+   exchange_slack=4.0)`` with 2**19 slots an updater a shard, 128 ticks
+   through ``DistributedEngine.run`` (first its sizing on the same feed:
+   every (source, destination) bucket within ``cap_per_dest``, every
+   shard's receipt within ``batch_size``): the slates, over all shards'
+   rows, equal phase 5's numpy reference through ``read_slates``,
+   ``read_slate`` and the tables; no exchange, queue or table drop;
+   ``processed`` the feed's counts; launches exact (a tick runs each
+   updater on each shard: one ``slate_update``, 4 ``find`` walks; each
+   read a ``keys`` lookup a shard it walks); ms/tick and events/s beside
+   phase 5's, GiB allocated, one profiled chunk's busy ms, device
+   operations, idle share and the exchange's share of the device time
+   (a ``record_function`` range), and the exchange alone at its widest
+   hop.  Before it, a chunk of the sharded engine under the sync debug
+   mode "error", telemetry off and on with split keys.  (b) The same
+   feed with telemetry on (each shard's sketch and histograms on the
+   count kernel's fused routes) and ``hot_key_capacity=8``: after 16
+   ticks the sketch's top 2 heavy hitters are split, then 48 more
+   ticks; each split key sits on its two ring shards and ``read_slate``
+   merges the partials to the reference; every slate, partials merged,
+   equals the reference; launches exact.  (c) Fail-over on a reduced run
+   (2**14 slots a shard, 4,096 numpy-drawn Zipf events a tick, 32 ticks,
+   ``fail_shard(3)`` at tick 16): state and stats bitwise equal to the
+   same run on the CPU.  (d) Phase 12 at 8 shards: 64-bit ids, a flush
+   every 16 ticks to 3 store replicas in quorums of 2, a child (this
+   script with ``--sharded-durable-child DIR``) killed by SIGKILL at
+   source tick 40, ``recover`` with replica 0 down and the resumed run:
+   every slate bitwise against the uninterrupted run's, key by key.
 Every serving phase also asserts every ``flash_attention`` launch on
 its ``wgmma`` route and prints its own wall time.  Each path's launch
 counters are set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON, a row for each
 TPU kernel (``slate_lookup_wide``, the int64 instance of
-``slate_lookup``, runs on phase 12's path); every row must have run on
+``slate_lookup``, runs on the paths of phases 12 and 15d); every row must have run on
 some path.  ``launches`` sums the paths, ``launches_by_path`` splits it,
 ``slate_update``'s ``by_mix`` holds its three mixes, the count
 kernels' ``fused`` their fused routes, and the two ``slate_lookup``
@@ -330,8 +361,10 @@ def device_ms(fn, reps=20, warmup=3, sessions=3):
     """Mean device time of ``fn()`` in ms: the sum of the kernels and
     copies it runs, from torch.profiler, with no host gaps between them.
     A profiler session that records no device events (it happens, rarely,
-    after many sessions) is run again, up to ``sessions`` in all; then it
-    raises."""
+    after many sessions) is run again, up to ``sessions`` in all; after
+    that the time comes from CUDA events around the ``reps`` calls (the
+    device's elapsed time, gaps between launches included), and the log
+    says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -347,7 +380,17 @@ def device_ms(fn, reps=20, warmup=3, sessions=3):
         if us > 0:
             return us / reps / 1e3
         log("torch.profiler recorded no device time; profiling again")
-    raise RuntimeError("torch.profiler recorded no device time")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    log(f"torch.profiler recorded no device time in {sessions} sessions; "
+        f"CUDA events give {ms:.5f} ms a call (elapsed, not busy)")
+    return ms
 
 
 def zipf_cdf(device):
@@ -3901,13 +3944,17 @@ def app_serving_path(dev, seed, card):
     return launches
 
 
-def profile_ticks(eng, state, source_fn, start, tick_s, n=8):
+def profile_ticks(eng, state, source_fn, start, tick_s, n=8,
+                  start_kw="source_offset", ranges=None):
     """Where a tick's time goes: one chunk of ``n`` more ticks under
     torch.profiler — device busy time per tick (sum of kernel and copy
     time), device operations per tick, the kernels that take most of the
     device time, and the port's own kernels of this path by name.  The
     idle share compares the busy time with the unprofiled tick time of
-    the main run.  Returns (busy ms, operations) a tick, or None when the
+    the main run.  ``start_kw`` names ``eng.run``'s start argument;
+    ``ranges``, if given, is a dict that gets the device ms a tick of the
+    kernels launched inside each ``record_function`` range the run
+    opens.  Returns (busy ms, operations) a tick, or None when the
     profiler recorded no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3915,11 +3962,14 @@ def profile_ticks(eng, state, source_fn, start, tick_s, n=8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(state, source_fn, n, source_offset=start)
+        eng.run(state, source_fn, n, **{start_kw: start})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # a record_function range also shows on the device as one span over
+    # its kernels: count the kernels, not the span
     dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name not in (ranges or ())]
     if not dev_events:
         log(f"profile of {n} ticks: the profiler recorded no device "
             f"events (device busy time not measured)")
@@ -3942,6 +3992,11 @@ def profile_ticks(eng, state, source_fn, start, tick_s, n=8):
             log(f"  {kname}: {sum(hits) / n / 1e3:.4f} ms/tick over "
                 f"{len(hits) / n:.1f} launches a tick, "
                 f"{sum(hits) / len(hits) / 1e3:.5f} ms a launch")
+    if ranges is not None:
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CPU and \
+                    e.name in ranges:
+                ranges[e.name] += e.device_time_total / n / 1e3
     return busy_us / 1e3, ops
 
 
@@ -4462,6 +4517,612 @@ def engine_journal(seed, card):
         raise AssertionError(f"engine journal: child {seen}, recovery {got}")
 
 
+# ---------------------------------------------------------------- phase 15
+# The multi-shard engine (``repro_torch.core.distributed``), 8 shards on
+# the one card.  Sizing (PERF.md section 4, checked on the CPU with the
+# port's ring): Zipf(1.2)'s top key is ~19 % of the feed, so the shard
+# that owns it at M1 receives up to ~16,300 of a tick's 65,536 events,
+# an updater shard up to ~20,100, and one (source, destination) bucket up
+# to ~13,100 (the top key's events from M1's hot shard): batch_size
+# 32,768 a shard and exchange_slack 4.0 (cap_per_dest 16,384).
+SHARDS = 8
+SHARD_C = C // SHARDS            # 2**19 slots an updater a shard
+SHARD_B = 32768
+SHARD_SLACK = 4.0
+HOT_TICKS, HOT_SPLIT_AT = 64, 16
+FAILOVER = {"capacity": 1 << 14, "events": 4096, "ticks": 32,
+            "fail_at": 16, "batch": 2048, "slack": 8.0}
+
+
+def shard_rows(batch, n=SHARDS):
+    """A ``[B]`` batch as ``[n, B / n]``: shard s takes events s*B/n to
+    (s+1)*B/n - 1 of the tick."""
+    from repro_torch.core.event import tree_map
+    return tree_map(lambda a: a.reshape((n, -1) + tuple(a.shape[1:])),
+                    batch)
+
+
+def sharded_source(source_fn):
+    """A single-shard ``source_fn`` as the ``[8, B / 8]`` feed of the
+    multi-shard engine: the same events each tick."""
+    return lambda t, mx: {s: shard_rows(b)
+                          for s, b in source_fn(t, None).items()}
+
+
+def sharded_engine(dev, capacity=None, batch=None, slack=None, **cfg):
+    """Phase 5's workflow on 8 shards (default: 15a's sizes)."""
+    from repro_torch.core.distributed import (DistConfig, DistributedEngine,
+                                              make_mesh)
+    capacity, batch = capacity or SHARD_C, batch or SHARD_B
+    slack = slack or SHARD_SLACK
+    return DistributedEngine(
+        build_workflow(capacity), make_mesh((SHARDS,), ("data",)),
+        DistConfig(batch_size=batch, queue_capacity=4 * batch, chunk_size=8,
+                   exchange_slack=slack, **cfg), device=dev)
+
+
+def flat_tables(state):
+    """The stacked tables as one table over all shards' rows (sink rows
+    dropped), for ``check_slates``."""
+    from types import SimpleNamespace
+    return {"tables": {
+        name: SimpleNamespace(
+            keys=t.keys[:, :-1].reshape(-1),
+            vals={"v": t.vals["v"][:, :-1].reshape(-1, D)})
+        for name, t in state["tables"].items()}}
+
+
+def sharded_stats(eng, state):
+    """The engine's stats and the table drops ``check_slates`` reads."""
+    stats = eng.stats(state)
+    stats["table_dropped"] = {k: int(t.dropped.sum())
+                              for k, t in state["tables"].items()}
+    return stats
+
+
+def merged_rows(state, name, combine):
+    """{key: slate row} over every shard, a key's partials (a split key's
+    two rows) merged with ``combine`` (numpy)."""
+    keys = state["tables"][name].keys[:, :-1].reshape(-1).cpu().numpy()
+    vals = state["tables"][name].vals["v"][:, :-1].reshape(-1, D) \
+        .cpu().numpy()
+    rows = {}
+    for i in (keys != -1).nonzero()[0]:
+        k = int(keys[i])
+        rows[k] = vals[i] if k not in rows else combine(rows[k], vals[i])
+    return rows
+
+
+def sharded_launch_counts():
+    from repro_torch.kernels.countmin import kernel as ck
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.kernels.slate_update import kernel as uk
+    return uk, lk, ck, hk
+
+
+def reset_launches():
+    uk, lk, ck, hk = sharded_launch_counts()
+    for k in (uk.slate_update, lk.slate_lookup, ck.countmin_update,
+              hk.histogram_update):
+        k.launches = 0
+    for k in (ck.countmin_update, hk.histogram_update):
+        k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
+    reset_lookup_routes()
+
+
+def check_sharded_no_host_sync(dev, seed):
+    """A chunk of 3 ticks of the sharded engine under the sync debug mode
+    "error": telemetry off, and on with a split key in the hot set."""
+    import torch
+    from repro_torch.telemetry import TelemetryConfig
+    for tel in (None, TelemetryConfig()):
+        kw = {} if tel is None else dict(telemetry=tel, hot_key_capacity=8)
+        eng = sharded_engine(dev, capacity=1 << 16, batch=4096, **kw)
+        state = eng.init_state()
+        if tel is not None:
+            state, _ = eng.split_keys(state, [0, 1])
+        source_fn, _ = make_source(zipf_cdf(dev), 4096, seed + 9)
+        src = sharded_source(source_fn)
+        from repro_torch.core.engine import stack_sources
+        stacked = stack_sources([src(t, None) for t in range(3)])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _, info = eng.run_chunk(state, stacked)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log(f"sharded run_chunk of 3 ticks x {SHARDS} shards, telemetry "
+            f"{'off' if tel is None else 'on, keys 0 and 1 split'}, under "
+            f"sync debug mode 'error': no host sync (throttle trace "
+            f"{info['throttle_hits'].sum(dim=1).tolist()})")
+
+
+def sharded_sizing(dev, seed, ticks, cap, batch):
+    """15a's sizing on its own feed (the engine not involved): per tick,
+    route the events to M1's shards through the ring, then each M1
+    shard's events to U1's and U2's shards (M1 passes them on whole).
+    Returns the largest (source, destination) bucket and the most events
+    a shard receives, over both hops and all ticks; raises unless the
+    buckets fit ``cap`` and the receipts ``batch``."""
+    import torch
+    from repro_torch.core.distributed import _salt
+    from repro_torch.core.hashing import HashRing, route
+    source_fn, _ = make_source(zipf_cdf(dev), B, seed)
+    rh, rs = HashRing(SHARDS).table(dev)
+    src = torch.arange(SHARDS, device=dev)[:, None]
+    worst = {"bucket": 0, "receipt": 0}
+    for t in range(ticks):
+        keys = shard_rows(source_fn(t, None)["S1"]).key
+        d1 = route(keys, _salt("M1"), rh, rs).long()
+        pairs = [src * SHARDS + d1]
+        for u in ("U1", "U2"):
+            pairs.append(d1 * SHARDS + route(keys, _salt(u), rh, rs))
+        for p in pairs:
+            n = torch.bincount(p.reshape(-1), minlength=SHARDS * SHARDS)
+            worst["bucket"] = max(worst["bucket"], int(n.max()))
+            worst["receipt"] = max(worst["receipt"], int(
+                n.reshape(SHARDS, SHARDS).sum(0).max()))
+    if worst["bucket"] > cap or worst["receipt"] > batch:
+        raise AssertionError(f"sharded sizing: {worst} against cap {cap}, "
+                             f"batch {batch}")
+    log(f"sharded sizing over {ticks} ticks of the feed: largest (source, "
+        f"destination) bucket {worst['bucket']} of cap_per_dest {cap}, "
+        f"most events a shard receives {worst['receipt']} of batch_size "
+        f"{batch}")
+    return worst
+
+
+def check_sharded_launches(what, launches, ticks, reads, telemetry=False):
+    """Exact launches: a tick runs each of the 2 updaters on each shard —
+    one ``slate_update``, ``INSERT_ROUNDS`` ``find`` walks (and with
+    telemetry one count and one histogram launch, on their fused routes);
+    ``reads`` lookups on ``keys``, none on ``cand``."""
+    from repro_torch.slates.table import INSERT_ROUNDS
+    per = 2 * SHARDS
+    want = {"slate_update": per * ticks,
+            "find": per * INSERT_ROUNDS * ticks, "keys": reads, "cand": 0}
+    got = {"slate_update": launches["slate_update"],
+           **launches["slate_lookup routes"]}
+    if telemetry:
+        want.update(countmin_update=per * ticks,
+                    histogram_update=per * ticks)
+        got.update(countmin_update=launches["countmin_update"],
+                   histogram_update=launches["histogram_update"])
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want} "
+                             f"({ticks} ticks x {SHARDS} shards)")
+    log(f"{what}: launches exact, {got} over {ticks} ticks x {SHARDS} "
+        f"shards ({per} updater runs a tick)")
+
+
+def sharded_path(dev, ticks, seed, card, ref, phase5):
+    """Phase 15a: phase 5's workflow and feed on 8 shards (2**19 slots an
+    updater a shard, sources [8, 8,192]) through ``DistributedEngine.run``
+    in chunks of 8; the checks and prints of the module docstring.
+    ``phase5``: (ms/tick, (busy ms, operations)) of phase 5 in this run.
+    Returns the launches of the path's kernels."""
+    import numpy as np
+    import torch
+    from repro_torch.core import distributed as dist
+
+    t_phase = time.perf_counter()
+    uk, lk, _, _ = sharded_launch_counts()
+    eng = sharded_engine(dev)
+    sharded_sizing(dev, seed, ticks, eng.cap_per_dest, SHARD_B)
+    source_fn, _ = make_source(zipf_cdf(dev), B, seed)
+    src = sharded_source(source_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    state = eng.init_state()
+    reset_launches()
+    with torch_probe_calls() as torch_calls:
+        t0 = time.perf_counter()
+        state, _ = eng.run(state, src, ticks)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        state, drained = eng.drain(state)
+        read_keys = read_set(seed)
+        reads = {u: eng.read_slates(state, u, read_keys)
+                 for u in ("U1", "U2")}
+        singles = [int(k) for k in read_keys[[0, 1, 7, Q // 2, -1]]]
+        single = {k: (eng.read_slate(state, "U1", k),
+                      eng.read_slate(state, "U2", k)) for k in singles}
+    torch.cuda.synchronize()
+    gib = (torch.cuda.memory_allocated() - mem0) / 2**30
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    launches = {"slate_update": uk.slate_update.launches,
+                "slate_lookup": lk.slate_lookup.launches}
+    launches["slate_lookup routes"] = check_lookup_routes("sharded",
+                                                          torch_calls)
+    check_sharded_launches("sharded path", launches, ticks + drained,
+                           2 * SHARDS + 2 * len(singles))
+    stats = sharded_stats(eng, state)
+    tick_s = t_run / ticks
+    log(f"sharded, {SHARDS} shards on one card: {ticks} ticks x {B} events "
+        f"in {t_run:.3f} s = {tick_s * 1e3:.3f} ms/tick, "
+        f"{ticks * B / t_run:.4e} events/s, against phase 5's "
+        f"{phase5[0] * 1e3:.3f} ms/tick ({tick_s / phase5[0]:.4f}x); drain "
+        f"{drained} ticks; state and buffers {gib:.3f} GiB allocated, "
+        f"peak {peak:.3f} GiB; {card}")
+    log(f"sharded stats: processed={stats['processed']} exchange_dropped="
+        f"{stats['exchange_dropped']} queue_dropped={stats['queue_dropped']}"
+        f" table_occupancy={stats['table_occupancy']} table_dropped="
+        f"{stats['table_dropped']}; per-shard occupancy U1 "
+        f"{state['tables']['U1'].occupancy().tolist()}")
+    if stats["exchange_dropped"]:
+        raise AssertionError(f"sharded: the exchange dropped "
+                             f"{stats['exchange_dropped']} events")
+    check_slates(flat_tables(state), stats, ref, read_keys, reads, ticks,
+                 "sharded")
+    counts, sums, maxes = ref
+    for k, (a, b) in single.items():
+        for name, row, want in (("U1", a, sums), ("U2", b, maxes)):
+            if (row is None) != (counts[k] == 0) or (row is not None and
+                    not np.array_equal(row["v"].numpy(),
+                                       want[k].astype(np.float32))):
+                raise AssertionError(f"sharded read_slate {name} {k}")
+
+    # where the time goes: one profiled chunk, the exchange as a range
+    ranges = {"exchange": 0.0}
+    real = dist.exchange
+
+    def annotated(*a, **kw):
+        with torch.profiler.record_function("exchange"):
+            return real(*a, **kw)
+
+    dist.exchange = annotated
+    try:
+        prof = profile_ticks(eng, state, src, ticks, tick_s,
+                             start_kw="start_tick", ranges=ranges)
+    finally:
+        dist.exchange = real
+    if prof and phase5[1]:
+        log(f"sharded tick, profiled: {prof[1]:.1f} device operations and "
+            f"{prof[0]:.4f} ms busy a tick against phase 5's "
+            f"{phase5[1][1]:.1f} and {phase5[1][0]:.4f} "
+            f"({prof[1] / phase5[1][1]:.3f}x operations); the exchange "
+            f"{ranges['exchange']:.4f} ms a tick, "
+            f"{ranges['exchange'] / prof[0]:.4f} of the busy time; {card}")
+    # the exchange alone at the tick's widest hop (M1's [8, 32,768]
+    # emitted batches to U1)
+    from repro_torch.core.event import tree_map
+    emitted = shard_rows(source_fn(0, None)["S1"])
+    wide = tree_map(lambda a: torch.cat([a, a.new_zeros(
+        (SHARDS, SHARD_B - a.shape[1]) + tuple(a.shape[2:]))], 1), emitted)
+    rh, rs = eng.ring.table(dev)
+    dest = dist.route(wide.key, dist._salt("U1"), rh, rs)
+    ex_ms = device_ms(lambda: dist.exchange(wide, dest, SHARDS,
+                                            eng.cap_per_dest))
+    log(f"exchange alone, [{SHARDS}, {SHARD_B}] -> [{SHARDS}, "
+        f"{SHARDS * eng.cap_per_dest}]: {ex_ms:.5f} ms device time; "
+        f"{card}")
+    log(f"sharded path: the phase took {time.perf_counter() - t_phase:.1f} "
+        f"s wall; {card}")
+    del eng, state
+    return launches
+
+
+def sharded_hot_path(dev, seed, card):
+    """Phase 15b: the feed of 15a with telemetry on (each shard's sketch
+    and histograms on the count kernel) and ``hot_key_capacity=8``; after
+    16 ticks the sketch's top 2 keys are split, then 48 more ticks."""
+    import numpy as np
+    import torch
+    from repro_torch.telemetry import TelemetryConfig
+
+    t_phase = time.perf_counter()
+    uk, lk, ck, hk = sharded_launch_counts()
+    eng = sharded_engine(dev, telemetry=TelemetryConfig(),
+                         hot_key_capacity=8)
+    source_fn, gen_tick = make_source(zipf_cdf(dev), B, seed)
+    src = sharded_source(source_fn)
+    ref = reference(gen_tick, HOT_TICKS)
+    state = eng.init_state()
+    reset_launches()
+    with torch_probe_calls() as torch_calls:
+        t0 = time.perf_counter()
+        state, _ = eng.run(state, src, HOT_SPLIT_AT)
+        top = [k for k, _, _ in eng.telemetry.last.heavy_hitters[:2]]
+        state, _ = eng.split_keys(state, top)
+        state, _ = eng.run(state, src, HOT_TICKS - HOT_SPLIT_AT,
+                           start_tick=HOT_SPLIT_AT)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        state, drained = eng.drain(state)
+        reads = {k: (eng.read_slate(state, "U1", k),
+                     eng.read_slate(state, "U2", k)) for k in top}
+    launches = {"slate_update": uk.slate_update.launches,
+                "slate_lookup": lk.slate_lookup.launches,
+                "countmin_update": ck.countmin_update.launches,
+                "histogram_update": hk.histogram_update.launches}
+    launches["slate_lookup routes"] = check_lookup_routes("sharded hot",
+                                                          torch_calls)
+    # a split key's read walks its primary and secondary shard
+    check_sharded_launches("sharded hot path", launches,
+                           HOT_TICKS + drained, 2 * 2 * len(top),
+                           telemetry=True)
+    for k, route in (("countmin_update", "keys"),
+                     ("histogram_update", "ages")):
+        kern = ck.countmin_update if k == "countmin_update" \
+            else hk.histogram_update
+        if kern.launches_by_route[route] != launches[k]:
+            raise AssertionError(f"{k} missed its fused route: "
+                                 f"{kern.launches_by_route}")
+    hh = eng.telemetry.last.heavy_hitters
+    if eng.split_key_set() != top or len(top) != 2:
+        raise AssertionError(f"split set {eng.split_key_set()}, top "
+                             f"heavy hitters {top}")
+    stats = sharded_stats(eng, state)
+    if stats["exchange_dropped"] or any(stats["queue_dropped"].values()) \
+            or any(stats["table_dropped"].values()):
+        raise AssertionError(f"sharded hot: drops {stats}")
+    if stats["processed"] != {"M1": HOT_TICKS * B, "U1": HOT_TICKS * B,
+                              "U2": HOT_TICKS * B}:
+        raise AssertionError(f"sharded hot: processed {stats['processed']}")
+    counts, sums, maxes = ref
+    from repro_torch.core.distributed import _salt
+    from repro_torch.core.hashing import route, route_secondary
+    rh, rs = eng.ring.table()
+    for k in top:
+        kk = torch.tensor([k], dtype=torch.int32)
+        homes = {int(route(kk, _salt("U1"), rh, rs)[0]),
+                 int(route_secondary(kk, _salt("U1"), rh, rs)[0])}
+        held = [s for s in range(SHARDS) if bool(
+            (state["tables"]["U1"].keys[s, :-1] == k).any())]
+        a, b = reads[k]
+        if sorted(held) != sorted(homes) or len(held) != 2 or \
+                not np.array_equal(a["v"].numpy(),
+                                   sums[k].astype(np.float32)) or \
+                not np.array_equal(b["v"].numpy(),
+                                   maxes[k].astype(np.float32)):
+            raise AssertionError(f"split key {k}: held on shards {held} "
+                                 f"(ring homes {homes}); read {a}, {b}")
+    for name, want, comb in (("U1", sums, np.add), ("U2", maxes,
+                                                    np.maximum)):
+        rows = merged_rows(state, name, comb)
+        ks = np.fromiter(rows, np.int64, len(rows))
+        vals = np.stack([rows[int(k)] for k in ks])
+        fed = np.flatnonzero(counts)
+        if not (np.array_equal(np.sort(ks), fed) and
+                np.array_equal(vals, want[ks].astype(np.float32))):
+            raise AssertionError(f"sharded hot {name}: merged slates differ "
+                                 "from the reference")
+    log(f"sharded heavy hitters at tick {HOT_SPLIT_AT} (key, estimate, "
+        f"share): {hh[:4]}; key 0, the feed's top key, "
+        f"{'is' if 0 in [k for k, _, _ in hh] else 'is not'} among the "
+        f"sketch's candidates (each shard samples the first rows of its "
+        f"dequeued batch)")
+    log(f"sharded hot keys: telemetry on, top keys {top} split after "
+        f"{HOT_SPLIT_AT} ticks, each held on its 2 ring shards, read_slate "
+        f"merges the partials to the reference; all {len(rows)} merged "
+        f"slates of each updater equal the reference; {HOT_TICKS} ticks in "
+        f"{t_run:.3f} s = {t_run / HOT_TICKS * 1e3:.3f} ms/tick; the phase "
+        f"took {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
+def failover_source(device):
+    """15c's feed, from numpy so the card and the CPU see the same
+    events: Zipf(1.2) ranks below 2**20, [8, 512] a tick."""
+    import numpy as np
+    import torch
+    from repro_torch.core.event import EventBatch
+    n = FAILOVER["events"]
+
+    def fn(t, _mx):
+        rng = np.random.default_rng(7_000 + t)
+        key = np.minimum(rng.zipf(ZIPF_ALPHA, n) - 1, N_KEYS - 1)
+        v = rng.integers(0, 8, (n, D)).astype(np.float32)
+        v[:, 0] = 1
+        t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return {"S1": shard_rows(EventBatch(
+            sid=t_(np.zeros(n, np.int32)), ts=t_(np.full(n, t, np.int32)),
+            key=t_(key.astype(np.int32)), value={"v": t_(v)},
+            valid=t_(np.ones(n, bool))))}
+    return fn
+
+
+def failover_run(device):
+    f = FAILOVER
+    eng = sharded_engine(device, capacity=f["capacity"], batch=f["batch"],
+                         slack=f["slack"])
+    src = failover_source(device)
+    state, _ = eng.run(eng.init_state(), src, f["fail_at"])
+    state = eng.fail_shard(state, 3)
+    state, _ = eng.run(state, src, f["ticks"] - f["fail_at"],
+                       start_tick=f["fail_at"])
+    state, _ = eng.drain(state)
+    return eng, state
+
+
+def sharded_failover(dev, seed, card):
+    """Phase 15c: shard 3 fails at tick 16 of a reduced run (2**14 slots
+    a shard, 4,096 events a tick, 32 ticks); the card's state and stats
+    must equal the same run of the port on the CPU, bitwise."""
+    import torch
+    from repro_torch import convert
+    t0 = time.perf_counter()
+    eng, state = failover_run(dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng_cpu, state_cpu = failover_run(torch.device("cpu"))
+    t_cpu = time.perf_counter() - t0
+    a, b = convert.state_to_numpy(state), convert.state_to_numpy(state_cpu)
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{path}.{k}")
+        elif not (x.dtype == y.dtype and x.shape == y.shape
+                  and x.tobytes() == y.tobytes()):
+            raise AssertionError(f"fail-over: {path} differs card vs CPU")
+
+    walk(a, b, "state")
+    if eng.stats(state) != eng_cpu.stats(state_cpu):
+        raise AssertionError("fail-over: stats differ card vs CPU")
+    occ = state["tables"]["U1"].occupancy().tolist()
+    if occ[3] != 0 or eng.active_shards != [0, 1, 2, 4, 5, 6, 7]:
+        raise AssertionError(f"fail-over: shard 3 still holds slates {occ}")
+    log(f"sharded fail-over: shard 3 failed at tick {FAILOVER['fail_at']} "
+        f"of {FAILOVER['ticks']}; state and stats bitwise equal to the CPU "
+        f"run ({eng.stats(state)['processed']}, occupancy U1 {occ}); card "
+        f"{t_card:.2f} s, CPU {t_cpu:.2f} s; {card}")
+
+
+def sharded_durable_config(d):
+    """15d: phase 12's durable engine as 8 shards (a WAL a shard)."""
+    from repro_torch.core.durability import DurabilityConfig
+    from repro_torch.slates.flush import FlushConfig
+    return dict(key_dtype="int64", durability=DurabilityConfig(
+        dir=d, flush=FlushConfig(), barrier=True, replicas=3,
+        write_quorum=2, read_quorum=2))
+
+
+def sharded_durable_child(d, seed, dev=None):
+    """15d's crash run (``--sharded-durable-child DIR``, a process of its
+    own), killed by SIGKILL from inside ``source_fn`` at ``CRASH_AT``."""
+    import torch
+    dev = dev or torch.device("cuda", 0)
+    eng = sharded_engine(dev, **sharded_durable_config(d))
+    src, _ = wide_source(dev, seed, crash_at=CRASH_AT)
+    eng.run(eng.init_state(), sharded_source(src), DURABLE_TICKS)
+    raise AssertionError("the crash run outlived its crash")
+
+
+def sharded_host_tables(state):
+    """{updater: (ids ascending, ts, vals)} over every shard's rows."""
+    import numpy as np
+    out = {}
+    for name, t in state["tables"].items():
+        keys = t.keys[:, :-1].reshape(-1).cpu().numpy()
+        occ = np.flatnonzero(keys != -1)
+        order = occ[np.argsort(keys[occ])]
+        out[name] = (keys[order],
+                     t.ts[:, :-1].reshape(-1).cpu().numpy()[order],
+                     t.vals["v"][:, :-1].reshape(-1, D).cpu().numpy()[order])
+    return out
+
+
+def sharded_durable_path(dev, seed, card):
+    """Phase 15d: phase 12 at 8 shards — an uninterrupted durable run of
+    phase 5's feed on 64-bit ids, the same run in a child killed at
+    source tick ``CRASH_AT``, its recovery with store replica 0 down and
+    the resumed run; every slate bitwise against the uninterrupted
+    run's."""
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.telemetry.trace import Tracer
+
+    t_phase = time.perf_counter()
+    uk, lk, _, _ = sharded_launch_counts()
+    wide_fn, gen_tick = wide_source(dev, seed)
+    src = sharded_source(wide_fn)
+    ref = reference(gen_tick, DURABLE_TICKS)
+    with tempfile.TemporaryDirectory(prefix="muppet-sharded-") as root:
+        da, db = f"{root}/uninterrupted", f"{root}/crashed"
+        reset_launches()
+        with torch_probe_calls() as torch_calls:
+            eng = sharded_engine(dev, **sharded_durable_config(da))
+            eng.tracer = Tracer()
+            state = eng.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = eng.run(state, src, DURABLE_TICKS)
+            torch.cuda.synchronize()
+            tick_s = (time.perf_counter() - t0) / DURABLE_TICKS
+            state, _ = eng.drain(state)
+            stats_a = sharded_stats(eng, state)
+            wal = sum(w.offset for w in eng.dur.wals)
+            flushes = [sp for sp in eng.tracer.events()
+                       if sp["name"] == "flush_boundary"]
+            log(f"sharded durable run: {DURABLE_TICKS} ticks x {B} events "
+                f"on {SHARDS} shards, int64 keys, {tick_s * 1e3:.3f} ms/tick"
+                f", {B / tick_s:.4e} events/s; {len(flushes)} flush "
+                f"boundaries, {sum(sp['dur'] for sp in flushes) / 1e6:.3f}"
+                f" s in all; WAL {wal} bytes over {SHARDS} logs; engine "
+                f"tick {stats_a['tick']}; {card}")
+            read_keys = read_set(seed)
+            reads = {u: eng.read_slates(state, u, wide_ids(read_keys))
+                     for u in ("U1", "U2")}
+            check_slates(flat_tables(state), stats_a, ref, read_keys, reads,
+                         DURABLE_TICKS, "sharded durable run",
+                         rank_of=rank_of)
+            base = sharded_host_tables(state)
+            eng.close()
+            del eng, state
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--sharded-durable-child", db, "--seed", str(seed)],
+                capture_output=True, text=True, timeout=600)
+            if child.returncode != -signal.SIGKILL:
+                raise AssertionError(
+                    f"the sharded crash run ended with {child.returncode}, "
+                    f"not SIGKILL: {child.stdout[-2000:]} "
+                    f"{child.stderr[-4000:]}")
+            log(f"sharded crash run: killed by SIGKILL at source tick "
+                f"{CRASH_AT} after {time.perf_counter() - t0:.1f} s wall")
+
+            eng = sharded_engine(dev, **sharded_durable_config(db))
+            eng.tracer = Tracer()
+            eng.dur.store.set_replica_down(0)
+            frontier = eng.dur.frontier
+            f_src = frontier.meta["source_tick"]
+            logged = sum(1 for _ in eng.dur.wals[0].replay(
+                from_offset=frontier.wal_offset[0]))
+            if f_src <= eng.cfg.durability.flush.every_k:
+                raise AssertionError(f"frontier {frontier}: the crash came "
+                                     "before the second frontier")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = eng.recover()
+            torch.cuda.synchronize()
+            t_recover = time.perf_counter() - t0
+            log(f"sharded recovery from frontier {frontier.tick} (source "
+                f"tick {f_src}), {logged} source ticks logged after it on "
+                f"each shard, store replica 0 down: {t_recover:.3f} s wall "
+                f"to engine tick {int(state['tick'].max())}; {card}")
+            log_spans(eng.tracer, "sharded recovery", card)
+            resume = f_src + logged
+            state, _ = eng.run(state, src, DURABLE_TICKS - resume,
+                               start_tick=resume)
+            state, _ = eng.drain(state)
+            stats = sharded_stats(eng, state)
+            reads = {u: eng.read_slates(state, u, wide_ids(read_keys))
+                     for u in ("U1", "U2")}
+            eng.close()
+        launches = {"slate_update": uk.slate_update.launches,
+                    "slate_lookup_wide": lk.slate_lookup.launches}
+        launches["slate_lookup_wide routes"] = check_lookup_routes(
+            "sharded durable", torch_calls)
+    if stats["tick"] != stats_a["tick"]:
+        raise AssertionError(f"sharded: engine tick {stats['tick']} after "
+                             f"recovery, {stats_a['tick']} without")
+    check_slates(flat_tables(state), stats, ref, read_keys, reads,
+                 DURABLE_TICKS, "sharded recovered run",
+                 fed=(DURABLE_TICKS - f_src) * B, rank_of=rank_of)
+    got = sharded_host_tables(state)
+    for name, (ks, ts, vals) in base.items():
+        gk, gts, gv = got[name]
+        if not (np.array_equal(ks, gk) and np.array_equal(ts, gts)
+                and vals.tobytes() == gv.tobytes()):
+            raise AssertionError(f"sharded recovered {name} differs from "
+                                 "the uninterrupted run")
+    log(f"sharded recovered tables equal the uninterrupted run's bitwise, "
+        f"key by key ({', '.join(f'{n} {len(t[0])}' for n, t in base.items())}"
+        f" slates), engine tick {stats['tick']}; launches {launches}; the "
+        f"phase took {time.perf_counter() - t_phase:.1f} s; {card}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=128)
@@ -4469,6 +5130,9 @@ def main(argv=None):
     ap.add_argument("--durable-child", metavar="DIR",
                     help="run phase 12's crash run in DIR (phase 12 starts "
                     "this process itself)")
+    ap.add_argument("--sharded-durable-child", metavar="DIR",
+                    help="run phase 15d's crash run in DIR (phase 15d "
+                    "starts this process itself)")
     ap.add_argument("--serve-child", metavar="DIR",
                     help="run phase 14d's crash run in DIR (phase 14d "
                     "starts this process itself)")
@@ -4489,6 +5153,8 @@ def main(argv=None):
     sys.path.insert(0, str(ROOT / "src"))
     if args.durable_child:
         durable_child(args.durable_child, args.seed)
+    if args.sharded_durable_child:
+        sharded_durable_child(args.sharded_durable_child, args.seed)
     if args.serve_child:
         serve_child(args.serve_child, args.seed)
     if args.serve_recover:
@@ -4546,13 +5212,23 @@ def main(argv=None):
         by_path[f"engine {arch}"] = engine_path(dev, args.seed, card, arch)
         torch.cuda.empty_cache()
     engine_journal(args.seed, card)
+    torch.cuda.empty_cache()
+    check_sharded_no_host_sync(dev, args.seed)
+    by_path["sharded"] = sharded_path(dev, args.ticks, args.seed, card, ref,
+                                      (off_s, off_prof))
+    torch.cuda.empty_cache()
+    by_path["sharded hot"] = sharded_hot_path(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    sharded_failover(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    by_path["sharded durable"] = sharded_durable_path(dev, args.seed, card)
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}
         e["launches"] = sum(e["launches_by_path"].values())
         if e["name"] in ("slate_lookup", "slate_lookup_wide"):
             # each instance's launches by route (int32 keys on phases
-            # 5-11, int64 on phase 12)
+            # 5-11 and 15a-b, int64 on phases 12 and 15d)
             rk = f"{e['name']} routes"
             e["launches_by_route"] = {r: sum(
                 n[rk][r] for n in by_path.values() if rk in n)

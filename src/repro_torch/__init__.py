@@ -41,12 +41,17 @@ Ported so far, slice by slice:
 8. the continuous-batching ``ServingEngine`` (``repro_torch.launch.
    serve``, with its request journal) and the last two model families,
    whisper's encoder-decoder and llama-3.2-vision's cross-attention
-   layers.
+   layers;
+9. the multi-shard engine on one card (``DistributedEngine``,
+   ``DistConfig``, ``core.distributed.make_mesh``): the hash ring, the
+   event exchange, fail-over, hot-key split and per-shard durability,
+   every shard on the engine's one device.
 
-The multi-shard engine (``DistributedEngine``, ``DistConfig``,
-``AutoscalePolicy``, ``MigrationReport``, ``LoadAutoscaler``) is not
-ported yet (ROADMAP queue 1 item 15); touching one of those names raises
-an ``AttributeError`` that says so.
+Live elasticity is not ported yet (ROADMAP queue 1 item 15b):
+``AutoscalePolicy`` and ``MigrationReport`` are data only, the engine's
+elasticity methods raise ``NotImplementedError``, and touching
+``LoadAutoscaler`` raises a ``NotImplementedError`` that is also an
+``AttributeError``, naming the item.
 """
 import importlib
 
@@ -67,10 +72,13 @@ _WHERE = {
     "SlateServer": "repro_torch.slates.http",
     "TelemetryConfig": "repro_torch.telemetry",
     "TelemetryReport": "repro_torch.telemetry",
+    "DistributedEngine": "repro_torch.core.distributed",
+    "DistConfig": "repro_torch.core.distributed",
+    "AutoscalePolicy": "repro_torch.core.distributed",
+    "MigrationReport": "repro_torch.core.distributed",
 }
 _MODULES = {"ops": "repro_torch.api.ops", "ml": "repro_torch.ml"}
-MULTI_SHARD = ("AutoscalePolicy", "DistributedEngine", "DistConfig",
-               "MigrationReport", "LoadAutoscaler")
+NOT_PORTED = ("LoadAutoscaler",)
 
 __all__ = [
     # declarative app layer (the front door)
@@ -81,6 +89,8 @@ __all__ = [
     # engine layer (explicit control when the builder is not enough)
     "Workflow", "Engine", "EngineConfig", "StateHandle", "OverflowPolicy",
     "SlateServer",
+    # multi-shard engine (DESIGN.md sections 4 and 12)
+    "DistributedEngine", "DistConfig", "AutoscalePolicy", "MigrationReport",
     # telemetry (DESIGN.md section 13)
     "TelemetryConfig", "TelemetryReport",
     # streaming-ML subsystem (DESIGN.md section 16)
@@ -93,10 +103,11 @@ def __getattr__(name):
         return getattr(importlib.import_module(_WHERE[name]), name)
     if name in _MODULES:
         return importlib.import_module(_MODULES[name])
-    if name in MULTI_SHARD:
-        raise AttributeError(
-            f"repro_torch.{name} belongs to the multi-shard engine, which "
-            f"is ported by ROADMAP queue 1 item 15")
+    if name in NOT_PORTED:
+        from repro_torch.core.distributed import NotPortedError
+        raise NotPortedError(
+            f"repro_torch.{name} belongs to live elasticity, which is "
+            f"ported by ROADMAP queue 1 item 15b")
     raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
 
 

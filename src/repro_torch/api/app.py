@@ -35,7 +35,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.api import planner
-from repro_torch.api.runtime import MULTI_SHARD_TODO, RuntimeConfig
+from repro_torch.api.runtime import RuntimeConfig
 from repro_torch.core.engine import Engine, StateHandle
 from repro_torch.core.event import format_spec, spec_matches
 from repro_torch.core.operators import Operator, Updater
@@ -273,8 +273,8 @@ class App:
         """Instantiate the engine on ``device`` (default ``cuda``) and
         its initial — or recovered — state.  Idempotent; returns the
         live :class:`StateHandle`.  A distributed runtime (``shards >
-        1`` or a mesh) raises ``NotImplementedError``: the multi-shard
-        engine is ROADMAP queue 1 item 15."""
+        1`` or a mesh) starts ``DistributedEngine``, every shard on
+        ``device``."""
         if self.handle is not None:
             if runtime is not None:
                 raise RuntimeError(
@@ -287,10 +287,13 @@ class App:
                     f"start()/run())")
             return self.handle
         rt = runtime or RuntimeConfig()
-        if rt.distributed:
-            raise NotImplementedError(MULTI_SHARD_TODO)
         wf = self.build(fuse=fuse)
-        self.engine = Engine(wf, rt.engine_config(), device=device)
+        if rt.distributed:
+            from repro_torch.core.distributed import DistributedEngine
+            self.engine = DistributedEngine(wf, rt.make_mesh(),
+                                            rt.dist_config(), device=device)
+        else:
+            self.engine = Engine(wf, rt.engine_config(), device=device)
         state = self.engine.recover() if recover \
             else self.engine.init_state()
         self.handle = StateHandle(self.engine, state)
@@ -302,7 +305,8 @@ class App:
             trace_path: Optional[str] = None, device=None, **run_kw):
         """Drive the app for ``n_ticks``:
         ``source_fn(tick, max_events) -> {stream: EventBatch}``, batches
-        on the engine's device.  ``drain`` runs source-less ticks
+        on the engine's device (``[n_shards, B]``-leading when
+        distributed).  ``drain`` runs source-less ticks
         afterwards until the queues are empty (``True`` = up to 64, or
         an int bound).  Returns the list of per-tick output batches; the
         final state lives on ``app.handle`` for
@@ -316,9 +320,18 @@ class App:
         h = self.start(runtime, recover=recover, device=device)
         outputs: list = []
         if n_ticks:
-            h.state, outputs = self.engine.run(
-                h.state, source_fn, n_ticks, source_offset=source_offset,
-                handle=h, **run_kw)
+            if isinstance(self.engine, Engine):
+                h.state, outputs = self.engine.run(
+                    h.state, source_fn, n_ticks,
+                    source_offset=source_offset, handle=h, **run_kw)
+            else:
+                if run_kw:
+                    raise TypeError(
+                        f"run() options {sorted(run_kw)} are not "
+                        f"supported on the distributed engine")
+                h.state, outputs = self.engine.run(
+                    h.state, source_fn, n_ticks,
+                    start_tick=source_offset, handle=h)
         if drain:
             max_ticks = 64 if drain is True else int(drain)
             with self.engine.read_lock:

@@ -8,11 +8,11 @@ the engine and the chunked vs durable drive paths internally.  The
 underlying configs stay the source of truth — this is a declarative
 veneer that compiles down to them.
 
-The port runs one shard: the multi-shard engine (``DistributedEngine``,
-``DistConfig``, the mesh) comes with ROADMAP queue 1 item 15, and until
-then a distributed selection raises ``NotImplementedError`` naming it.
-The fields that only the multi-shard engine reads are kept, so a config
-written for the JAX package constructs unchanged.
+``shards > 1`` (or a mesh) selects ``DistributedEngine`` with every
+shard on the engine's one device, so ``shards`` may exceed the device
+count (the JAX package raises there: it places a shard a device).
+Live elasticity (``autoscale``, the migration fields) is ROADMAP queue
+1 item 15b: a policy is accepted here and ``run`` raises naming it.
 """
 from __future__ import annotations
 
@@ -21,11 +21,6 @@ from typing import Dict, Optional
 
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.queues import OverflowPolicy
-
-MULTI_SHARD_TODO = ("the multi-shard engine (DistributedEngine, "
-                    "DistConfig, the device mesh) is ported by ROADMAP "
-                    "queue 1 item 15")
-
 
 @dataclass
 class RuntimeConfig:
@@ -40,8 +35,8 @@ class RuntimeConfig:
     overflow: Dict[str, OverflowPolicy] = field(default_factory=dict)
     overflow_stream: Dict[str, str] = field(default_factory=dict)
     default_policy: OverflowPolicy = OverflowPolicy.DROP
-    # distribution: shards > 1 (or an explicit mesh) selects the
-    # multi-shard engine (item 15)
+    # distribution: shards > 1 (or an explicit mesh,
+    # core.distributed.make_mesh) selects the multi-shard engine
     shards: int = 1
     mesh: Optional[object] = None
     exchange_slack: float = 2.0
@@ -55,7 +50,8 @@ class RuntimeConfig:
     flush_every: int = 16
     barrier: bool = True
     truncate_wal: bool = False
-    # live elasticity (DESIGN.md section 12), multi-shard only
+    # live elasticity (DESIGN.md section 12), multi-shard only: an
+    # AutoscalePolicy constructs, running it is item 15b
     autoscale: Optional[object] = None
     # device-side telemetry (DESIGN.md section 13): a TelemetryConfig
     # adds the count-min key-heat sketch and the latency histograms to
@@ -109,7 +105,35 @@ class RuntimeConfig:
             telemetry=self._telemetry())
 
     def dist_config(self):
-        raise NotImplementedError(MULTI_SHARD_TODO)
+        from repro_torch.core.distributed import AutoscalePolicy, DistConfig
+        if self.autoscale is not None and \
+                not isinstance(self.autoscale, AutoscalePolicy):
+            raise TypeError(
+                f"autoscale must be an AutoscalePolicy (LoadAutoscaler is "
+                f"ROADMAP queue 1 item 15b), got "
+                f"{type(self.autoscale).__name__}")
+        return DistConfig(
+            batch_size=self.batch_size,
+            queue_capacity=self._queue_capacity(),
+            overflow=dict(self.overflow),
+            overflow_stream=dict(self.overflow_stream),
+            default_policy=self.default_policy,
+            fused=self.fused,
+            key_dtype=self.key_dtype,
+            chunk_size=self.chunk_size,
+            durability=self._durability(),
+            exchange_slack=self.exchange_slack,
+            two_choice_threshold=self.two_choice_threshold,
+            device_migration=self.device_migration,
+            compact_threshold=self.compact_threshold,
+            autoscale=self.autoscale,
+            telemetry=self._telemetry())
 
     def make_mesh(self):
-        raise NotImplementedError(MULTI_SHARD_TODO)
+        """The shard grid: ``mesh`` if given, else ``shards`` along one
+        ``"data"`` axis.  Every shard lives on the engine's device, so
+        no device count bounds ``shards``."""
+        if self.mesh is not None:
+            return self.mesh
+        from repro_torch.core.distributed import make_mesh
+        return make_mesh((self.shards,), ("data",))

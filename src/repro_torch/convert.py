@@ -127,9 +127,14 @@ def state_from_numpy(tree, device=None) -> Dict[str, Any]:
 
 def state_to_numpy(state) -> Dict[str, Any]:
     """A port engine state -> the plain form at the JAX package's shapes
-    (sink rows stripped)."""
+    (sink rows stripped).  A ``DistributedEngine`` state (it carries
+    ``exchange_dropped``) keeps its leading shard dimension and loses
+    the sink row of every shard."""
     p = to_plain(state)
-    strip = lambda tree: _map_leaves(lambda a: a[:-1], tree)
+    if "exchange_dropped" in p:
+        strip = lambda tree: _map_leaves(lambda a: a[:, :-1], tree)
+    else:
+        strip = lambda tree: _map_leaves(lambda a: a[:-1], tree)
     for q in p["queues"].values():
         q["buf"] = strip(q["buf"])
     for t in p["tables"].values():

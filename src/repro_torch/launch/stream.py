@@ -1,5 +1,5 @@
-"""Durable stream-engine launcher (port of ``repro.launch.stream``, its
-single-shard half): the counting workflow (paper Examples 1/4) with the
+"""Durable stream-engine launcher (port of ``repro.launch.stream``): the
+counting workflow (paper Examples 1/4) with the
 DESIGN.md section 10 durability layer, exposing the ``--recover`` path
 — built on the declarative app layer (section 11).
 
@@ -21,10 +21,15 @@ run (reads go through the engine's :class:`StateHandle`, republished
 every chunk).  ``--device`` picks the card (default ``cuda``) or
 ``cpu``.
 
-The multi-shard options of the JAX launcher (``--shards`` above 1,
-``--scale-at``, ``--rebalance-every``, ``--autoscale``) need the
-multi-shard engine, ROADMAP queue 1 item 15: they exit with a usage
-error that says so.
+``--shards N`` above 1 runs ``DistributedEngine`` with N shards on the
+one device (a WAL a shard), fed the same global events each tick
+(``source_fn_sharded``)::
+
+    python -m repro_torch.launch.stream --dir /tmp/m --ticks 64 --shards 8
+
+The live-elasticity options of the JAX launcher (``--scale-at``,
+``--rebalance-every``, ``--autoscale``) need ROADMAP queue 1 item 15b:
+they exit with a usage error that says so.
 """
 from __future__ import annotations
 
@@ -36,8 +41,8 @@ import torch
 
 from repro_torch import App, EventBatch, RuntimeConfig
 
-MULTI_SHARD = ("needs the multi-shard engine, which is ported by ROADMAP "
-               "queue 1 item 15")
+ELASTIC = ("needs live elasticity, which is ported by ROADMAP queue 1 "
+           "item 15b")
 
 
 def make_app(args) -> App:
@@ -64,6 +69,7 @@ def make_app(args) -> App:
     app.start(RuntimeConfig(batch_size=args.batch,
                             queue_capacity=args.batch * 4,
                             chunk_size=args.chunk,
+                            shards=args.shards,
                             telemetry=telemetry,
                             durable_dir=args.dir,
                             flush_every=args.flush_every,
@@ -81,6 +87,21 @@ def source_fn(t, max_events, batch, device=None):
         ts=np.full(n, t, np.int32), device=device)}
 
 
+def source_fn_sharded(t, app, batch, device=None):
+    """Distributed feed: the same *global* event multiset per tick
+    whatever the shard count, reshaped to the engine's ``[n_shards, B]``
+    layout and padded with invalid rows up to the next multiple of
+    ``n_shards``."""
+    n = app.engine.n_shards
+    b = source_fn(t, None, batch, device)["S1"].pad_to(-(-batch // n) * n)
+    shaped = EventBatch(
+        sid=b.sid.reshape(n, -1), ts=b.ts.reshape(n, -1),
+        key=b.key.reshape(n, -1),
+        value={"x": b.value["x"].reshape(n, -1)},
+        valid=b.valid.reshape(n, -1))
+    return {"S1": shaped}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dir", required=True,
@@ -94,13 +115,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="the engine's device (default cuda)")
     ap.add_argument("--shards", type=int, default=1,
-                    help=f"shard count; above 1 {MULTI_SHARD}")
+                    help="shard count (>1 = DistributedEngine, every "
+                         "shard on --device)")
     ap.add_argument("--scale-at", action="append", default=None,
-                    metavar="TICK:N", help=f"live rescale; {MULTI_SHARD}")
+                    metavar="TICK:N", help=f"live rescale; {ELASTIC}")
     ap.add_argument("--rebalance-every", type=int, default=0,
-                    help=f"ring reweighting; {MULTI_SHARD}")
+                    help=f"ring reweighting; {ELASTIC}")
     ap.add_argument("--autoscale", default=None, metavar="load:HI,LO",
-                    help=f"closed-loop autoscaling; {MULTI_SHARD}")
+                    help=f"closed-loop autoscaling; {ELASTIC}")
     ap.add_argument("--crash-at", type=int, default=None,
                     help="hard-exit after this many source ticks "
                          "(simulated machine crash; no final flush)")
@@ -113,12 +135,11 @@ def main(argv=None):
                          "Chrome trace JSON (open in Perfetto) after "
                          "the run")
     args = ap.parse_args(argv)
-    for flag, used in (("--shards > 1", args.shards > 1),
-                       ("--scale-at", args.scale_at),
+    for flag, used in (("--scale-at", args.scale_at),
                        ("--rebalance-every", args.rebalance_every),
                        ("--autoscale", args.autoscale is not None)):
         if used:
-            ap.error(f"{flag} {MULTI_SHARD}")
+            ap.error(f"{flag} {ELASTIC}")
 
     app = make_app(args)
     eng = app.engine
@@ -146,8 +167,13 @@ def main(argv=None):
     remaining = max(0, args.ticks - done)
     if args.crash_at is not None:
         remaining = min(remaining, args.crash_at - done)
-    app.run(lambda t, mx: source_fn(t, mx, args.batch, eng.device),
-            remaining, source_offset=done)
+    if args.shards > 1:
+        app.run(lambda t, mx: source_fn_sharded(t, app, args.batch,
+                                                eng.device),
+                remaining, source_offset=done)
+    else:
+        app.run(lambda t, mx: source_fn(t, mx, args.batch, eng.device),
+                remaining, source_offset=done)
 
     if args.crash_at is not None and not args.recover:
         print(f"CRASH at source tick {args.crash_at} (state dropped; "

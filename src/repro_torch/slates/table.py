@@ -46,10 +46,12 @@ class SlateTable:
 
     @property
     def capacity(self) -> int:
-        return int(self.keys.shape[0]) - 1
+        return int(self.keys.shape[-1]) - 1
 
     def occupancy(self) -> torch.Tensor:
-        return (self.keys[:-1] != EMPTY).sum(dtype=torch.int32)
+        """Slots in use: a 0-d count, or ``[S]`` counts for a table
+        stacked over shards (``DistributedEngine``)."""
+        return (self.keys[..., :-1] != EMPTY).sum(dim=-1, dtype=torch.int32)
 
 
 def make_table(capacity: int, value_spec: Dict[str, Any],

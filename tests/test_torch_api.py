@@ -8,7 +8,8 @@ batches, engine state compared whole and bitwise through
 broken on the installed jax), the port on ``"auto"``, which is the same
 oracle on the CPU.  Also the public surface, the queue-3 repairs
 (``EventBatch.with_value``, ``Workflow.mappers`` / ``op_index``) and the
-multi-shard selection, which raises and names ROADMAP item 15."""
+multi-shard selection, which starts ``DistributedEngine`` (live
+elasticity raises and names ROADMAP item 15b)."""
 import importlib.util
 import pathlib
 import subprocess
@@ -800,35 +801,72 @@ def test_runtime_config_compiles_to_engine_config(tmp_path):
         RuntimeConfig(autoscale=object()).engine_config()
 
 
-@pytest.mark.parametrize("kw", [dict(shards=2), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(shards=2), dict(mesh=(2, 2))])
 def test_front_door_distributed_selection_names_item_15(kw):
-    app = App("dist")
-    app.source("S1", {"x": ((), torch.float32)}).update(
-        ops.counter("U1", sum_mergeable=False))
+    """``shards > 1`` or a mesh starts the multi-shard engine (item 15a);
+    ``run`` with an ``AutoscalePolicy`` and a non-policy ``autoscale``
+    raise, naming item 15b (live elasticity)."""
+    from repro_torch.core.distributed import (AutoscalePolicy, DistConfig,
+                                              DistributedEngine, make_mesh)
+    if "mesh" in kw:
+        kw = dict(mesh=make_mesh(kw["mesh"], ("pod", "data")))
+
+    def build():
+        app = App("dist")
+        app.source("S1", {"x": ((), torch.float32)}).update(
+            ops.counter("U1", sum_mergeable=False))
+        return app
+
     rt = RuntimeConfig(batch_size=16, **kw)
     assert rt.distributed
-    with pytest.raises(NotImplementedError, match="item 15"):
-        app.start(rt, device="cpu")
-    assert app.engine is None
-    for fn in (rt.dist_config, rt.make_mesh):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            fn()
+    app = build()
+    app.start(rt, device="cpu")
+    assert isinstance(app.engine, DistributedEngine)
+    assert isinstance(rt.dist_config(), DistConfig)
+    n = app.engine.n_shards
+    assert n == 2          # the mesh's "data" axis, the default axis
+
+    def src(t, mx):     # [n_shards, B]-leading batches
+        b = EventBatch.of(key=np.full(4 * n, 3, np.int32),
+                          value={"x": np.ones(4 * n, np.float32)},
+                          ts=np.full(4 * n, t, np.int32), device="cpu")
+        return {"S1": EventBatch(*[
+            {k: v.reshape(n, 4) for k, v in f.items()}
+            if isinstance(f, dict) else f.reshape(n, 4)
+            for f in (b.sid, b.ts, b.key, b.value, b.valid)])}
+
+    app.run(src, 4, drain=True)
+    assert int(app.read_slate("U1", 3)["count"]) == 16 * n
+    app.close()
+    rt2 = RuntimeConfig(batch_size=16, autoscale=AutoscalePolicy(
+        scale_at={2: 4}), **kw)
+    app2 = build()
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        app2.run(src, 4, runtime=rt2, device="cpu")
+    app2.close()
+    with pytest.raises(TypeError, match="item 15b"):
+        RuntimeConfig(shards=2, autoscale=object()).dist_config()
 
 
 # ---- the package surface ----
 
 def test_public_surface():
     import repro_torch
-    five = {"AutoscalePolicy", "DistributedEngine", "DistConfig",
-            "MigrationReport", "LoadAutoscaler"}
-    assert set(repro_torch.__all__) == set(repro.__all__) - five
+    from repro_torch.core import distributed
+    assert set(repro_torch.__all__) == set(repro.__all__) - {
+        "LoadAutoscaler"}
     assert set(repro_torch.__all__) <= set(dir(repro_torch))
     for name in repro_torch.__all__:
         assert getattr(repro_torch, name) is not None
     assert repro_torch.App is App and repro_torch.ops.counter is ops.counter
-    for name in five:
-        with pytest.raises(AttributeError, match="item 15"):
-            getattr(repro_torch, name)
+    for name in ("AutoscalePolicy", "DistributedEngine", "DistConfig",
+                 "MigrationReport"):
+        assert getattr(repro_torch, name) is getattr(distributed, name)
+    # live elasticity's controller: NotImplementedError, and absent to
+    # hasattr (the error is an AttributeError too)
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        repro_torch.LoadAutoscaler
+    assert not hasattr(repro_torch, "LoadAutoscaler")
     from repro_torch import ml
     assert set(ml.__all__) == set(repro.ml.__all__)
 
@@ -967,15 +1005,19 @@ def test_launcher_default_batch_recovery_matches_the_reference(
     assert stats["torch", "crash"]["tick"] == stats["torch", "full"]["tick"]
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"], ["--scale-at", "4:2"],
+@pytest.mark.parametrize("flag", [["--shards", "2", "--scale-at", "4:2"],
+                                  ["--scale-at", "4:2"],
                                   ["--rebalance-every", "2"],
                                   ["--autoscale", "load:0.7,0.2"]])
 def test_launcher_multi_shard_flags_name_item_15(tmp_path, capsys, flag):
+    """``--shards > 1`` runs (``tests/test_torch_distributed_durable.py``
+    holds it against the JAX launcher); the live-elasticity flags exit
+    with a usage error naming item 15b, with or without ``--shards``."""
     from repro_torch.launch import stream
     with pytest.raises(SystemExit) as e:
         stream.main(["--device", "cpu", "--dir", str(tmp_path), *flag])
     assert e.value.code == 2
-    assert "item 15" in capsys.readouterr().err
+    assert "item 15b" in capsys.readouterr().err
 
 
 # ---- build-time spec validation (tests/test_workflow_specs.py) ----

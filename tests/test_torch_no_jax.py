@@ -115,3 +115,14 @@ def test_serving_slice_files_are_checked(rel):
     """The serving slice's modules, example and card-only tests are among
     the files the check above reads."""
     assert ROOT / rel in _port_files()
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/core/distributed.py", "src/repro_torch/core/hotspot.py",
+    "src/repro_torch/core/hashing.py",
+    "tests/test_torch_distributed_kernel.py"])
+def test_multi_shard_slice_files_are_checked(rel):
+    """The multi-shard slice's modules (the engine, key splitting, the
+    ring) and its card-only tests are among the files the check above
+    reads."""
+    assert ROOT / rel in _port_files()
