@@ -120,9 +120,10 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
 7. drives the serving path: qwen2-0.5b at full width with random weights
    from ``--seed``, a ``Workflow`` of ``LMServeMapper(max_new=32,
    cache_len=512, bucket=8)`` and ``RequestSlate`` on
-   ``Engine(EngineConfig(batch_size=16))``, fed by ``request_source`` 64
-   requests (prompts of 32-256 tokens padded to 256) at 16 a tick for 4
-   ticks, then ``drain``.  Every request's slate, read through
+   ``Engine(EngineConfig(batch_size=16))``, fed by ``request_source`` 32
+   requests (prompts of 32-256 tokens padded to 256) at 16 a tick for 2
+   ticks, then ``drain`` (the first 32 of the 64 requests it once
+   served, cut for the time limit as phases 8-12 and 15c are).  Every request's slate, read through
    ``read_slates``, must equal bitwise the tokens of a direct greedy loop
    over ``lm.prefill`` / ``lm.decode_step`` on the same microbatches;
    one microbatch's teacher-forced prefill and decode logits with the
@@ -147,14 +148,15 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
 9. drives the same serving path on xlstm-350m at full width (12 mLSTM
    and 12 sLSTM blocks of d_model 1024, 4 heads, mLSTM N = 512, P =
    513; random bf16 weights drawn by ``lm.init(..., dtype=bf16)``, as in
-   every serving phase): 32 requests (prompts of 32-256 tokens padded
-   to 256) at 16 a tick for 2 ticks, the same checks; a microbatch
+   every serving phase): the first 16 of the 32 requests it once
+   served (prompts of 32-256 tokens padded to 256) in one tick,
+   the same checks; a microbatch
    launches ``rmsnorm`` (12 x 2 + 12 + 1) x 32 times and ``ssd_scan``
    never (asserted: the mLSTM's P = N + 1 fails the kernel's
    ``supported()``, the JAX package's own rule, so the plain SSD runs);
    the sLSTM runs as a Python loop of 256 steps a block.
 10. gemma3-1b at full width (26 layers, d_model 1152, 4/1 heads of 256,
-   a 512-token window on 5 of every 6 layers, vocab 262,144): 32
+   a 512-token window on 5 of every 6 layers, vocab 262,144): 16
    requests with prompts of 640-1,024 tokens padded to 1,024,
    ``cache_len`` 1,088, so the window binds at prefill and in every
    decode step; a microbatch launches ``flash_attention`` 26 times,
@@ -179,7 +181,7 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    chunk_size=8, key_dtype="int64")`` with ``DurabilityConfig(flush=
    FlushConfig(), barrier=True, replicas=3, write_quorum=2,
    read_quorum=2, track_flush_deltas=True)`` in a temporary directory.
-   An uninterrupted durable run of 64 ticks (timed, against phase 5's
+   An uninterrupted durable run of 48 ticks (timed, against phase 5's
    ms/tick, WAL bytes and append seconds a tick, each flush's begin and
    commit: rows, seconds, store bytes) is held against the numpy
    reference; a child process (this script with ``--durable-child DIR``)
@@ -187,7 +189,7 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    SIGKILL inside ``source_fn`` at source tick 40, after two frontiers.
    Here, with store replica 0 down, ``Engine.recover()`` (its restore
    and replay walls printed) and ``run`` from the frontier's source tick
-   plus the source ticks the log holds after it, to tick 64, then
+   plus the source ticks the log holds after it, to tick 48, then
    ``drain`` and a ``checkpoint``.  Every slate of both updaters must
    equal the reference and the uninterrupted run's, bitwise, key by key,
    with the same engine tick and no queue drop; ``processed`` counts
@@ -301,20 +303,57 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    ticks; each split key sits on its two ring shards and ``read_slate``
    merges the partials to the reference; every slate, partials merged,
    equals the reference; launches exact.  (c) Fail-over on a reduced run
-   (2**14 slots a shard, 4,096 numpy-drawn Zipf events a tick, 32 ticks,
-   ``fail_shard(3)`` at tick 16): state and stats bitwise equal to the
+   (2**14 slots a shard, 4,096 numpy-drawn Zipf events a tick, 16 ticks,
+   ``fail_shard(3)`` at tick 8): state and stats bitwise equal to the
    same run on the CPU.  (d) Phase 12 at 8 shards: 64-bit ids, a flush
    every 16 ticks to 3 store replicas in quorums of 2, a child (this
    script with ``--sharded-durable-child DIR``) killed by SIGKILL at
    source tick 40, ``recover`` with replica 0 down and the resumed run:
    every slate bitwise against the uninterrupted run's, key by key.
+16. drives live elasticity on the card.  First, after each kind of
+   reconfigure (a physical grow, a leave, a rebalance), a chunk of the
+   sharded engine under the sync debug mode "error".  (a) 15a's
+   workflow and feed from 8 shards at 2**20 slots an updater a shard
+   (``ELASTIC_C``) with ``exchange_slack`` 8.0 (sized
+   for 16 shards: ``sharded_sizing`` at 16), ``AutoscalePolicy(scale_at=
+   {8: 16, 24: 8, 40: 16})`` through ``run`` over 63 ticks (a grow on
+   the host tier, a leave and a rejoin on the device tier), then a
+   weighted ``rebalance`` (device tier, profiled), a tick of backlog and
+   ``remove_shards([15], drain_max=0)`` (device tier through
+   ``exchange_queue``), a leave to 4 active of 16 slots that compacts
+   (host tier, ``n_shards`` 4; GiB before and after) and ``compact()``
+   (a no-op, ``path`` "none"): every merged slate and read equals the
+   numpy reference over the 64 ticks, no exchange, queue or table drop,
+   each report's tier and shape as listed, rows moved, exact launches
+   (each tick runs every physical slot; a device-tier rebuild runs
+   ``insert_or_find`` on every slot, a host-tier one inserts chunks of
+   256 rows on the card); ms/tick by active count; each reconfigure's
+   ``pause_s``, ``drain_ticks``, ``bytes_moved`` and GB/s.  (b) the
+   closed loop: 15a's feed with telemetry on, the valid share a square
+   wave (whole for 15 ticks, a tenth for 15), 60 ticks from 8 shards,
+   ``batch_size`` 16,384, ``LoadAutoscaler(high=0.75, low=0.25,
+   window=3, dwell=2, cooldown=1, min_shards=8, max_shards=16)`` with a
+   control log: the active count reaches 16 and ends at 8, at most 5
+   flips, slates the reference's, no drop, exact launches (the count
+   kernel's too); each decision's ``pause_s`` printed.  (c) 16a's
+   schedule at 2**14 slots a shard, 2,048 numpy events a tick, 16 ticks,
+   then a rebalance and a compacting leave, on the card with
+   ``device_migration`` "auto" and "off" and on the CPU with "auto":
+   every read equal across the three, the "auto" runs' states, stats
+   and reports bitwise card = CPU.  (d)
+   15d's durable configuration at 2**15 slots a shard and 8,192 events
+   a tick, 44 ticks, ``scale_at={16: 16}``; a child (this script with
+   ``--elastic-durable-child DIR``) killed by SIGKILL at source tick 40;
+   ``recover`` on 16 shards and the resumed run: every slate bitwise
+   against the uninterrupted run's.
 Every serving phase also asserts every ``flash_attention`` launch on
 its ``wgmma`` route and prints its own wall time.  Each path's launch
 counters are set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON, a row for each
 TPU kernel (``slate_lookup_wide``, the int64 instance of
-``slate_lookup``, runs on the paths of phases 12 and 15d); every row must have run on
+``slate_lookup``, runs on the paths of phases 12, 15d and 16d); every
+row must have run on
 some path.  ``launches`` sums the paths, ``launches_by_path`` splits it,
 ``slate_update``'s ``by_mix`` holds its three mixes, the count
 kernels' ``fused`` their fused routes, and the two ``slate_lookup``
@@ -1703,22 +1742,37 @@ def check_lookup_routes(path, torch_calls):
     return routes
 
 
-def reference(gen_tick, ticks):
+def reference(gen_tick, ticks, n_valid=None):
     """The independent reference: every event fed, in numpy.  Returns
     per-key counts, f64 lane sums and f32 lane maxima over ``N_KEYS +
-    Q // 16`` keys (the last ``Q // 16`` are never fed)."""
+    Q // 16`` keys (the last ``Q // 16`` are never fed).  ``n_valid(t)``,
+    if given, is how many of tick t's events are valid (the first)."""
     import numpy as np
     n = N_KEYS + Q // 16
     counts = np.zeros(n, np.int64)
     sums = np.zeros((n, D), np.float64)
     maxes = np.zeros((n, D), np.float32)
-    for t in range(ticks):
-        k, v, _ = gen_tick(t)
-        k, v = k.cpu().numpy(), v.cpu().numpy()
+    # 16 ticks a pass (the sums are of small integers in f64: exact in
+    # any order), each key's maximum by one segmented reduce
+    for t0 in range(0, ticks, 16):
+        ks, vs = [], []
+        for t in range(t0, min(t0 + 16, ticks)):
+            k, v, _ = gen_tick(t)
+            k, v = k.cpu().numpy(), v.cpu().numpy()
+            if n_valid is not None:
+                k, v = k[:n_valid(t)], v[:n_valid(t)]
+            ks.append(k.astype(np.int64))
+            vs.append(v)
+        k, v = np.concatenate(ks), np.concatenate(vs)
         counts += np.bincount(k, minlength=n)
-        for lane in range(D):
-            sums[:, lane] += np.bincount(k, weights=v[:, lane], minlength=n)
-        np.maximum.at(maxes, k, v)
+        sums += np.bincount((k[:, None] * D + np.arange(D)).ravel(),
+                            weights=v.ravel(), minlength=n * D).reshape(n, D)
+        order = np.argsort(k, kind="stable")
+        sk = k[order]
+        starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+        uk = sk[starts]
+        maxes[uk] = np.maximum(maxes[uk], np.maximum.reduceat(
+            v[order], starts, axis=0))
     if sums.max() >= 2**24:
         raise AssertionError("a lane sum reached 2**24: f32 not exact")
     return counts, sums, maxes
@@ -2099,8 +2153,12 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms, off_prof):
 
 
 # ------------------------------------------------------- phases 7 to 11
-SERVE = {"requests": 64, "per_tick": 16, "bucket": 8, "prompt_len": 256,
-         "min_prompt": 32, "max_new": 32, "cache_len": 512, "ticks": 4}
+# ``draw`` requests are drawn from the seed and the first ``requests``
+# served (64 in 4 ticks once; cut for the time limit): the
+# requests, and the microbatch the checks read, are the ones 64 served
+SERVE = {"requests": 32, "draw": 64, "per_tick": 16, "bucket": 8,
+         "prompt_len": 256, "min_prompt": 32, "max_new": 32,
+         "cache_len": 512, "ticks": 2}
 # each serving phase's slates, rid -> tokens (phase 13c holds
 # build_serve_app's against phase 7's)
 SERVED = {}
@@ -2147,11 +2205,12 @@ LONG = dict(prompt_len=1024, min_prompt=640, cache_len=1088)
 SERVE_ARCHS = {
     "qwen2-0.5b": Arch({}, {"attn": 24}, 0.125),
     "zamba2-1.2b": Arch({}, {"mamba2": 38, "attn": 6}, None, top1=False),
-    "xlstm-350m": Arch(dict(requests=32, ticks=2),
+    "xlstm-350m": Arch(dict(requests=16, draw=32, ticks=1),
                        {"mlstm": 12, "slstm": 12}, None, top1=False),
-    "gemma3-1b": Arch(dict(requests=32, ticks=2, **LONG), {"attn": 26},
+    "gemma3-1b": Arch(dict(requests=16, draw=32, ticks=1, **LONG),
+                      {"attn": 26},
                       0.135),
-    "deepseek-v2-lite-16b": Arch(dict(requests=32, ticks=2),
+    "deepseek-v2-lite-16b": Arch(dict(requests=16, draw=32, ticks=1),
                                  {"mla": 27, "moe": 26}, None,
                                  0.125 * 27 / 24),
 }
@@ -2277,7 +2336,9 @@ class pinned_routing:
 
 def serving_requests(sv, seed, n, vocab, rid0=1):
     """``n`` requests with prompt lengths uniform in [min_prompt,
-    prompt_len] and token ids uniform in [1, vocab), from ``seed``."""
+    prompt_len] and token ids uniform in [1, vocab), from ``seed``.  The
+    lengths are drawn for all ``n`` first, so a phase draws
+    ``sv["draw"]`` and serves a prefix."""
     import numpy as np
     from types import SimpleNamespace
     rng = np.random.default_rng(seed)
@@ -2733,7 +2794,8 @@ def serving_path(dev, seed, card, arch):
               prompt_len=sv["prompt_len"])
     eng, mapper = serving_engine(cfg, model, dev, **kw)
     del model                    # the mapper holds the same bf16 weights
-    reqs = serving_requests(sv, seed, sv["requests"], cfg.vocab_size)
+    reqs = serving_requests(sv, seed, sv["draw"],
+                            cfg.vocab_size)[:sv["requests"]]
     source = request_source(reqs, prompt_len=sv["prompt_len"],
                             capacity=sv["per_tick"],
                             per_tick=sv["per_tick"], device=dev)
@@ -2918,7 +2980,7 @@ def profile_serving_tick(sv, eng, state, cfg, dev, seed, tick_s):
 
 
 # ---------------------------------------------------------------- phase 12
-DURABLE_TICKS = 64
+DURABLE_TICKS = 48                # 64 once: cut for the time limit
 CRASH_AT = 40                    # a source tick after two frontiers
 WIDE_MUL = 2654435761
 
@@ -2952,13 +3014,14 @@ def durable_config(d):
             write_quorum=2, read_quorum=2, track_flush_deltas=True))
 
 
-def wide_source(dev, seed, crash_at=None):
-    """Phase 5's feed with keys mapped to :func:`wide_ids`; the process
-    kills itself (SIGKILL) when asked for source tick ``crash_at``."""
+def wide_source(dev, seed, crash_at=None, events=None):
+    """Phase 5's feed (``events`` a tick, default B) with keys mapped to
+    :func:`wide_ids`; the process kills itself (SIGKILL) when asked for
+    source tick ``crash_at``."""
     import os
     import signal
     from repro_torch.core.event import EventBatch
-    source_fn, gen_tick = make_source(zipf_cdf(dev), B, seed)
+    source_fn, gen_tick = make_source(zipf_cdf(dev), events or B, seed)
 
     def wide_fn(t, max_events):
         if t == crash_at:
@@ -3890,7 +3953,7 @@ def app_serving_path(dev, seed, card):
                           max_new=sv["max_new"], cache_len=sv["cache_len"],
                           bucket=sv["bucket"])
     del model
-    reqs = serving_requests(sv, seed, sv["requests"], cfg.vocab_size)[:n_req]
+    reqs = serving_requests(sv, seed, sv["draw"], cfg.vocab_size)[:n_req]
     source = request_source(reqs, prompt_len=sv["prompt_len"],
                             capacity=sv["per_tick"], per_tick=sv["per_tick"],
                             device=dev)
@@ -4053,7 +4116,7 @@ def engine_requests(arch, seed, vocab):
     from repro_torch.launch.serve import Request
     ev = ENGINE[arch]
     if arch == "qwen2-0.5b":        # phase 7's first 32, same rids
-        base = serving_requests(serve_of(arch), seed, SERVE["requests"],
+        base = serving_requests(serve_of(arch), seed, SERVE["draw"],
                                 vocab)[:ev["requests"]]
     else:
         base = serving_requests(ev, seed + 14, ev["requests"], vocab)
@@ -4530,8 +4593,8 @@ SHARD_C = C // SHARDS            # 2**19 slots an updater a shard
 SHARD_B = 32768
 SHARD_SLACK = 4.0
 HOT_TICKS, HOT_SPLIT_AT = 64, 16
-FAILOVER = {"capacity": 1 << 14, "events": 4096, "ticks": 32,
-            "fail_at": 16, "batch": 2048, "slack": 8.0}
+FAILOVER = {"capacity": 1 << 14, "events": 4096, "ticks": 16,
+            "fail_at": 8, "batch": 2048, "slack": 8.0}
 
 
 def shard_rows(batch, n=SHARDS):
@@ -4549,16 +4612,18 @@ def sharded_source(source_fn):
                           for s, b in source_fn(t, None).items()}
 
 
-def sharded_engine(dev, capacity=None, batch=None, slack=None, **cfg):
+def sharded_engine(dev, capacity=None, batch=None, slack=None, shards=None,
+                   **cfg):
     """Phase 5's workflow on 8 shards (default: 15a's sizes)."""
     from repro_torch.core.distributed import (DistConfig, DistributedEngine,
                                               make_mesh)
     capacity, batch = capacity or SHARD_C, batch or SHARD_B
     slack = slack or SHARD_SLACK
     return DistributedEngine(
-        build_workflow(capacity), make_mesh((SHARDS,), ("data",)),
-        DistConfig(batch_size=batch, queue_capacity=4 * batch, chunk_size=8,
-                   exchange_slack=slack, **cfg), device=dev)
+        build_workflow(capacity), make_mesh((shards or SHARDS,), ("data",)),
+        DistConfig(**{**dict(batch_size=batch, queue_capacity=4 * batch,
+                             chunk_size=8, exchange_slack=slack), **cfg}),
+        device=dev)
 
 
 def flat_tables(state):
@@ -4638,38 +4703,39 @@ def check_sharded_no_host_sync(dev, seed):
             f"{info['throttle_hits'].sum(dim=1).tolist()})")
 
 
-def sharded_sizing(dev, seed, ticks, cap, batch):
+def sharded_sizing(dev, seed, ticks, cap, batch, n_shards=SHARDS):
     """15a's sizing on its own feed (the engine not involved): per tick,
-    route the events to M1's shards through the ring, then each M1
-    shard's events to U1's and U2's shards (M1 passes them on whole).
-    Returns the largest (source, destination) bucket and the most events
-    a shard receives, over both hops and all ticks; raises unless the
-    buckets fit ``cap`` and the receipts ``batch``."""
+    route the events to M1's shards through the ring of ``n_shards``,
+    then each M1 shard's events to U1's and U2's shards (M1 passes them
+    on whole).  Returns the largest (source, destination) bucket and the
+    most events a shard receives, over both hops and all ticks; raises
+    unless the buckets fit ``cap`` and the receipts ``batch``."""
     import torch
     from repro_torch.core.distributed import _salt
     from repro_torch.core.hashing import HashRing, route
     source_fn, _ = make_source(zipf_cdf(dev), B, seed)
-    rh, rs = HashRing(SHARDS).table(dev)
-    src = torch.arange(SHARDS, device=dev)[:, None]
+    n = n_shards
+    rh, rs = HashRing(n).table(dev)
+    src = torch.arange(n, device=dev)[:, None]
     worst = {"bucket": 0, "receipt": 0}
     for t in range(ticks):
-        keys = shard_rows(source_fn(t, None)["S1"]).key
+        keys = shard_rows(source_fn(t, None)["S1"], n).key
         d1 = route(keys, _salt("M1"), rh, rs).long()
-        pairs = [src * SHARDS + d1]
+        pairs = [src * n + d1]
         for u in ("U1", "U2"):
-            pairs.append(d1 * SHARDS + route(keys, _salt(u), rh, rs))
+            pairs.append(d1 * n + route(keys, _salt(u), rh, rs))
         for p in pairs:
-            n = torch.bincount(p.reshape(-1), minlength=SHARDS * SHARDS)
-            worst["bucket"] = max(worst["bucket"], int(n.max()))
+            c = torch.bincount(p.reshape(-1), minlength=n * n)
+            worst["bucket"] = max(worst["bucket"], int(c.max()))
             worst["receipt"] = max(worst["receipt"], int(
-                n.reshape(SHARDS, SHARDS).sum(0).max()))
+                c.reshape(n, n).sum(0).max()))
     if worst["bucket"] > cap or worst["receipt"] > batch:
         raise AssertionError(f"sharded sizing: {worst} against cap {cap}, "
                              f"batch {batch}")
-    log(f"sharded sizing over {ticks} ticks of the feed: largest (source, "
-        f"destination) bucket {worst['bucket']} of cap_per_dest {cap}, "
-        f"most events a shard receives {worst['receipt']} of batch_size "
-        f"{batch}")
+    log(f"sharded sizing on {n} shards over {ticks} ticks of the feed: "
+        f"largest (source, destination) bucket {worst['bucket']} of "
+        f"cap_per_dest {cap}, most events a shard receives "
+        f"{worst['receipt']} of batch_size {batch}")
     return worst
 
 
@@ -4903,16 +4969,17 @@ def sharded_hot_path(dev, seed, card):
     return launches
 
 
-def failover_source(device):
+def failover_source(device, n=None, seed0=7_000, eng=None):
     """15c's feed, from numpy so the card and the CPU see the same
-    events: Zipf(1.2) ranks below 2**20, [8, 512] a tick."""
+    events: ``n`` (default 4,096) Zipf(1.2) ranks below 2**20 a tick,
+    as ``[8, n / 8]`` (or ``eng``'s live shard count)."""
     import numpy as np
     import torch
     from repro_torch.core.event import EventBatch
-    n = FAILOVER["events"]
+    n = n or FAILOVER["events"]
 
     def fn(t, _mx):
-        rng = np.random.default_rng(7_000 + t)
+        rng = np.random.default_rng(seed0 + t)
         key = np.minimum(rng.zipf(ZIPF_ALPHA, n) - 1, N_KEYS - 1)
         v = rng.integers(0, 8, (n, D)).astype(np.float32)
         v[:, 0] = 1
@@ -4920,7 +4987,7 @@ def failover_source(device):
         return {"S1": shard_rows(EventBatch(
             sid=t_(np.zeros(n, np.int32)), ts=t_(np.full(n, t, np.int32)),
             key=t_(key.astype(np.int32)), value={"v": t_(v)},
-            valid=t_(np.ones(n, bool))))}
+            valid=t_(np.ones(n, bool))), eng.n_shards if eng else SHARDS)}
     return fn
 
 
@@ -4938,8 +5005,8 @@ def failover_run(device):
 
 
 def sharded_failover(dev, seed, card):
-    """Phase 15c: shard 3 fails at tick 16 of a reduced run (2**14 slots
-    a shard, 4,096 events a tick, 32 ticks); the card's state and stats
+    """Phase 15c: shard 3 fails at tick 8 of a reduced run (2**14 slots
+    a shard, 4,096 events a tick, 16 ticks); the card's state and stats
     must equal the same run of the port on the CPU, bitwise."""
     import torch
     from repro_torch import convert
@@ -5123,6 +5190,637 @@ def sharded_durable_path(dev, seed, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 16
+# Live elasticity (``scale``, ``remove_shards``, ``rebalance``,
+# ``compact``, ``AutoscalePolicy`` and the closed-loop ``LoadAutoscaler``)
+# on the card.  Sizing (PERF.md section 4, checked with
+# ``sharded_sizing`` on the CPU): at 16 shards cap_per_dest = batch_size
+# * exchange_slack / 16, and 15a's hottest (source, destination) bucket
+# holds ~13,100 events, so 16a takes exchange_slack 8.0 (cap 16,384 at 16
+# slots); 15a's 4.0 would drop events there.
+ELASTIC_SLACK = 8.0
+# 16a ends compacted to 4 slots: at 15a's 2**19 slots a shard that holds
+# the feed's ~325,000 keys an updater at load 0.155, where a key finds no
+# free slot in its 8 probes with p ~ 0.155**8 (a chip run showed one
+# table drop); 2**20 slots a shard give phase 5's table (2**22) there
+ELASTIC_C = 1 << 20
+ELASTIC_TICKS = 64
+ELASTIC_SCHEDULE = {8: 16, 24: 8, 40: 16}
+ELASTIC_SPLIT = 4            # 16a ends on 4 active of 16 slots: compacts
+# 16b's batch_size is twice one shard's mean load at 8 shards (B / 4):
+# Zipf(1.2)'s head sends the hottest shard ~2.5x the mean, and at B / 8
+# its backlog outlasts the low half of the wave (a CPU rehearsal at a
+# reduced size: the loop never sees the low watermark, PERF.md section 4)
+LOOP = {"ticks": 60, "half": 15, "low": 8, "high": 16, "slack": 16.0,
+        "window": 3, "batch_div": 4}
+ELASTIC_SMALL = {"capacity": 1 << 14, "events": 2048, "ticks": 16,
+                 "batch": 1024, "slack": 16.0,
+                 "schedule": {4: 16, 8: 8, 12: 16}}
+# the crash falls on a chunk boundary (chunks of 8 ticks: a chunk's
+# sources are fetched, then logged), so the log holds ticks after the
+# frontier for recovery to replay
+ELASTIC_DURABLE = {"capacity": 1 << 15, "events": 8192, "ticks": 44,
+                   "batch": 4096, "slack": 16.0, "scale_at": {16: 16},
+                   "crash_at": 40}
+
+
+def live_source(source_fn, eng):
+    """A single-shard ``source_fn`` as the feed of an engine whose shard
+    count changes: the same events each tick, as ``[n, B / n]`` rows for
+    the engine's current ``n``."""
+    return lambda t, mx: {s: shard_rows(b, eng.n_shards)
+                          for s, b in source_fn(t, mx).items()}
+
+
+class ElasticLaunches:
+    """The launches a run must make, from what the engine did: each tick
+    (a source tick or a drain tick) runs each of the 2 updaters on each
+    physical slot, dead or alive (one ``slate_update``, ``INSERT_ROUNDS``
+    ``find`` walks, and with telemetry one count and one histogram
+    launch); a device-tier migration that moves rows rebuilds every
+    updater's table on every slot with one ``insert_or_find``; a
+    host-tier one inserts each slot's rows in chunks of 256.  Wraps the
+    engine's ``_tick`` and ``_reconfigure`` to see it."""
+
+    def __init__(self, eng):
+        from repro_torch.slates.table import INSERT_ROUNDS
+        self.ticks, self.rebuild_find, self.reports = {}, 0, []
+        tick, reconf = eng._tick, eng._reconfigure
+
+        def counted_tick(state, sources):
+            n = eng.n_shards
+            self.ticks[n] = self.ticks.get(n, 0) + 1
+            return tick(state, sources)
+
+        def counted_reconfigure(state, **kw):
+            state, rep = reconf(state, **kw)
+            if rep.path == "device" and sum(rep.moved_rows.values()):
+                self.rebuild_find += INSERT_ROUNDS * 2 * rep.n_shards
+            elif rep.path == "host":
+                for t in state["tables"].values():
+                    occ = t.occupancy().cpu().numpy()
+                    self.rebuild_find += INSERT_ROUNDS * int(
+                        sum(-(-int(o) // 256) for o in occ))
+            self.reports.append(rep)
+            return state, rep
+
+        eng._tick, eng._reconfigure = counted_tick, counted_reconfigure
+
+    def check(self, what, launches, reads, telemetry=False):
+        from repro_torch.slates.table import INSERT_ROUNDS
+        slots = sum(2 * n * k for n, k in self.ticks.items())
+        want = {"slate_update": slots,
+                "find": INSERT_ROUNDS * slots + self.rebuild_find,
+                "keys": reads, "cand": 0}
+        got = {"slate_update": launches["slate_update"],
+               **launches["slate_lookup routes"]}
+        if telemetry:
+            want.update(countmin_update=slots, histogram_update=slots)
+            got.update(countmin_update=launches["countmin_update"],
+                       histogram_update=launches["histogram_update"])
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want} "
+                                 f"(ticks by slot count {self.ticks}, "
+                                 f"rebuild find {self.rebuild_find})")
+        log(f"{what}: launches exact, {got}: ticks by physical slot count "
+            f"{self.ticks}, {self.rebuild_find} find launches in table "
+            f"rebuilds")
+
+
+def path_launches(what, torch_calls, telemetry=False):
+    uk, lk, ck, hk = sharded_launch_counts()
+    out = {"slate_update": uk.slate_update.launches,
+           "slate_lookup": lk.slate_lookup.launches}
+    if telemetry:
+        out["countmin_update"] = ck.countmin_update.launches
+        out["histogram_update"] = hk.histogram_update.launches
+    out["slate_lookup routes"] = check_lookup_routes(what, torch_calls)
+    return out
+
+
+def check_elastic_slates(eng, state, ref, read_keys, reads, what, fed):
+    """Every slate over every shard's rows (a key's partials merged) and
+    every read equals the reference; nothing dropped anywhere; every
+    operator processed ``fed`` events."""
+    import numpy as np
+    stats = sharded_stats(eng, state)
+    drops = (stats["exchange_dropped"], sum(stats["queue_dropped"].values()),
+             sum(stats["table_dropped"].values()))
+    if any(drops):
+        raise AssertionError(f"{what}: drops (exchange, queue, table) "
+                             f"{drops}")
+    if stats["processed"] != {"M1": fed, "U1": fed, "U2": fed}:
+        raise AssertionError(f"{what}: processed {stats['processed']}, fed "
+                             f"{fed}")
+    counts, sums, maxes = ref
+    fed_keys = np.flatnonzero(counts)
+    for name, want, comb in (("U1", sums, np.add),
+                             ("U2", maxes, np.maximum)):
+        rows = merged_rows(state, name, comb)
+        ks = np.fromiter(rows, np.int64, len(rows))
+        vals = np.stack([rows[int(k)] for k in ks])
+        if not (np.array_equal(np.sort(ks), fed_keys) and
+                np.array_equal(vals, want[ks].astype(np.float32))):
+            raise AssertionError(f"{what} {name}: slates differ from the "
+                                 f"reference")
+        for k, row in zip(read_keys, reads[name]):
+            if (row is None) != (counts[k] == 0) or (row is not None and (
+                    not np.array_equal(row["v"].numpy(),
+                                       want[k].astype(np.float32)))):
+                raise AssertionError(f"{what} {name}: read of key {k}")
+    log(f"{what}: all {len(fed_keys)} fed keys' slates of each updater "
+        f"equal the reference over {eng.n_shards} slots, every read of "
+        f"{read_keys.size} keys too; no exchange, queue or table drop")
+
+
+def profile_call(fn):
+    """One call under torch.profiler: (result, wall s, device busy ms,
+    device operations), busy and operations None when the profiler
+    records no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return out, wall, None, None
+    return out, wall, sum(e.device_time_total for e in dev) / 1e3, len(dev)
+
+
+def log_report(what, rep, card, busy=None):
+    gbs = rep.bytes_moved / rep.pause_s / 1e9 if rep.pause_s else 0.0
+    extra = "" if busy is None else (
+        f"; profiled: {busy[0]:.4f} ms device busy over {busy[1]} device "
+        f"operations" if busy[0] is not None else
+        "; profiled: no device event recorded (not measured)")
+    log(f"{what}: path {rep.path}, recompiled {rep.recompiled}, slots "
+        f"{rep.n_shards}, active {len(rep.active)}, drain_ticks "
+        f"{rep.drain_ticks}, moved rows {rep.moved_rows}, moved events "
+        f"{rep.moved_events}, bytes_moved {rep.bytes_moved}, pause_s "
+        f"{rep.pause_s:.6f} ({gbs:.4f} GB/s){extra}; {card}")
+
+
+def check_elastic_no_host_sync(dev, seed):
+    """After each kind of reconfigure (a physical grow on the host tier,
+    a leave and a rebalance on the device tier) a chunk of 3 ticks of
+    the sharded engine runs under the sync debug mode "error": the new
+    ring and split set are on the card before the tick needs them."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import stack_sources
+    eng = sharded_engine(dev, capacity=1 << 16, batch=4096, slack=16.0)
+    source_fn, _ = make_source(zipf_cdf(dev), 4096, seed + 13)
+    src = live_source(source_fn, eng)
+    state = eng.init_state()
+    t = 0
+    steps = (("scale to 16 (host tier)", lambda s: eng.scale(s, 16)),
+             ("leave of 8 (device tier)",
+              lambda s: eng.remove_shards(s, list(range(8, 16)))),
+             ("rebalance (device tier)", lambda s: eng.rebalance(
+                 s, weights=np.linspace(0.5, 2.0, 16))))
+    for what, fn in steps:
+        state, rep = fn(state)
+        stacked = stack_sources([src(t + i, None) for i in range(3)])
+        t += 3
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _, _ = eng.run_chunk(state, stacked)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log(f"sharded run_chunk of 3 ticks right after a {what}, path "
+            f"{rep.path}, under sync debug mode 'error': no host sync")
+
+
+def elastic_path(dev, seed, card, ticks=ELASTIC_TICKS):
+    """Phase 16a: 15a's workflow and feed from 8 shards through
+    ``AutoscalePolicy(scale_at={8: 16, 24: 8, 40: 16})`` over ``ticks``
+    - 1 ticks of ``run``, then a weighted ``rebalance``, a tick of
+    backlog and a leave of shard 15 with ``drain_max=0``, a leave to 4
+    active of 16 slots (which compacts), and ``compact()`` (a no-op)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import AutoscalePolicy
+
+    t_phase = time.perf_counter()
+    reports = []
+    eng = sharded_engine(dev, capacity=ELASTIC_C, slack=ELASTIC_SLACK,
+                         autoscale=AutoscalePolicy(
+                             scale_at=dict(ELASTIC_SCHEDULE),
+                             on_change=reports.append))
+    sharded_sizing(dev, seed, 16, int(SHARD_B * ELASTIC_SLACK / 16),
+                   SHARD_B, n_shards=16)
+    source_fn, gen_tick = make_source(zipf_cdf(dev), B, seed)
+    ref = reference(gen_tick, ticks)
+    src = live_source(source_fn, eng)
+    ledger = ElasticLaunches(eng)
+    spans = []
+    run_span = eng._run_span
+
+    def timed_span(state, source_fn, n_ticks, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_span(state, source_fn, n_ticks, **kw)
+        torch.cuda.synchronize()
+        spans.append((len(eng.active_shards), eng.n_shards, n_ticks,
+                      time.perf_counter() - t0))
+        return out
+
+    eng._run_span = timed_span
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch_probe_calls() as torch_calls:
+        state = eng.init_state()
+        state, _ = eng.run(state, src, ticks - 1)
+        state, _ = eng.drain(state)
+        # reweight the ring by hand: the device tier, shapes kept
+        w = np.where(np.arange(16) % 3 == 0, 0.5, 1.5)
+        (state, rep_w), wall, busy, ops = profile_call(
+            lambda: eng.rebalance(state, weights=w))
+        log_report("16a rebalance(weights), profiled", rep_w, card,
+                   (busy, ops))
+        # a tick of backlog, then a planned leave that does not drain it
+        state, _ = eng.run(state, src, 1, start_tick=ticks - 1)
+        backlog = int(sum(q.size.sum() for q in state["queues"].values()))
+        state, rep_l = eng.remove_shards(state, [15], drain_max=0)
+        if not backlog or not sum(rep_l.moved_events.values()):
+            raise AssertionError(f"16a: leave with backlog {backlog} moved "
+                                 f"{rep_l.moved_events} events")
+        gc.collect()
+        torch.cuda.synchronize()
+        gib0 = torch.cuda.memory_allocated() / 2**30
+        state, rep_c = eng.remove_shards(
+            state, list(range(ELASTIC_SPLIT, 15)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        gib1 = torch.cuda.memory_allocated() / 2**30
+        state, rep_n = eng.compact(state)
+        state, drained = eng.drain(state, 256)
+        read_keys = read_set(seed)
+        reads = {u: eng.read_slates(state, u, read_keys)
+                 for u in ("U1", "U2")}
+        singles = [int(k) for k in read_keys[[0, 1, 7, Q // 2, -1]]]
+        single = {k: (eng.read_slate(state, "U1", k),
+                      eng.read_slate(state, "U2", k)) for k in singles}
+    launches = path_launches("elastic", torch_calls)
+    n_final = eng.n_shards
+    ledger.check("elastic path", launches,
+                 2 * n_final + 2 * len(singles))
+    every = ledger.reports + [rep_n]
+    want = [("host", True, 16), ("device", False, 16),
+            ("device", False, 16), ("device", False, 16),
+            ("device", False, 16), ("host", True, ELASTIC_SPLIT),
+            ("none", False, ELASTIC_SPLIT)]
+    got = [(r.path, r.recompiled, r.n_shards) for r in every]
+    if got != want or reports != ledger.reports[:3]:
+        raise AssertionError(f"16a reports {got}, expected {want}")
+    for r in every[:-1]:
+        if sum(r.moved_rows.values()) <= 0 or r.pause_s <= 0:
+            raise AssertionError(f"16a: a reconfigure moved no row: {r}")
+    if rep_n.bytes_moved or sum(rep_n.moved_rows.values()):
+        raise AssertionError(f"16a: compact() after compaction moved {rep_n}")
+    names = ["scale 8 -> 16 (grow)", "scale 16 -> 8 (leave)",
+             "scale 8 -> 16 (rejoin)", "rebalance(weights)",
+             "leave of shard 15, drain_max=0",
+             f"leave to {ELASTIC_SPLIT} of 16 (compaction)", "compact()"]
+    for name, r in zip(names, every):
+        log_report(f"16a {name}", r, card)
+    check_elastic_slates(eng, state, ref, read_keys, reads, "elastic path",
+                         ticks * B)
+    counts, sums, maxes = ref
+    for k, (a, b) in single.items():
+        for name, row, want_ in (("U1", a, sums), ("U2", b, maxes)):
+            if (row is None) != (counts[k] == 0) or (row is not None and
+                    not np.array_equal(row["v"].numpy(),
+                                       want_[k].astype(np.float32))):
+                raise AssertionError(f"elastic read_slate {name} {k}")
+    by_active = {}
+    for n_act, slots, n, s in spans:
+        a = by_active.setdefault((n_act, slots), [0, 0.0])
+        a[0] += n
+        a[1] += s
+    log("16a ms/tick by (active, physical) shards: " + ", ".join(
+        f"{n_act} of {slots}: {s / n * 1e3:.3f} ms/tick over {n} ticks "
+        f"({n * B / s:.4e} events/s)"
+        for (n_act, slots), (n, s) in sorted(by_active.items())) +
+        f"; spans {[(a, p, n, round(s, 3)) for a, p, n, s in spans]}; "
+        f"{card}")
+    log(f"16a compaction to {ELASTIC_SPLIT} of 16 slots: {gib0:.3f} GiB "
+        f"allocated before, {gib1:.3f} GiB after ({1 - gib1 / gib0:.4f} "
+        f"freed); drain {drained} ticks; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    del eng, state
+    return launches
+
+
+def loop_n_valid(t):
+    """16b's square wave: the whole batch valid for 15 ticks, a tenth for
+    the next 15."""
+    return B if (t // LOOP["half"]) % 2 == 0 else B // 10
+
+
+def closed_loop_path(dev, seed, card):
+    """Phase 16b: 15a's feed with telemetry on, as a square wave of the
+    valid share, 60 ticks from 8 shards, ``batch_size`` B / 4 (twice a
+    shard's mean load at 8 shards: see ``LOOP``), under
+    ``LoadAutoscaler(high=0.75,
+    low=0.25, window=3, dwell=2, cooldown=1, min_shards=8,
+    max_shards=16)`` with a control log."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.event import EventBatch
+    from repro_torch.telemetry import LoadAutoscaler, TelemetryConfig
+
+    t_phase = time.perf_counter()
+    L = LOOP
+    source_fn, gen_tick = make_source(zipf_cdf(dev), B, seed)
+    ref = reference(gen_tick, L["ticks"], n_valid=loop_n_valid)
+
+    def wave(t, mx):
+        b = source_fn(t, None)["S1"]
+        valid = torch.arange(B, device=dev) < loop_n_valid(t)
+        return {"S1": EventBatch(b.sid, b.ts, b.key, b.value, valid)}
+
+    with tempfile.TemporaryDirectory(prefix="muppet-loop-") as d:
+        log_path = f"{d}/control.jsonl"
+        reports = []
+        ctl = LoadAutoscaler(high=0.75, low=0.25, window=L["window"],
+                             dwell=2, cooldown=1, min_shards=L["low"],
+                             max_shards=L["high"], on_change=reports.append)
+        eng = sharded_engine(
+            dev, batch=B // L["batch_div"], slack=L["slack"],
+            queue_capacity=4 * B,
+            telemetry=TelemetryConfig(alpha=1.0, control_log=log_path),
+            autoscale=ctl)
+        src = live_source(wave, eng)
+        ledger = ElasticLaunches(eng)
+        trace = []
+
+        def traced(t, mx):
+            trace.append(len(eng.active_shards))
+            return src(t, mx)
+
+        reset_launches()
+        with torch_probe_calls() as torch_calls:
+            state = eng.init_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = eng.run(state, traced, L["ticks"])
+            torch.cuda.synchronize()
+            t_run = time.perf_counter() - t0
+            state, drained = eng.drain(state, 256)
+            read_keys = read_set(seed)
+            reads = {u: eng.read_slates(state, u, read_keys)
+                     for u in ("U1", "U2")}
+        eng.close()
+        with open(log_path) as f:
+            records = [json.loads(l) for l in f]
+    launches = path_launches("closed loop", torch_calls, telemetry=True)
+    ledger.check("closed loop", launches, 2 * eng.n_shards, telemetry=True)
+    flips = sum(1 for a, b in zip(trace, trace[1:]) if a != b)
+    if max(trace) != L["high"] or trace[-1] != L["low"] or flips > 5 or \
+            len(eng.active_shards) != L["low"]:
+        raise AssertionError(f"16b trace {trace}: flips {flips}")
+    fed = int(sum(loop_n_valid(t) for t in range(L["ticks"])))
+    check_elastic_slates(eng, state, ref, read_keys, reads, "closed loop",
+                         fed)
+    for rec in records:
+        if rec["action"] is not None:
+            a = rec["applied"]
+            log(f"16b tick {rec['tick']}: {rec['action']['kind']} -> "
+                f"{rec['action']['target']} ({rec['action']['reason']}); "
+                + ("not applied (the run ended)" if a is None else
+                   f"path {a['path']}, pause_s {a['pause_s']:.6f}, "
+                   f"bytes_moved {a['bytes_moved']}") + f"; {card}")
+    log(f"16b closed loop: active shards by tick {trace}; {flips} flips; "
+        f"{len(reports)} reconfigures; {L['ticks']} ticks in {t_run:.3f} s "
+        f"= {t_run / L['ticks'] * 1e3:.3f} ms/tick (decisions and "
+        f"migrations included), drain {drained} ticks; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    del eng, state
+    return launches
+
+
+def elastic_small_run(device, mode):
+    import numpy as np
+    from repro_torch.core.distributed import AutoscalePolicy
+    e = ELASTIC_SMALL
+    reports = []
+    eng = sharded_engine(device, capacity=e["capacity"], batch=e["batch"],
+                         slack=e["slack"], device_migration=mode,
+                         autoscale=AutoscalePolicy(
+                             scale_at=dict(e["schedule"]),
+                             on_change=reports.append))
+    state, _ = eng.run(eng.init_state(), failover_source(
+        device, e["events"], 9_000, eng), e["ticks"])
+    state, rep = eng.rebalance(state, weights=np.where(
+        np.arange(16) % 3 == 0, 0.5, 1.5))
+    reports.append(rep)
+    state, rep = eng.remove_shards(state, list(range(ELASTIC_SPLIT, 16)))
+    reports.append(rep)
+    state, _ = eng.drain(state, 256)
+    reads = eng.read_slates(state, "U1", np.arange(4096)) + \
+        eng.read_slates(state, "U2", np.arange(4096))
+    return eng, state, reports, reads
+
+
+def elastic_tiers(dev, seed, card):
+    """Phase 16c: 16a's schedule at a reduced size (2**14 slots a shard,
+    2,048 events a tick, 16 ticks; then a weighted rebalance and a leave
+    to 4 that compacts) on the card with ``device_migration="auto"`` and
+    ``"off"`` and on the CPU with ``"auto"``: every read slate bitwise
+    equal across the three, the card's ``"auto"`` run's state, stats and
+    reports equal to the CPU's."""
+    import torch
+    from repro_torch import convert
+    runs, walls = {}, {}
+    for where, d, mode in (("card", dev, "auto"), ("card", dev, "off"),
+                           ("cpu", torch.device("cpu"), "auto")):
+        t0 = time.perf_counter()
+        eng, st, reps, reads = elastic_small_run(d, mode)
+        torch.cuda.synchronize()
+        walls[(where, mode)] = time.perf_counter() - t0
+        runs[(where, mode)] = (convert.state_to_numpy(st), eng.stats(st),
+                               reps, reads)
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{path}.{k}")
+        elif not (x.dtype == y.dtype and x.shape == y.shape
+                  and x.tobytes() == y.tobytes()):
+            raise AssertionError(f"16c: {path} differs")
+
+    fields = lambda r: {k: v for k, v in vars(r).items() if k != "pause_s"}
+    a, b = runs[("card", "auto")], runs[("cpu", "auto")]
+    walk(a[0], b[0], "state")
+    if a[1] != b[1] or [fields(r) for r in a[2]] != \
+            [fields(r) for r in b[2]]:
+        raise AssertionError("16c: stats or reports differ card vs CPU")
+    base = runs[("cpu", "auto")][3]
+    for key, run in runs.items():
+        for i, (x, y) in enumerate(zip(base, run[3])):
+            if (x is None) != (y is None) or (x is not None and not
+                                              torch.equal(x["v"], y["v"])):
+                raise AssertionError(f"16c: read {i} of {key} differs")
+    paths = {m: [r.path for r in runs[("card", m)][2]]
+             for m in ("auto", "off")}
+    log(f"16c tiers: paths auto {paths['auto']}, off {paths['off']}; every "
+        f"read of 8,192 equal across the card's auto and off runs and the "
+        f"CPU's auto run, state, stats and reports bitwise card = CPU; walls "
+        f"{ {k: round(v, 2) for k, v in walls.items()} } s; {card}")
+
+
+def elastic_durable_engine(dev, d, shards=SHARDS):
+    from repro_torch.core.distributed import AutoscalePolicy
+    e = ELASTIC_DURABLE
+    return sharded_engine(dev, capacity=e["capacity"], batch=e["batch"],
+                          slack=e["slack"], shards=shards,
+                          autoscale=AutoscalePolicy(
+                              scale_at=dict(e["scale_at"])),
+                          **sharded_durable_config(d))
+
+
+def elastic_durable_child(d, seed, dev=None):
+    """16d's crash run (``--elastic-durable-child DIR``, a process of its
+    own), killed by SIGKILL from inside ``source_fn`` at its crash tick,
+    after the scale to 16."""
+    import torch
+    dev = dev or torch.device("cuda", 0)
+    eng = elastic_durable_engine(dev, d)
+    src, _ = wide_source(dev, seed, ELASTIC_DURABLE["crash_at"],
+                         ELASTIC_DURABLE["events"])
+    eng.run(eng.init_state(), live_source(src, eng),
+            ELASTIC_DURABLE["ticks"])
+    raise AssertionError("the crash run outlived its crash")
+
+
+def elastic_durable_path(dev, seed, card):
+    """Phase 16d: 15d's durable configuration (64-bit ids, a flush every
+    16 ticks to 3 store replicas in quorums of 2) at a reduced size
+    (2**15 slots a shard, 8,192 events a tick, 44 ticks) from 8 shards
+    with ``scale_at={16: 16}``: an uninterrupted run, the same run in a
+    child killed by SIGKILL at source tick 40, ``recover`` on 16 shards
+    and the resumed run; every slate bitwise against the uninterrupted
+    run's, key by key (the reference's ``test_autoscale_policy_through_
+    run_and_durability`` and ``test_compaction_durable_recovery`` on the
+    card)."""
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    e = ELASTIC_DURABLE
+    wide_fn, gen_tick = wide_source(dev, seed,
+                                    events=ELASTIC_DURABLE["events"])
+    with tempfile.TemporaryDirectory(prefix="muppet-elastic-") as root:
+        da, db = f"{root}/uninterrupted", f"{root}/crashed"
+        reset_launches()
+        with torch_probe_calls() as torch_calls:
+            eng = elastic_durable_engine(dev, da)
+            state = eng.init_state()
+            t0 = time.perf_counter()
+            state, _ = eng.run(state, live_source(wide_fn, eng), e["ticks"])
+            torch.cuda.synchronize()
+            tick_s = (time.perf_counter() - t0) / e["ticks"]
+            state, _ = eng.drain(state, 256)
+            stats_a = sharded_stats(eng, state)
+            base = sharded_host_tables(state)
+            n_wals = len(eng.dur.wals)
+            eng.close()
+            del eng, state
+            if n_wals != 16:
+                raise AssertionError(f"16d: {n_wals} WALs after the scale")
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--elastic-durable-child", db, "--seed", str(seed)],
+                capture_output=True, text=True, timeout=600)
+            if child.returncode != -signal.SIGKILL:
+                raise AssertionError(
+                    f"the elastic crash run ended with {child.returncode}, "
+                    f"not SIGKILL: {child.stdout[-2000:]} "
+                    f"{child.stderr[-4000:]}")
+            t_child = time.perf_counter() - t0
+            eng = elastic_durable_engine(dev, db, shards=16)
+            frontier = eng.dur.frontier
+            f_src = frontier.meta["source_tick"]
+            logged = sum(1 for _ in eng.dur.wals[0].replay(
+                from_offset=frontier.wal_offset[0]))
+            if len(frontier.wal_offset) != 16 or f_src <= 16 or not logged:
+                raise AssertionError(f"16d frontier {frontier}, {logged} "
+                                     "ticks logged after it: the crash came "
+                                     "before the scale's frontier or left "
+                                     "nothing to replay")
+            t0 = time.perf_counter()
+            state = eng.recover()
+            torch.cuda.synchronize()
+            t_recover = time.perf_counter() - t0
+            resume = f_src + logged
+            state, _ = eng.run(state, live_source(wide_fn, eng),
+                               e["ticks"] - resume, start_tick=resume)
+            state, _ = eng.drain(state, 256)
+            stats = sharded_stats(eng, state)
+            read_keys = read_set(seed)[:256]
+            reads = {u: eng.read_slates(state, u, wide_ids(read_keys))
+                     for u in ("U1", "U2")}
+            eng.close()
+        uk, lk, _, _ = sharded_launch_counts()
+        launches = {"slate_update": uk.slate_update.launches,
+                    "slate_lookup_wide": lk.slate_lookup.launches}
+        launches["slate_lookup_wide routes"] = check_lookup_routes(
+            "elastic durable", torch_calls)
+    ref = reference(gen_tick, e["ticks"])
+    counts, sums, maxes = ref
+    fed_keys = np.flatnonzero(counts)
+    for name, want in (("U1", sums), ("U2", maxes)):
+        ks, _, vals = base[name]
+        if not (np.array_equal(rank_of(ks), fed_keys) and np.array_equal(
+                vals, want[rank_of(ks)].astype(np.float32))):
+            raise AssertionError(f"16d uninterrupted {name} differs from the "
+                                 "reference")
+    if stats["tick"] != stats_a["tick"] or any(
+            stats_a["queue_dropped"].values()) or stats_a["exchange_dropped"]:
+        raise AssertionError(f"16d: ticks {stats['tick']} / "
+                             f"{stats_a['tick']}, stats {stats_a}")
+    got = sharded_host_tables(state)
+    for name, (ks, ts, vals) in base.items():
+        gk, gts, gv = got[name]
+        if not (np.array_equal(ks, gk) and np.array_equal(ts, gts)
+                and vals.tobytes() == gv.tobytes()):
+            raise AssertionError(f"16d recovered {name} differs from the "
+                                 "uninterrupted run")
+    for name, want in (("U1", sums), ("U2", maxes)):
+        for k, row in zip(read_keys, reads[name]):
+            if (row is None) != (counts[k] == 0) or (row is not None and (
+                    not np.array_equal(row["v"].numpy(),
+                                       want[k].astype(np.float32)))):
+                raise AssertionError(f"16d recovered read {name} {k}")
+    log(f"16d elastic durable: {e['ticks']} ticks x {e['events']} events, "
+        f"8 -> 16 shards at tick 16, {tick_s * 1e3:.3f} ms/tick; crash run "
+        f"killed at source tick {e['crash_at']} after {t_child:.1f} s; "
+        f"frontier at source tick {f_src} on {len(frontier.wal_offset)} "
+        f"WALs, {logged} ticks logged after it; recover on 16 shards "
+        f"{t_recover:.3f} s; recovered tables equal the uninterrupted "
+        f"run's bitwise, key by key ({', '.join(f'{n} {len(t[0])}' for n, t in base.items())}"
+        f" slates); the phase took {time.perf_counter() - t_phase:.1f} s; "
+        f"{card}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=128)
@@ -5132,6 +5830,9 @@ def main(argv=None):
                     "this process itself)")
     ap.add_argument("--sharded-durable-child", metavar="DIR",
                     help="run phase 15d's crash run in DIR (phase 15d "
+                    "starts this process itself)")
+    ap.add_argument("--elastic-durable-child", metavar="DIR",
+                    help="run phase 16d's crash run in DIR (phase 16d "
                     "starts this process itself)")
     ap.add_argument("--serve-child", metavar="DIR",
                     help="run phase 14d's crash run in DIR (phase 14d "
@@ -5155,6 +5856,8 @@ def main(argv=None):
         durable_child(args.durable_child, args.seed)
     if args.sharded_durable_child:
         sharded_durable_child(args.sharded_durable_child, args.seed)
+    if args.elastic_durable_child:
+        elastic_durable_child(args.elastic_durable_child, args.seed)
     if args.serve_child:
         serve_child(args.serve_child, args.seed)
     if args.serve_recover:
@@ -5222,13 +5925,22 @@ def main(argv=None):
     sharded_failover(dev, args.seed, card)
     torch.cuda.empty_cache()
     by_path["sharded durable"] = sharded_durable_path(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    check_elastic_no_host_sync(dev, args.seed)
+    by_path["elastic"] = elastic_path(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    by_path["closed loop"] = closed_loop_path(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    elastic_tiers(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    by_path["elastic durable"] = elastic_durable_path(dev, args.seed, card)
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}
         e["launches"] = sum(e["launches_by_path"].values())
         if e["name"] in ("slate_lookup", "slate_lookup_wide"):
             # each instance's launches by route (int32 keys on phases
-            # 5-11 and 15a-b, int64 on phases 12 and 15d)
+            # 5-11, 15a-b and 16a-b, int64 on phases 12, 15d and 16d)
             rk = f"{e['name']} routes"
             e["launches_by_route"] = {r: sum(
                 n[rk][r] for n in by_path.values() if rk in n)

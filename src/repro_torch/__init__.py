@@ -45,13 +45,12 @@ Ported so far, slice by slice:
 9. the multi-shard engine on one card (``DistributedEngine``,
    ``DistConfig``, ``core.distributed.make_mesh``): the hash ring, the
    event exchange, fail-over, hot-key split and per-shard durability,
-   every shard on the engine's one device.
-
-Live elasticity is not ported yet (ROADMAP queue 1 item 15b):
-``AutoscalePolicy`` and ``MigrationReport`` are data only, the engine's
-elasticity methods raise ``NotImplementedError``, and touching
-``LoadAutoscaler`` raises a ``NotImplementedError`` that is also an
-``AttributeError``, naming the item.
+   every shard on the engine's one device;
+10. live elasticity on that card: ``scale``, ``add_shards``,
+   ``remove_shards``, ``rebalance``, ``clear_split`` and ``compact``
+   (slates and queued events migrated loss-free, on the device or
+   through the host), ``AutoscalePolicy`` in ``run``, and the
+   closed-loop ``LoadAutoscaler``.
 """
 import importlib
 
@@ -76,9 +75,9 @@ _WHERE = {
     "DistConfig": "repro_torch.core.distributed",
     "AutoscalePolicy": "repro_torch.core.distributed",
     "MigrationReport": "repro_torch.core.distributed",
+    "LoadAutoscaler": "repro_torch.telemetry",
 }
 _MODULES = {"ops": "repro_torch.api.ops", "ml": "repro_torch.ml"}
-NOT_PORTED = ("LoadAutoscaler",)
 
 __all__ = [
     # declarative app layer (the front door)
@@ -89,10 +88,11 @@ __all__ = [
     # engine layer (explicit control when the builder is not enough)
     "Workflow", "Engine", "EngineConfig", "StateHandle", "OverflowPolicy",
     "SlateServer",
-    # multi-shard engine (DESIGN.md sections 4 and 12)
-    "DistributedEngine", "DistConfig", "AutoscalePolicy", "MigrationReport",
-    # telemetry (DESIGN.md section 13)
-    "TelemetryConfig", "TelemetryReport",
+    # multi-shard engine and live elasticity (DESIGN.md sections 4, 12)
+    "AutoscalePolicy", "DistributedEngine", "DistConfig",
+    "MigrationReport",
+    # telemetry + the closed control loop (DESIGN.md section 13)
+    "LoadAutoscaler", "TelemetryConfig", "TelemetryReport",
     # streaming-ML subsystem (DESIGN.md section 16)
     "ml",
 ]
@@ -103,11 +103,6 @@ def __getattr__(name):
         return getattr(importlib.import_module(_WHERE[name]), name)
     if name in _MODULES:
         return importlib.import_module(_MODULES[name])
-    if name in NOT_PORTED:
-        from repro_torch.core.distributed import NotPortedError
-        raise NotPortedError(
-            f"repro_torch.{name} belongs to live elasticity, which is "
-            f"ported by ROADMAP queue 1 item 15b")
     raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
 
 

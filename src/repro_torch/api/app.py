@@ -313,6 +313,13 @@ class App:
         ``read_slate``/``stats``/``serve``.  ``device`` applies when
         this call starts the engine.
 
+        With ``runtime.autoscale`` set (an
+        :class:`~repro_torch.core.distributed.AutoscalePolicy` or a
+        ``LoadAutoscaler``, distributed runtimes only), the drive loop
+        grows and shrinks the active shard set and rebalances the
+        weighted ring mid-run — ``source_fn`` must then size its batches
+        by the live ``app.engine.n_shards`` (DESIGN.md section 12).
+
         ``trace_path`` exports the engine's span trace (Chrome trace
         JSON, Perfetto-loadable) there after the run — needs
         ``TelemetryConfig(trace=True)`` on the runtime (DESIGN.md
@@ -358,14 +365,16 @@ class App:
         """The latest windowed :class:`~repro_torch.telemetry.
         TelemetryReport` (chunk-boundary readings: events/tick EMA,
         queue pressure, heavy-hitter keys from the on-device count-min
-        sketch).  Needs ``RuntimeConfig(telemetry=TelemetryConfig(...))``.
-        If no window has been observed yet, one reading is taken now."""
+        sketch).  Needs ``RuntimeConfig(telemetry=TelemetryConfig(...))``
+        — or a ``LoadAutoscaler``, which implies it.  If no window has
+        been observed yet, one reading is taken now."""
         h = self._live()
         reg = h.engine.telemetry
         if reg is None:
             raise RuntimeError(
                 f"app {self.name!r} runs without telemetry — pass "
-                f"RuntimeConfig(telemetry=TelemetryConfig())")
+                f"RuntimeConfig(telemetry=TelemetryConfig()) or an "
+                f"autoscale=LoadAutoscaler(...)")
         with self.engine.read_lock:
             return reg.last or reg.observe(h.engine, h.state)
 

@@ -11,8 +11,6 @@ veneer that compiles down to them.
 ``shards > 1`` (or a mesh) selects ``DistributedEngine`` with every
 shard on the engine's one device, so ``shards`` may exceed the device
 count (the JAX package raises there: it places a shard a device).
-Live elasticity (``autoscale``, the migration fields) is ROADMAP queue
-1 item 15b: a policy is accepted here and ``run`` raises naming it.
 """
 from __future__ import annotations
 
@@ -41,7 +39,10 @@ class RuntimeConfig:
     mesh: Optional[object] = None
     exchange_slack: float = 2.0
     two_choice_threshold: int = 0
-    # migration tiering (DESIGN.md section 14), multi-shard only
+    # migration tiering (DESIGN.md section 14): "auto" moves slate rows
+    # on the device at shape-preserving reconfigures; "off" forces the
+    # host remap.  compact_threshold: dead-slot fraction that triggers
+    # physical slot compaction on scale-down (0 disables).
     device_migration: str = "auto"
     compact_threshold: float = 0.75
     # durability (DESIGN.md section 10): a directory turns on the WAL +
@@ -50,12 +51,14 @@ class RuntimeConfig:
     flush_every: int = 16
     barrier: bool = True
     truncate_wal: bool = False
-    # live elasticity (DESIGN.md section 12), multi-shard only: an
-    # AutoscalePolicy constructs, running it is item 15b
+    # live elasticity (DESIGN.md section 12): an AutoscalePolicy fires
+    # reconfigures at declared ticks; a telemetry.LoadAutoscaler closes
+    # the loop from windowed load instead (distributed runtimes only)
     autoscale: Optional[object] = None
     # device-side telemetry (DESIGN.md section 13): a TelemetryConfig
     # adds the count-min key-heat sketch and the latency histograms to
-    # the tick and the windowed metrics registry behind App.telemetry()
+    # the tick and the windowed metrics registry behind App.telemetry().
+    # Implied by a LoadAutoscaler.
     telemetry: Optional[object] = None   # telemetry.TelemetryConfig
 
     @property
@@ -106,12 +109,13 @@ class RuntimeConfig:
 
     def dist_config(self):
         from repro_torch.core.distributed import AutoscalePolicy, DistConfig
+        from repro_torch.telemetry.controller import LoadAutoscaler
         if self.autoscale is not None and \
-                not isinstance(self.autoscale, AutoscalePolicy):
+                not isinstance(self.autoscale,
+                               (AutoscalePolicy, LoadAutoscaler)):
             raise TypeError(
-                f"autoscale must be an AutoscalePolicy (LoadAutoscaler is "
-                f"ROADMAP queue 1 item 15b), got "
-                f"{type(self.autoscale).__name__}")
+                f"autoscale must be an AutoscalePolicy or "
+                f"LoadAutoscaler, got {type(self.autoscale).__name__}")
         return DistConfig(
             batch_size=self.batch_size,
             queue_capacity=self._queue_capacity(),

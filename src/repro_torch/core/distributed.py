@@ -1,5 +1,5 @@
 """Multi-shard MapUpdate engine with every shard on one card (port of
-``repro.core.distributed``, its fixed-membership half).
+``repro.core.distributed``).
 
 Muppet's data path — workers hash events to peers and write directly into
 their queues — is one *exchange* per workflow hop: events are routed by
@@ -43,11 +43,17 @@ and queued events are lost, the paper's semantics); with durability on,
 each shard writes its own WAL and ``recover`` re-routes flushed slates
 and replayed events through the current ring.
 
-Live elasticity — ``scale``, ``add_shards``, ``remove_shards``,
-``rebalance``, ``clear_split``, ``compact``, the migrations, the
-``exchange_rows`` / ``exchange_queue`` collectives and ``run`` with
-``autoscale`` set — is ROADMAP queue 1 item 15b; each raises
-``NotImplementedError`` naming it.
+Live elasticity (DESIGN.md sections 12 and 14): ``scale``,
+``add_shards``, ``remove_shards``, ``rebalance``, ``clear_split`` and
+``compact`` migrate slates and queued events loss-free at a drain
+barrier.  A migration is a permutation of the stacked state: the device
+tier (shapes kept) runs :func:`exchange_rows` and :func:`exchange_queue`
+over all shards at once and rebuilds each shard's table with
+``insert_or_find``; the host tier (a physical grow or a compaction)
+remaps through numpy and rebuilds each table on the engine's device.
+Growing needs no devices: it widens the leading dimension.  ``run``
+takes an ``AutoscalePolicy`` (scale and rebalance at declared ticks) or
+a closed-loop ``LoadAutoscaler`` (``telemetry/controller.py``).
 """
 from __future__ import annotations
 
@@ -61,7 +67,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, torch_dtype
 from repro_torch.core import apply as apply_mod
 from repro_torch.core import queues as q_mod
 from repro_torch.core.durability import (DurabilityConfig, EngineDurability,
@@ -79,17 +85,9 @@ from repro_torch.slates import table as tbl
 from repro_torch.slates.flush import FlushPolicy
 from repro_torch.telemetry import latency as lat_mod
 from repro_torch.telemetry import sketch as sk_mod
-from repro_torch.telemetry.metrics import MetricsRegistry
-from repro_torch.telemetry.trace import Tracer, null_span
-
-ELASTICITY_TODO = ("live elasticity (scale, rebalance, migrations, "
-                   "autoscaling) is ported by ROADMAP queue 1 item 15b")
-
-
-class NotPortedError(NotImplementedError, AttributeError):
-    """A name or method of the JAX package that the port does not carry
-    yet.  Also an ``AttributeError``, so ``hasattr`` and ``getattr``
-    with a default treat the missing name as absent."""
+from repro_torch.telemetry.controller import LoadAutoscaler
+from repro_torch.telemetry.metrics import MetricsRegistry, TelemetryConfig
+from repro_torch.telemetry.trace import ControlLog, Tracer, null_span
 
 
 # ---- the mesh ----------------------------------------------------------
@@ -164,33 +162,251 @@ def exchange(batch: EventBatch, dest: torch.Tensor, n_shards: int,
     ok = batch.valid & (d < n) & (pos < cap)
     dropped = (batch.valid & (d < n) & ~ok).sum(dim=1, dtype=torch.int32)
     src = torch.arange(S, dtype=torch.int64, device=dev)[:, None]
-    sink = n * S * cap
-    flat = torch.where(ok, (d * S + src) * cap + pos, sink).reshape(-1)
-
-    def put(a, src_vals=None):
-        v = a if src_vals is None else src_vals
-        out = torch.zeros((sink + 1,) + tuple(a.shape[2:]), dtype=a.dtype,
-                          device=dev)
-        out.index_put_((flat,), v.reshape((S * B,) + tuple(a.shape[2:])))
-        return out[:sink].view((n, S * cap) + tuple(a.shape[2:]))
-
+    flat = torch.where(ok, (d * S + src) * cap + pos, n * S * cap)
+    put = lambda a, fill=0: _deliver(a, flat.reshape(-1), n, cap, fill)
     received = EventBatch(
         sid=put(batch.sid), ts=put(batch.ts), key=put(batch.key),
-        value=tree_map(put, batch.value), valid=put(batch.valid, ok))
+        value=tree_map(put, batch.value), valid=put(ok, False))
     return received, dropped
 
 
-def exchange_rows(*args, **kwargs):
-    """Slate-row migration as one exchange: live elasticity."""
-    raise NotImplementedError(ELASTICITY_TODO)
+def _buckets(dest: torch.Tensor, n_shards: int, cap: int):
+    """The ``all_to_all`` bucket layout of stacked ``[S, L]`` destinations
+    (``n_shards`` = no destination): each row stably ordered by
+    destination, each entry ranked among its row's entries for the same
+    destination (the JAX package's ``argsort`` + ``searchsorted``).
+    Returns ``(order, flat, ok, lost)``: the order, each sorted entry's
+    cell in the received ``[S_dst, S_src * cap]`` layout flattened (the
+    sink ``n * S * cap`` where it does not fit), whether it fits, and the
+    entries per source row that did not fit.  A sort, not
+    :func:`exchange`'s running count: the ``[S, n + 1, L]`` one-hot of a
+    table's ``L = C`` rows would not fit (1.1 GB at C = 2**20, 16
+    shards)."""
+    S, L = dest.shape
+    n = n_shards
+    order = torch.argsort(dest, dim=1, stable=True)
+    sdest = torch.gather(dest, 1, order)
+    pos = torch.arange(L, device=dest.device) - torch.searchsorted(
+        sdest, sdest, side="left")
+    ok = (sdest < n) & (pos < cap)
+    lost = ((sdest < n) & ~ok).sum(dim=1, dtype=torch.int32)
+    src = torch.arange(S, device=dest.device)[:, None]
+    flat = torch.where(ok, (sdest * S + src) * cap + pos, n * S * cap)
+    return order, flat.reshape(-1), ok, lost
 
 
-def exchange_queue(*args, **kwargs):
-    """Queued-event re-homing as one exchange: live elasticity."""
-    raise NotImplementedError(ELASTICITY_TODO)
+def _deliver(x: torch.Tensor, flat, n_shards: int, cap: int, fill
+             ) -> torch.Tensor:
+    """Scatter stacked ``[S, L, ...]`` entries to their cells ``flat``
+    (``[S * L]``, in the entries' order; the sink ``n_shards * S * cap``
+    takes the rest): the stand-in for ``all_to_all``.  Returns the
+    received ``[n_shards, S * cap, ...]``, row d holding source 0's
+    bucket for d, then source 1's, ...; cells no entry reached keep
+    ``fill``."""
+    S = x.shape[0]
+    tail = tuple(x.shape[2:])
+    sink = n_shards * S * cap
+    out = torch.full((sink + 1,) + tail, fill, dtype=x.dtype, device=x.device)
+    out.index_put_((flat,), x.reshape((-1,) + tail))
+    return out[:sink].view((n_shards, S * cap) + tail)
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` at the even and ``b`` at the odd positions of dim 1.  Floats
+    come out as ``x + 0`` (-0.0 becomes 0.0), as JAX's pad-and-add
+    interleave gives them."""
+    out = torch.empty((a.shape[0], a.shape[1] + b.shape[1])
+                      + tuple(a.shape[2:]), dtype=a.dtype, device=a.device)
+    out[:, 0::2] = a
+    out[:, 1::2] = b
+    return out + 0 if out.is_floating_point() else out
+
+
+def associative_scan(fn, elems: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Inclusive scan along dim 1 of a list of ``[S, L, ...]`` tensors
+    with the associative ``fn(list, list) -> list``: the odd/even
+    recursion of ``jax.lax.associative_scan``, so ``fn`` combines the
+    same elements in the same tree, and a float fold rounds as the JAX
+    package's."""
+    L = elems[0].shape[1]
+    if L < 2:
+        return elems
+    reduced = fn([e[:, 0:L - 1:2] for e in elems],
+                 [e[:, 1::2] for e in elems])
+    odd = associative_scan(fn, reduced)
+    if L % 2 == 0:
+        even = fn([o[:, :-1] for o in odd], [e[:, 2::2] for e in elems])
+    else:
+        even = fn(odd, [e[:, 2::2] for e in elems])
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
+    return [_interleave(a, b) for a, b in zip(even, odd)]
+
+
+def exchange_rows(t: tbl.SlateTable, dest_salt: int, ring_hashes,
+                  ring_shards, n_shards: int, cap_per_dest: int, combine
+                  ) -> Tuple[tbl.SlateTable, torch.Tensor]:
+    """Slate-row migration as one exchange (DESIGN.md section 14.1): the
+    table-row counterpart of :func:`exchange`, over the stacked
+    ``[S, C+1]`` tables of every shard at once.
+
+    Each shard routes its rows through the *new* ring, packs movers
+    ``(key, value, ts, dirty)`` into per-destination buckets of
+    ``cap_per_dest`` rows, and each destination rebuilds its table from
+    stayers + arrivals: the candidates sorted valid first and by key
+    (two stable sorts), duplicate keys folded with the updater's
+    ``combine`` (else last-ts-wins) in one segmented scan, one
+    representative a key inserted into a fresh table.  Folded rows are
+    dirty with the largest ts; rows that do not fit (bucket overflow,
+    full table) are dropped and counted.  The JAX package runs this a
+    shard under ``shard_map`` with an ``all_to_all``; here the buckets
+    are one scatter and the rebuild one ``insert_or_find`` a shard (on
+    the card, the lookup kernel's ``find`` route).  Returns
+    ``(new_table, moved_out [S])``."""
+    S, n, cap = t.keys.shape[0], n_shards, cap_per_dest
+    C = t.capacity
+    dev = t.keys.device
+    keys = t.keys[:, :C]
+    valid = keys != tbl.EMPTY
+    owner = route(keys, dest_salt, ring_hashes, ring_shards).long()
+    me = torch.arange(S, device=dev)[:, None]
+    mover = valid & (owner != me)
+    moved_out = mover.sum(dim=1, dtype=torch.int32)
+
+    # pack movers into per-destination buckets (the exchange() layout)
+    order, flat, ok, lost = _buckets(torch.where(mover, owner, n), n, cap)
+    put = lambda x, fill: _deliver(x[me, order], flat, n, cap, fill)
+    rvalid = _deliver(ok, flat, n, cap, False)
+    rkeys = put(keys, tbl.EMPTY)
+    rts, rdirty = put(t.ts[:, :C], 0), put(t.dirty[:, :C], False)
+    rvals = tree_map(lambda v: put(v[:, :C], 0), t.vals)
+
+    # candidates = stayers and arrivals; sorted valid first, by key (two
+    # stable passes), so a key's rows are adjacent and one scan folds them
+    stay = valid & (owner == me)
+    cat = lambda a, b: torch.cat([a, b], dim=1)
+    ckeys, cvalid = cat(keys, rkeys), cat(stay, rvalid)
+    o1 = torch.argsort(ckeys, dim=1, stable=True)
+    first = torch.where(torch.gather(cvalid, 1, o1), 0, 1).to(torch.int32)
+    order2 = torch.gather(o1, 1, torch.argsort(first, dim=1, stable=True))
+    rows = torch.arange(S, device=dev)[:, None]
+    take = lambda x: x[rows, order2]
+    ks, vs = take(ckeys), take(cvalid)
+    ts_s, dt_s = take(cat(t.ts[:, :C], rts)), take(cat(t.dirty[:, :C],
+                                                        rdirty))
+    vleaves, vspec = pytree.tree_flatten(
+        tree_map(lambda a, b: take(cat(a[:, :C], b)), t.vals, rvals))
+
+    no = torch.zeros((S, 1), dtype=torch.bool, device=dev)
+    prev_same = cat(no, (ks[:, 1:] == ks[:, :-1]) & vs[:, 1:] & vs[:, :-1])
+
+    def fold(a, b):
+        fa, ta, da, *va = a
+        fb, tb, db, *vb = b
+        if combine is not None:
+            merged = pytree.tree_flatten(combine(
+                pytree.tree_unflatten(va, vspec),
+                pytree.tree_unflatten(vb, vspec)))[0]
+        else:
+            newer = tb >= ta
+            merged = [torch.where(_bshape(newer, x), y, x)
+                      for x, y in zip(va, vb)]
+        v = [torch.where(_bshape(fb, y), y, m.to(y.dtype))
+             for m, y in zip(merged, vb)]
+        return [fa | fb, torch.where(fb, tb, torch.maximum(ta, tb)),
+                torch.where(fb, db, torch.ones_like(db)), *v]
+
+    _, fts, fdirty, *fvals = associative_scan(
+        fold, [~prev_same, ts_s, dt_s, *vleaves])
+    fvals = pytree.tree_unflatten(fvals, vspec)
+
+    # one representative a key: the last row of its sorted run holds the
+    # whole fold; a run of one keeps its own ts and dirty
+    rep = vs & ~cat(prev_same[:, 1:], no)
+    out = []
+    for d in range(S):
+        fresh = tbl.SlateTable(
+            keys=torch.full_like(t.keys[d], tbl.EMPTY),
+            ts=torch.zeros_like(t.ts[d]),
+            dirty=torch.zeros_like(t.dirty[d]),
+            vals=tree_map(lambda v: torch.zeros_like(v[d]), t.vals),
+            dropped=t.dropped[d] + lost[d])
+        fresh, slot, _, placed = tbl.insert_or_find(fresh, ks[d], rep[d])
+        safe = torch.where(placed, slot, C)
+        tree_map(lambda dst, src: dst.index_put_((safe,), src[d].to(
+            dst.dtype)), fresh.vals, fvals)
+        fresh.ts.index_put_((safe,), fts[d])
+        fresh.dirty.index_put_((safe,), fdirty[d])
+        fresh.dropped = fresh.dropped + (rep[d] & ~placed).sum(
+            dtype=torch.int32)
+        out.append(fresh)
+    return _stack(out), moved_out
+
+
+def exchange_queue(q: q_mod.QueueState, dest_salt: int, ring_hashes,
+                   ring_shards, n_shards: int, cap_per_dest: int
+                   ) -> Tuple[q_mod.QueueState, torch.Tensor]:
+    """Queued-event re-homing as one exchange: the queue counterpart of
+    :func:`exchange_rows`, over the stacked ``[S, Q+1]`` queues, so a
+    planned leave with backlog (``drain_max=0``, or a drain barrier that
+    could not retire the queues) stays on the device tier.
+
+    Every in-``size`` slot is read in dequeue order and routed by its
+    key's *primary* owner on the new ring (validity flags ride along as
+    payload, as in the host scan); stayers go through the buckets too,
+    so each destination rebuilds its queue compacted at head 0 in
+    (source shard ascending, dequeue order), the host migrator's order.
+    ``dropped`` carries plus any overflow (bucket or destination
+    capacity); ``peak`` restarts at the new backlog, a tensor of its own
+    (the tick updates state in place).  Returns
+    ``(new_queue, moved_out [S])``."""
+    S, n, cap = q.size.shape[0], n_shards, cap_per_dest
+    buf = q.buf
+    Q = buf.key.shape[1] - 1           # the sink row aside
+    dev = q.size.device
+    ar = torch.arange(Q, dtype=torch.int32, device=dev)
+    pos = ((q.head[:, None] + ar) % Q).long()
+    live = ar < q.size[:, None]
+    rows = torch.arange(S, device=dev)[:, None]
+    at = lambda x: x[rows, pos]
+    key = at(buf.key)
+    owner = route(key, dest_salt, ring_hashes, ring_shards).long()
+    moved_out = (live & (owner != rows)).sum(dim=1, dtype=torch.int32)
+
+    # every live event goes through the buckets, so arrival order is
+    # (source, dequeue order) alone: the host rebuild's order
+    order, flat, ok, lost = _buckets(torch.where(live, owner, n), n, cap)
+    put = lambda x, fill: _deliver(at(x)[rows, order], flat, n, cap, fill)
+    rlive = _deliver(ok, flat, n, cap, False)
+    rsid, rts, rkey = put(buf.sid, 0), put(buf.ts, 0), put(buf.key, 0)
+    rvflag = put(buf.valid, False)
+    rvals = tree_map(lambda v: put(v, 0), buf.value)
+
+    # compact arrivals at head 0 (the sink row Q takes what does not fit)
+    rank = torch.cumsum(rlive.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    fits = rlive & (rank < Q)
+    size = fits.sum(dim=1, dtype=torch.int32)
+    tgt = torch.where(fits, rank, Q).long()
+
+    def scat(src, fill):
+        b = torch.full((S, Q + 1) + tuple(src.shape[2:]), fill,
+                       dtype=src.dtype, device=dev)
+        b[rows, tgt] = src
+        return b
+
+    nbuf = EventBatch(sid=scat(rsid, 0), ts=scat(rts, 0), key=scat(rkey, 0),
+                      value=tree_map(lambda v: scat(v, 0), rvals),
+                      valid=scat(rvflag, False))
+    drops = lost + (rlive & ~fits).sum(dim=1, dtype=torch.int32)
+    return q_mod.QueueState(buf=nbuf, head=torch.zeros_like(q.head),
+                            size=size, dropped=q.dropped + drops,
+                            peak=size.clone()), moved_out
 
 
 # ---- stacked-state helpers ---------------------------------------------
+
+def _bshape(mask, like):
+    return mask.reshape(tuple(mask.shape) + (1,) * (like.ndim - mask.ndim))
+
 
 def _row(tree, s: int):
     """Shard ``s`` of a stacked tree: views of every leaf."""
@@ -257,11 +473,12 @@ def _stack_ticks(per_tick: Sequence[Dict[str, EventBatch]]
 class AutoscalePolicy:
     """Declarative elasticity for ``DistributedEngine.run`` (DESIGN.md
     section 12): scale the active shard set at given source ticks and/or
-    rebalance the weighted ring every k source ticks.  Carried as data
-    (``RuntimeConfig(autoscale=...)`` constructs); ``run`` with a policy
-    set raises until item 15b."""
+    rebalance the weighted ring from the per-shard load signal every k
+    source ticks.  Exposed through the front door as
+    ``RuntimeConfig(autoscale=AutoscalePolicy(...))``."""
 
     scale_at: Dict[int, int] = field(default_factory=dict)
+    # source tick -> target active shard count (fires before that tick)
     rebalance_every: int = 0     # source ticks between reweights; 0 = off
     drain_max: int = 64          # drain-barrier bound per reconfigure
     on_change: Optional[Any] = None  # callback(MigrationReport)
@@ -287,13 +504,21 @@ class DistConfig(EngineConfig):
     exchange_slack: float = 2.0   # per-dest bucket capacity multiplier
     two_choice_threshold: int = 0  # 0 = off; else per-key spill point
     axis_names: Tuple[str, ...] = ("data",)
-    autoscale: Optional[Any] = None   # item 15b: run() raises when set
+    # tick-scheduled AutoscalePolicy, or a closed-loop LoadAutoscaler
+    # driven by the telemetry subsystem (DESIGN.md 13.3)
+    autoscale: Optional[Any] = None
     # hot-key split set capacity (fixed shape).  0 = no split routing in
-    # the tick; > 0 opts in.  Needs cfg.telemetry and no durability.
+    # the tick; > 0 opts in, and a LoadAutoscaler with skew > 0 implies
+    # 8.  Needs cfg.telemetry and no durability.
     hot_key_capacity: int = 0
-    # migration tiering and compaction (item 15b), kept so configs
-    # written for the JAX package construct unchanged
+    # migration tier (DESIGN.md 14.1): "auto" re-homes slate rows and any
+    # queued backlog with the device exchange at reconfigures that keep
+    # the physical shapes; "off" forces the host remap everywhere
     device_migration: str = "auto"
+    # physical slot compaction (DESIGN.md 14.2): when a deactivation
+    # leaves >= this fraction of slots dead, shrink the state to the
+    # active set and free the parked slots' memory.  0 disables;
+    # compact() forces it.
     compact_threshold: float = 0.75
 
 
@@ -319,25 +544,37 @@ class DistributedEngine:
                   / self.n_shards)
         self.cap_per_dest = max(8, cap)
         # serializes slate readers against run(), which updates the
-        # state in place chunk by chunk
+        # state in place chunk by chunk, and against reconfigures; the
+        # StateHandle run() was given is republished inside it
         self.read_lock = threading.RLock()
+        self._live_handle = None
+        self._load_mark = np.zeros(self.n_shards)  # rebalance window base
         self.tick_cursor = 0      # post-run() *source* cursor
         self.dur: Optional[EngineDurability] = None
         if self.cfg.durability is not None:
             self.attach_durability(self.cfg.durability)
+        # a closed-loop controller implies telemetry
         tele = self.cfg.telemetry
+        if tele is None and isinstance(self.cfg.autoscale, LoadAutoscaler):
+            tele = self.cfg.autoscale.telemetry or TelemetryConfig()
         self.tele_cfg = tele
         self.telemetry: Optional[MetricsRegistry] = None
         self.tracer: Optional[Tracer] = None
+        self._ctl_log: Optional[ControlLog] = None
         if tele is not None:
             self.telemetry = MetricsRegistry(
                 tele, batch_size=self.cfg.batch_size)
             self._salts = self.telemetry.salts
             if tele.trace:
                 self.tracer = Tracer()
+            if tele.control_log:
+                self._ctl_log = ControlLog(tele.control_log)
         # hot-key split set: a fixed-shape runtime input of the tick, so
         # splits swap contents, never shapes
         hot_cap = self.cfg.hot_key_capacity
+        if (hot_cap == 0 and isinstance(self.cfg.autoscale, LoadAutoscaler)
+                and self.cfg.autoscale.skew > 0.0):
+            hot_cap = 8
         self._hot_capacity = (hot_cap if tele is not None
                               and self.cfg.durability is None else 0)
         kd_np = np.int64 if self.key_bits == 64 else np.int32
@@ -755,20 +992,146 @@ class DistributedEngine:
         With durability, each tick's sources are logged per shard before
         it runs, and drain ticks of a flush barrier advance the engine
         tick but not ``source_fn``'s index.  ``handle`` (a
-        ``StateHandle``) is republished after every chunk."""
-        if self.cfg.autoscale is not None:
-            raise NotImplementedError(
-                f"DistConfig.autoscale: {ELASTICITY_TODO}")
-        return self._run_span(state, source_fn, n_ticks,
-                              start_tick=start_tick, handle=handle)
+        ``StateHandle``) is republished after every chunk.
+
+        With ``cfg.autoscale`` set to an :class:`AutoscalePolicy`, the
+        loop fires live reconfigures at the policy's source-tick
+        boundaries: ``scale_at[t]`` rescales the active shard set before
+        tick ``t`` runs, and every ``rebalance_every`` ticks the weighted
+        ring is rebuilt from the per-shard load signal.  With a
+        :class:`~repro_torch.telemetry.controller.LoadAutoscaler` the
+        loop closes instead: every decision window the telemetry
+        registry reads the boundary signals and the controller picks
+        scale / rebalance / split (DESIGN.md 13.3).  No chunk crosses a
+        reconfigure.  Either way ``source_fn`` must size its batches by
+        the *current* ``self.n_shards``."""
+        pol = self.cfg.autoscale
+        self._live_handle = handle
+        if pol is None:
+            return self._run_span(state, source_fn, n_ticks,
+                                  start_tick=start_tick, handle=handle)
+        if isinstance(pol, LoadAutoscaler):
+            return self._run_closed_loop(state, source_fn, n_ticks, pol,
+                                         start_tick=start_tick,
+                                         handle=handle)
+        end = start_tick + n_ticks
+        marks = {t for t in pol.scale_at if start_tick <= t < end}
+        if pol.rebalance_every:
+            marks |= {t for t in range(start_tick, end)
+                      if t > start_tick
+                      and (t - start_tick) % pol.rebalance_every == 0}
+        outputs: List[Dict[str, Any]] = []
+        t = start_tick
+        self.tick_cursor = t
+        for boundary in sorted(marks) + [end]:
+            if boundary > t:
+                state, outs = self._run_span(state, source_fn,
+                                             boundary - t, start_tick=t,
+                                             handle=handle)
+                outputs.extend(outs)
+                t = boundary
+            if boundary < end:          # fire before tick `boundary` runs
+                if boundary in pol.scale_at:
+                    state, rep = self.scale(state, pol.scale_at[boundary],
+                                            drain_max=pol.drain_max)
+                else:
+                    state, rep = self.rebalance(state,
+                                                drain_max=pol.drain_max)
+                if rep is not None and pol.on_change is not None:
+                    pol.on_change(rep)
+                if handle is not None:
+                    handle.state = state
+        self.tick_cursor = max(t, self.tick_cursor)
+        return state, outputs
+
+    def _run_closed_loop(self, state, source_fn, n_ticks: int, pol, *,
+                         start_tick: int = 0, handle=None):
+        """Observe -> decide -> act (DESIGN.md 13.3): run one decision
+        window of source ticks, take the boundary telemetry reading, and
+        let the :class:`LoadAutoscaler` choose an actuator.  The sketch
+        ages at every window so heat stays recent.  Without
+        ``max_shards`` the ceiling is the physical slot count when the
+        run starts (the JAX package's visible devices): the loop
+        reactivates parked slots but does not grow."""
+        assert self.telemetry is not None
+        outputs: List[Dict[str, Any]] = []
+        t = start_tick
+        end = start_tick + n_ticks
+        limit = pol.max_shards or self.n_shards
+        lead = self._lead_axis_size()
+        if lead > 1:
+            # multi-axis meshes grow along their trailing axis, so the
+            # reachable ceiling is the largest multiple of the leading
+            # axes' product (never below the current physical size)
+            limit = max(self.n_shards, (limit // lead) * lead)
+        while t < end:
+            n = min(pol.window - (t - start_tick) % pol.window, end - t)
+            state, outs = self._run_span(state, source_fn, n,
+                                         start_tick=t, handle=handle)
+            outputs.extend(outs)
+            t += n
+            with self._span("telemetry_observe", tick=t):
+                report = self.telemetry.observe(self, state)
+            if "sketch" in state:
+                state = dict(state)
+                state["sketch"] = sk_mod.decay(state["sketch"],
+                                               self.tele_cfg.decay)
+            action = pol.decide(
+                report, n_active=len(self.active_shards), limit=limit,
+                can_split=(self.dur is None and self._hot_capacity > 0),
+                already_split=tuple(self.split_key_set()))
+            rep = None
+            if action is not None and t < end:
+                t0 = time.perf_counter()
+                if action.kind == "scale":
+                    state, rep = self.scale(state, action.target,
+                                            drain_max=pol.drain_max)
+                elif action.kind == "rebalance":
+                    w = pol.heat_weights(report, owners=self.heat_owners)
+                    state, rep = self.rebalance(state, weights=w,
+                                                drain_max=pol.drain_max)
+                elif action.kind == "split":
+                    state, rep = self.split_keys(state, action.keys)
+                self.telemetry.note_pause(
+                    rep.pause_s if rep is not None
+                    else time.perf_counter() - t0,
+                    bytes_moved=rep.bytes_moved if rep is not None else 0)
+                self.telemetry.rebase(self, state)
+                if rep is not None and pol.on_change is not None:
+                    pol.on_change(rep)
+                if handle is not None:
+                    handle.state = state
+            if self._ctl_log is not None:
+                self._ctl_log.log({
+                    "tick": t,
+                    "pressure": [float(x) for x in
+                                 np.asarray(report.pressure).ravel()],
+                    "event_latency_p99": report.event_latency_p99,
+                    "queue_depth": float(
+                        np.asarray(report.queue_depth).sum()),
+                    "n_active": len(self.active_shards),
+                    "action": None if action is None else {
+                        "kind": action.kind, "target": action.target,
+                        "keys": [int(k) for k in action.keys],
+                        "reason": action.reason},
+                    "applied": None if rep is None else {
+                        "path": rep.path, "pause_s": rep.pause_s,
+                        "moved_rows": rep.moved_rows,
+                        "bytes_moved": rep.bytes_moved},
+                })
+        self.tick_cursor = t
+        return state, outputs
 
     def _run_span(self, state, source_fn, n_ticks: int, *,
                   start_tick: int = 0, handle=None):
         outputs: List[Dict[str, Any]] = []
         src_t, end = start_tick, start_tick + n_ticks
+        self._live_handle = handle
         eng_tick = int(state["tick"].max().item()) \
             if self.dur is not None else 0
-        observe = self.telemetry is not None
+        # a closed-loop controller observes at its own decision windows
+        observe = (self.telemetry is not None
+                   and not isinstance(self.cfg.autoscale, LoadAutoscaler))
         window = self.tele_cfg.window if observe else 0
         obs_mark = start_tick
         while src_t < end:
@@ -954,6 +1317,8 @@ class DistributedEngine:
     def close(self):
         if self.dur is not None:
             self.dur.close()
+        if self._ctl_log is not None:
+            self._ctl_log.close()
 
     # ---- failure (host side; the master of paper section 4.3) ----
     def fail_shard(self, state, shard: int):
@@ -984,27 +1349,610 @@ class DistributedEngine:
             load += g(q.peak) + g(q.size) + 4.0 * g(q.dropped)
         return load
 
-    # ---- live elasticity: ROADMAP queue 1 item 15b ----
+    # ---- live elasticity (DESIGN.md section 12) ----
     def scale(self, state, new_n_shards: int, *, drain_max: int = 64):
-        raise NotImplementedError(ELASTICITY_TODO)
+        """Live resize to ``new_n_shards`` *active* shards, loss-free.
+
+        Scale-up reactivates dead slots first (a ring swap, shapes
+        kept), then grows the physical slot count if needed (the one
+        move that widens the state).  Scale-down deactivates the
+        highest-numbered active shards and migrates everything off
+        them.  Returns ``(state, MigrationReport)``."""
+        if new_n_shards < 1:
+            raise ValueError("need at least one active shard")
+        active = self.active_shards
+        if new_n_shards == len(active):
+            return state, self._report(0, {}, {}, recompiled=False)
+        if new_n_shards < len(active):
+            return self.remove_shards(state, active[new_n_shards:],
+                                      drain_max=drain_max)
+        dead = [s for s in range(self.n_shards) if not self.ring.alive[s]]
+        activate = dead[:new_n_shards - len(active)]
+        grow_to = new_n_shards if len(active) + len(activate) \
+            < new_n_shards else None
+        return self._reconfigure(state, grow_to=grow_to,
+                                 activate=activate, drain_max=drain_max)
 
     def add_shards(self, state, k: int, *, drain_max: int = 64):
-        raise NotImplementedError(ELASTICITY_TODO)
+        """Grow the active shard set by ``k`` (elastic join)."""
+        return self.scale(state, len(self.active_shards) + k,
+                          drain_max=drain_max)
 
     def remove_shards(self, state, shards, *, drain_max: int = 64):
-        raise NotImplementedError(ELASTICITY_TODO)
+        """Planned leave: migrate the given shards' slates and queued
+        events to the survivors, then deactivate them — loss-free,
+        unlike :meth:`fail_shard`.  The slots stay allocated (rejoin
+        them with :meth:`scale`) unless the dead share reaches
+        ``compact_threshold``."""
+        shards = [int(s) for s in np.atleast_1d(shards)]
+        for s in shards:
+            if s >= self.n_shards or not self.ring.alive[s]:
+                raise ValueError(f"shard {s} is not active")
+        if len(self.active_shards) - len(shards) < 1:
+            raise ValueError("cannot remove every active shard")
+        return self._reconfigure(state, deactivate=shards,
+                                 drain_max=drain_max)
 
-    def rebalance(self, state, **kwargs):
-        raise NotImplementedError(ELASTICITY_TODO)
+    def _rebase_load_window(self, state, load: Optional[np.ndarray] = None):
+        """Restart the rebalance load window at the current pressure, so
+        the next window's delta measures only load accrued after this
+        point (queue peaks restart at migrations, and back-to-back
+        ``rebalance()`` calls must see an empty window)."""
+        self._load_mark = self.shard_load(state) if load is None else load
+
+    def rebalance(self, state, *, gain: float = 0.5, floor: float = 0.25,
+                  cap: float = 4.0, drain_max: int = 64, weights=None):
+        """Load-aware ring reweighting: shards whose queues ran hot since
+        the last rebalance shed vnode arcs (key ranges) to cold shards.
+        A ring swap and a row migration, shapes kept.  ``weights``:
+        explicit per-shard targets (e.g. ``LoadAutoscaler.heat_weights``)
+        in place of the queue-delta heuristic, clipped to ``[floor,
+        cap]``.  A reweight that would move no vnode is skipped.
+        Returns ``(state, report_or_None)``."""
+        alive = self.ring.alive
+        if weights is not None:
+            w = np.clip(np.asarray(weights, np.float64), floor, cap)
+            target = np.where(alive, w, self.ring.weights)
+        else:
+            load = self.shard_load(state)
+            if load.shape != self._load_mark.shape:
+                self._load_mark = np.zeros_like(load)
+            delta = np.clip(load - self._load_mark, 0.0, None)
+            mean = float(delta[alive].mean()) if alive.any() else 0.0
+            if mean <= 0.0:
+                self._rebase_load_window(state, load)
+                return state, None
+            # cold shards (delta < mean) gain weight, hot shards lose it;
+            # gain damps the step, floor/cap bound the skew; dead slots
+            # keep their stored weight (their zero load is absence)
+            ratio = (mean + 1.0) / (delta + 1.0)
+            target = self.ring.weights * np.power(ratio, gain)
+            target = np.clip(target / target[alive].mean(), floor, cap)
+            target = np.where(alive, target, self.ring.weights)
+        if np.array_equal(self.ring.vnode_counts(),
+                          self.ring.counts_for(target)):
+            self._rebase_load_window(state)
+            return state, None
+        return self._reconfigure(state, weights=target,
+                                 drain_max=drain_max)
 
     def clear_split(self, state, *, drain_max: int = 64):
-        raise NotImplementedError(ELASTICITY_TODO)
+        """Deactivate every hot-key split and converge the partials: one
+        same-ring reconfigure whose table rebuild folds duplicate keys
+        with the updater's combine, so each formerly split key ends up
+        whole on its owner shard again."""
+        if not self._hot_valid.any():
+            return state, None
+        with self.read_lock:
+            self._hot_valid = np.zeros_like(self._hot_valid)
+            self._hot_dev = None
+            self._hot_table()
+        return self._reconfigure(state, drain_max=drain_max)
 
-    def compact(self, state, **kwargs):
-        raise NotImplementedError(ELASTICITY_TODO)
+    def compact(self, state, *, drain_max: int = 64):
+        """Force physical slot compaction (DESIGN.md 14.2): shrink the
+        state to the current active shard set, freeing the parked slots'
+        memory, whatever ``compact_threshold`` says.  A no-op (``path``
+        ``"none"``) when every slot is active.  Returns ``(state,
+        MigrationReport)``."""
+        if len(self.active_shards) == self.n_shards:
+            return state, self._report(0, {}, {}, recompiled=False,
+                                       path="none")
+        return self._reconfigure(state, drain_max=drain_max,
+                                 force_compact=True)
 
-    def _reconfigure(self, state, **kwargs):
-        raise NotImplementedError(ELASTICITY_TODO)
+    def _report(self, drain_ticks, moved_rows, moved_events, *,
+                recompiled: bool, pause_s: float = 0.0,
+                bytes_moved: int = 0, path: str = "host"
+                ) -> MigrationReport:
+        return MigrationReport(
+            n_shards=self.n_shards, active=self.active_shards,
+            drain_ticks=drain_ticks, moved_rows=moved_rows,
+            moved_events=moved_events, recompiled=recompiled,
+            pause_s=pause_s, bytes_moved=bytes_moved, path=path)
+
+    def _reconfigure(self, state, *, grow_to: Optional[int] = None,
+                     activate=(), deactivate=(), weights=None,
+                     drain_max: int = 64, force_compact: bool = False):
+        """The migration behind scale / remove / rebalance / clear_split:
+
+        1. drain-barrier the queues (and flush, with durability);
+        2. swap in the new ring (membership, weights, physical size);
+        3. re-home slate rows and queued events to their new owners: on
+           the device when the physical shapes are kept
+           (:func:`exchange_rows`, :func:`exchange_queue`), else the host
+           remap, which rebuilds each table on the engine's device;
+        4. copy the new ring (and the split set) to the device, outside
+           any tick, and resume.
+
+        Both tiers give bitwise-identical slates (DESIGN.md 14.3).  Runs
+        under ``read_lock``: a concurrent reader sees the state before
+        or after the migration, never a half-swapped ring; a published
+        ``StateHandle`` is re-pointed before the lock is released."""
+        with self.read_lock:
+            with self._span("reconfigure") as sp:
+                state, report = self._reconfigure_impl(
+                    state, grow_to=grow_to, activate=activate,
+                    deactivate=deactivate, weights=weights,
+                    drain_max=drain_max, force_compact=force_compact)
+                sp["pause_s"] = report.pause_s
+                sp["path"] = report.path
+                sp["n_shards"] = report.n_shards
+                sp["drain_ticks"] = report.drain_ticks
+            if self._live_handle is not None:
+                self._live_handle.state = state
+        return state, report
+
+    def _reconfigure_impl(self, state, *, grow_to=None, activate=(),
+                          deactivate=(), weights=None, drain_max=64,
+                          force_compact=False):
+        t_start = time.perf_counter()
+        state, drained = self._drain_queues(state, drain_max)
+        if self.dur is not None:
+            tick = int(state["tick"].max().item())
+            # the barrier retired every source fed so far: the frontier's
+            # source cursor advances to the current one (monotone)
+            prev = (self.dur.frontier.meta or {}).get("source_tick", 0)
+            meta = {"source_tick": max(int(prev), int(self.tick_cursor))}
+            state, _ = self._flush_boundary(state, tick, meta=meta)
+        old_n = self.n_shards
+
+        grew = grow_to is not None and grow_to > old_n
+        if grew:
+            self._grow_physical(grow_to)
+        for s in activate:
+            self.ring.join(int(s))
+        for s in deactivate:
+            self.ring.fail(int(s))
+        if weights is not None:
+            self.ring.set_weights(weights)
+
+        compacting = False
+        if not grew:
+            n_active = len(self.active_shards)
+            dead_frac = 1.0 - n_active / self.n_shards
+            want = force_compact or (
+                self.cfg.compact_threshold > 0.0
+                and dead_frac >= self.cfg.compact_threshold)
+            if want and n_active < self.n_shards:
+                lead = self._lead_axis_size()
+                if n_active % lead == 0:
+                    compacting = True
+                elif force_compact:
+                    raise ValueError(
+                        f"cannot compact to {n_active} shards on a "
+                        f"multi-axis mesh: the active count must be a "
+                        f"multiple of the leading axes' product {lead}")
+
+        if not grew and not compacting \
+                and self.cfg.device_migration != "off":
+            state, moved_rows, moved_events, bytes_moved = \
+                self._migrate_device(state)
+            path = "device"
+        else:
+            host = tree_map(lambda x: x.cpu().numpy().copy(), state)
+            slot_map = None
+            if grew:
+                host = self._host_grow(host, old_n)
+            if compacting:
+                host, slot_map = self._compact_physical(host)
+            moved_rows = self._migrate_tables_host(host["tables"],
+                                                   slot_map=slot_map)
+            moved_events = self._migrate_queues_host(host["queues"],
+                                                     slot_map=slot_map)
+            bytes_moved = self._bytes_of(moved_rows, moved_events)
+            state = tree_map(
+                lambda a: torch.from_numpy(a).to(self.device)
+                if isinstance(a, np.ndarray) else a, host)
+            path = "host"
+        if self.dur is not None:
+            self.dur.resize(self.n_shards)
+        # the ring and the split set changed: copy them to the device now,
+        # so the next tick finds them there and never syncs the host
+        self._upload_ring()
+        self._hot_dev = None
+        self._hot_table()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # queue peaks restarted at the migration: rebase the rebalance
+        # window on the post-migration load
+        self._rebase_load_window(state)
+        return state, self._report(
+            drained, moved_rows, moved_events,
+            recompiled=grew or compacting,
+            pause_s=time.perf_counter() - t_start,
+            bytes_moved=bytes_moved, path=path)
+
+    def _reset_queue_peaks(self, state):
+        """Rebase every queue's high-water mark at its current backlog
+        (a tensor of its own: the tick updates state in place)."""
+        state = dict(state)
+        state["queues"] = {
+            name: q_mod.QueueState(buf=q.buf, head=q.head, size=q.size,
+                                   dropped=q.dropped, peak=q.size.clone())
+            for name, q in state["queues"].items()}
+        return state
+
+    def _lead_axis_size(self) -> int:
+        """Product of every mesh axis size but the trailing one: the
+        granularity physical grow and compaction must respect."""
+        return int(np.prod([self.mesh.shape[a] for a in self.axes[:-1]],
+                           dtype=np.int64)) if len(self.axes) > 1 else 1
+
+    def _spec_bytes(self, spec) -> int:
+        leaves = pytree.tree_flatten(spec, is_leaf=tbl._is_spec_leaf)[0]
+        return sum(int(np.prod(shp, dtype=np.int64))
+                   * torch_dtype(dt).itemsize for shp, dt in leaves)
+
+    def _row_bytes(self, up) -> int:
+        # key + ts + dirty + the slate
+        return self.key_dtype.itemsize + 4 + 1 + \
+            self._spec_bytes(up.slate_spec())
+
+    def _event_bytes(self, op) -> int:
+        # sid + ts + key + valid + the value
+        return 4 * 2 + self.key_dtype.itemsize + 1 + \
+            self._spec_bytes(op.in_value_spec)
+
+    def _bytes_of(self, moved_rows, moved_events) -> int:
+        total = sum(moved_rows.get(up.name, 0) * self._row_bytes(up)
+                    for up in self.wf.updaters())
+        total += sum(moved_events.get(op.name, 0) * self._event_bytes(op)
+                     for op in self.wf.operators)
+        return total
+
+    def _migrate_device(self, state):
+        """The device tier (DESIGN.md 14.1): count row movers and queued
+        events per (source, destination) over every shard's table and
+        queue at once, with one host read; pick power-of-two bucket
+        capacities (the JAX package's jit-cache buckets, kept so the
+        bucket shapes match); then :func:`exchange_rows` for every
+        updater and :func:`exchange_queue` for every queue.  Slates and
+        events never leave the device.  Returns ``(state, moved_rows,
+        moved_events, bytes_moved)``."""
+        updaters, operators = list(self.wf.updaters()), list(self.wf.operators)
+        rh, rs = self.ring.table(self.device)
+        tables, queues = state["tables"], state["queues"]
+        n = self.n_shards
+        me = torch.arange(n, device=self.device)[:, None]
+
+        def per_pair(dest, mask):
+            pair = torch.where(mask, me * n + dest, n * n).reshape(-1)
+            return torch.zeros(n * n + 1, dtype=torch.int64,
+                               device=self.device).index_add_(
+                0, pair, torch.ones_like(pair))[:n * n]
+
+        counts = []
+        for up in updaters:
+            t = tables[up.name]
+            keys = t.keys[:, :t.capacity]
+            owner = route(keys, _salt(up.name), rh, rs).long()
+            counts.append(per_pair(owner, (keys != tbl.EMPTY)
+                                   & (owner != me)))
+        for op in operators:
+            q = queues[op.name]
+            Q = q.buf.key.shape[1] - 1
+            ar = torch.arange(Q, dtype=torch.int32, device=self.device)
+            pos = ((q.head[:, None] + ar) % Q).long()
+            owner = route(q.buf.key[me, pos], _salt(op.name), rh, rs).long()
+            # every live event, stayers too: exchange_queue routes them
+            # all through the buckets, so the cap must cover them
+            counts.append(per_pair(owner, ar < q.size[:, None]))
+        plan = torch.stack(counts).cpu().numpy().reshape(-1, n, n)
+        row_plan = dict(zip([u.name for u in updaters], plan))
+        ev_plan = dict(zip([o.name for o in operators],
+                           plan[len(updaters):]))
+        moved = {name: int(c.sum()) for name, c in row_plan.items()}
+        # event movers exclude the diagonal (stayers route to self)
+        moved_ev = {name: int(c.sum() - np.trace(c))
+                    for name, c in ev_plan.items()}
+        maxc = max((int(c.max()) for c in row_plan.values()), default=0)
+        ev_maxc = max((int(c.max()) for c in ev_plan.values()), default=0)
+        bytes_moved = self._bytes_of(moved, moved_ev)
+        if maxc == 0 and sum(moved_ev.values()) == 0:
+            # nothing re-homes: tables and queues stand
+            return self._reset_queue_peaks(state), moved, moved_ev, 0
+
+        def pow2(c):
+            cap = 8
+            while cap < c:
+                cap *= 2
+            return cap
+        cap_rows = pow2(maxc) if maxc else 0
+        cap_ev = pow2(ev_maxc) if ev_maxc else 0
+        state = dict(state)
+        if cap_rows:
+            state["tables"] = {
+                up.name: exchange_rows(tables[up.name], _salt(up.name), rh,
+                                       rs, n, cap_rows,
+                                       getattr(up, "combine", None))[0]
+                for up in updaters}
+        if cap_ev:
+            state["queues"] = {
+                op.name: exchange_queue(queues[op.name], _salt(op.name), rh,
+                                        rs, n, cap_ev)[0]
+                for op in operators}
+        else:       # no backlog anywhere: rebase the peaks
+            state = self._reset_queue_peaks(state)
+        return state, moved, moved_ev, bytes_moved
+
+    def _grow_physical(self, new_n: int):
+        """More shard slots: the leading dimension widens (every slot is
+        on the engine's one device, so no device count bounds it).
+        Multi-axis meshes grow along their trailing axis (``('pod',
+        'data')`` keeps the pod count and widens each pod), so ``new_n``
+        must be a multiple of the leading axes' product."""
+        lead = self._lead_axis_size()
+        if new_n % lead:
+            raise ValueError(
+                f"multi-axis mesh {self.mesh.shape} grows along its "
+                f"trailing axis {self.axes[-1]!r}: target {new_n} must be "
+                f"a multiple of {lead}")
+        self.mesh = Mesh(self.axes, tuple(
+            self.mesh.shape[a] for a in self.axes[:-1]) + (new_n // lead,))
+        self.n_shards = new_n
+        self.ring.grow(new_n)
+        self._reset_for_new_shape()
+
+    def _reset_for_new_shape(self):
+        """Shared tail of grow and compaction: what depends on the shard
+        count (the bucket capacity; the ring's device tables, which the
+        ring's rebuild dropped, and the split set are copied again at the
+        end of the reconfigure)."""
+        cap = int(self.cfg.batch_size * self.cfg.exchange_slack
+                  / self.n_shards)
+        self.cap_per_dest = max(8, cap)
+        self._hot_dev = None
+
+    def _compact_physical(self, host):
+        """Physical slot compaction (DESIGN.md 14.2): renumber the active
+        shards onto a smaller state — the inverse of :meth:`_host_grow`,
+        and the move that frees parked memory.  The ring is rebuilt at
+        the new size (weights carried).
+
+        Tables and queues stay at the *old* size here (dead slots may
+        still hold rows); the host migrators the caller runs next scan
+        every old slice.  Lifetime counters (the sketch's counts / total
+        / sample_n, ``processed``, ``exchange_dropped``,
+        ``throttle_hits``, ``deferred``, the table and queue ``dropped``
+        tallies) fold from the dead slots into the first survivor before
+        the slicing; the sketch's key sample is sliced.  Returns
+        ``(host, slot_map)``: ``slot_map[d]`` is the old slot renumbered
+        to new slot ``d``."""
+        actives = self.active_shards
+        k, old_n = len(actives), self.n_shards
+        lead = self._lead_axis_size()
+        self.mesh = Mesh(self.axes, tuple(
+            self.mesh.shape[a] for a in self.axes[:-1]) + (k // lead,))
+        self.n_shards = k
+        self.ring = HashRing(k, vnodes=self.ring.vnodes,
+                             weights=self.ring.weights[actives],
+                             seed=self.ring.seed)
+        self._reset_for_new_shape()
+        idx = np.asarray(actives, np.int64)
+        dead = np.asarray(sorted(set(range(old_n)) - set(actives)),
+                          np.int64)
+
+        def sel(a):
+            return a[idx] if a.ndim >= 1 and a.shape[0] == old_n else a
+
+        def fold(a):
+            a = a.copy()
+            if dead.size and a.ndim >= 1 and a.shape[0] == old_n:
+                a[idx[0]] += a[dead].sum(axis=0).astype(a.dtype)
+            return sel(a)
+
+        counters = {"exchange_dropped", "throttle_hits", "deferred",
+                    "processed"}
+        out = {}
+        for key, val in host.items():
+            if key in ("tables", "queues"):
+                out[key] = val
+            elif key in counters:
+                out[key] = tree_map(fold, val)
+            elif key == "sketch":
+                out[key] = {nm: fold(lf) if nm != "sample" else sel(lf)
+                            for nm, lf in val.items()}
+            else:
+                out[key] = tree_map(sel, val)
+        # the table and queue drop tallies stay at the old size for the
+        # host migrators, which give new slot d old slot_map[d]'s: park
+        # the dead slots' counts on the first survivor
+        if dead.size:
+            for part in ("tables", "queues"):
+                for x in host[part].values():
+                    x.dropped[idx[0]] += x.dropped[dead].sum(axis=0) \
+                        .astype(x.dropped.dtype)
+                    x.dropped[dead] = 0
+        out["tick"] = np.full((k,), int(host["tick"].max()), np.int32)
+        return out, [int(a) for a in actives]
+
+    def _host_grow(self, host, old_n: int):
+        """Pad every ``[old_n, ...]`` leaf to the new physical size:
+        zeros for the new slots' queues, tables and counters (their
+        table keys ``EMPTY``), the tick carried over."""
+        pad_n = self.n_shards - old_n
+
+        def pad(leaf, fill=0):
+            if not (leaf.ndim >= 1 and leaf.shape[0] == old_n):
+                return leaf
+            ext = np.full((pad_n,) + leaf.shape[1:], fill, leaf.dtype)
+            return np.concatenate([leaf, ext])
+
+        out = tree_map(pad, host)
+        out["tick"] = pad(host["tick"], fill=int(host["tick"].max()))
+        for t in out["tables"].values():
+            t.keys[old_n:] = tbl.EMPTY          # new slots start empty
+        return out
+
+    def _migrate_tables_host(self, tables, slot_map=None) -> Dict[str, int]:
+        """Re-home slate rows whose ring owner changed (the host tier).
+
+        Every shard's table is rebuilt from scratch, on the engine's
+        device, rather than patched in place: deleting a moved-out row
+        from an open-addressing table would cut the probe chains of the
+        rows behind it.  Values move bit-exactly, ``ts`` and ``dirty``
+        carry; same-key rows converging on one shard fold with the
+        updater's combine (else last-ts-wins); rows a table cannot place
+        are dropped and counted.  The input may have more slices than
+        ``self.n_shards`` (compaction): every old slice is scanned and
+        ``slot_map[d]`` names the old slot whose ``dropped`` tally new
+        slot ``d`` inherits."""
+        moved: Dict[str, int] = {}
+        n = self.n_shards
+        smap = np.asarray(slot_map if slot_map is not None else range(n),
+                          np.int64)
+        for up in self.wf.updaters():
+            t = tables[up.name]
+            keys = t.keys[:, :-1]                   # the sink row aside
+            old2new = np.full(keys.shape[0], -1, np.int64)
+            old2new[smap] = np.arange(n)
+            sh, slot = np.nonzero(keys != tbl.EMPTY)
+            moved[up.name] = 0
+            if len(sh) == 0:
+                if keys.shape[0] != n:
+                    tables[up.name] = _stack([self._build_local_table(
+                        up, int(t.dropped[smap[d]]), keys[0, :0],
+                        t.ts[0, :0], t.dirty[0, :0],
+                        tree_map(lambda v: v[0, :0], t.vals))
+                        for d in range(n)])
+                continue
+            ts, dirty = t.ts[sh, slot], t.dirty[sh, slot]
+            vals = tree_map(lambda v: v[sh, slot], t.vals)
+            rkeys = keys[sh, slot]
+            owner = self.ring.owners(rkeys, _salt(up.name))
+            moved[up.name] = int((owner != old2new[sh]).sum())
+            out = []
+            for d in range(n):
+                pick = np.nonzero(owner == d)[0]
+                out.append(self._build_local_table(
+                    up, int(t.dropped[smap[d]]), rkeys[pick], ts[pick],
+                    dirty[pick], tree_map(lambda v: v[pick], vals)))
+            tables[up.name] = _stack(out)
+        return moved
+
+    def _build_local_table(self, up, dropped0: int, in_keys, in_ts,
+                           in_dirty, in_vals) -> tbl.SlateTable:
+        """One shard's fresh table on the engine's device from migrated
+        rows: duplicate keys (partials converging here) folded in
+        first-seen order with the updater's combine, then inserted in
+        chunks of 256 rows; rows flushed before the move stay clean."""
+        combine = getattr(up, "combine", None)
+        first: Dict[int, int] = {}
+        in_ts, in_dirty = np.array(in_ts), np.array(in_dirty)
+        leaves, spec = pytree.tree_flatten(tree_map(np.array, in_vals))
+        row = lambda j: pytree.tree_unflatten(
+            [torch.from_numpy(np.array(lf[j])) for lf in leaves], spec)
+        for i, k in enumerate(in_keys.tolist()):
+            if k in first:
+                j = first[k]
+                if combine is not None:
+                    merged = pytree.tree_flatten(combine(row(j), row(i)))[0]
+                else:
+                    merged = pytree.tree_flatten(
+                        row(i) if in_ts[i] >= in_ts[j] else row(j))[0]
+                for lf, rw in zip(leaves, merged):
+                    lf[j] = rw.numpy()
+                in_ts[j] = max(in_ts[j], in_ts[i])
+                in_dirty[j] = True
+            else:
+                first[k] = i
+        uniq = np.asarray(sorted(first.values()), np.int64)
+        dev = self.device
+        on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        keys, ts = on(np.asarray(in_keys)[uniq]), on(in_ts[uniq])
+        clean = on(~in_dirty[uniq])
+        vals = pytree.tree_unflatten([on(lf[uniq]) for lf in leaves], spec)
+
+        local = tbl.make_table(up.table_capacity, up.slate_spec(),
+                               key_dtype=self.key_dtype, device=dev)
+        drops = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(0, len(uniq), 256):
+            k = keys[i:i + 256]
+            local, slot, _, placed = tbl.insert_or_find(
+                local, k, torch.ones(k.shape, dtype=torch.bool, device=dev))
+            local = tbl.write_slates(
+                local, slot, placed, tree_map(lambda v: v[i:i + 256], vals),
+                ts[i:i + 256])
+            # write_slates marks landed rows dirty; rows flushed before
+            # the move stay clean (they still match the store)
+            keep_clean = clean[i:i + 256] & placed
+            tbl.fill_rows(local.dirty, torch.where(
+                keep_clean, slot, local.capacity), False)
+            drops = drops + (~placed).sum(dtype=torch.int32)
+        local.dropped = drops + dropped0
+        return local
+
+    def _migrate_queues_host(self, queues, slot_map=None) -> Dict[str, int]:
+        """Re-home queued events (what the drain barrier could not
+        retire) through the new ring, rebuilding each queue compacted at
+        head 0 in (source shard, dequeue order).  ``dropped`` carries;
+        ``peak`` restarts at the new backlog.  Like the table migrator,
+        the input may have more slices than ``self.n_shards``
+        (compaction)."""
+        moved: Dict[str, int] = {}
+        n = self.n_shards
+        smap = np.asarray(slot_map if slot_map is not None else range(n),
+                          np.int64)
+        for op in self.wf.operators:
+            q = queues[op.name]
+            sizes, heads = q.size, q.head
+            cap = q.buf.key.shape[1] - 1            # the sink row aside
+            moved[op.name] = 0
+            old2new = np.full(len(sizes), -1, np.int64)
+            old2new[smap] = np.arange(n)
+            new_sizes = np.zeros(n, np.int32)
+            new_drop = q.dropped[smap].copy()
+            if int(sizes.sum()) == 0:
+                queues[op.name] = q_mod.QueueState(
+                    buf=tree_map(lambda x: x[smap], q.buf),
+                    head=np.zeros(n, np.int32), size=new_sizes,
+                    dropped=new_drop, peak=np.zeros(n, np.int32))
+                continue
+            fields, spec = pytree.tree_flatten(q.buf)
+            src = np.concatenate([np.full(sizes[s], s, np.int64)
+                                  for s in range(len(sizes))])
+            at = np.concatenate([(heads[s] + np.arange(sizes[s])) % cap
+                                 for s in range(len(sizes))]).astype(np.int64)
+            cat = [f[src, at] for f in fields]
+            dest = self.ring.owners(q.buf.key[src, at], _salt(op.name))
+            moved[op.name] = int((dest != old2new[src]).sum())
+            # rebuild each destination queue: stayers and movers, FIFO
+            bufs = [np.zeros((n, cap + 1) + f.shape[2:], f.dtype)
+                    for f in fields]
+            for d in range(n):
+                pick = np.nonzero(dest == d)[0]
+                if len(pick) > cap:
+                    new_drop[d] += len(pick) - cap
+                    pick = pick[:cap]
+                for b, c in zip(bufs, cat):
+                    b[d, :len(pick)] = c[pick]
+                new_sizes[d] = len(pick)
+            queues[op.name] = q_mod.QueueState(
+                buf=pytree.tree_unflatten(bufs, spec),
+                head=np.zeros(n, np.int32), size=new_sizes,
+                dropped=new_drop, peak=new_sizes.copy())
+        return moved
 
     # ---- runtime hot-key splitting (DESIGN.md 13.4) ----
     def split_keys(self, state, keys):
@@ -1013,8 +1961,8 @@ class DistributedEngine:
         spread over the key's primary *and* secondary ring shard;
         ``read_slate`` merges the partials with the updater's combine.
         A content-only swap of a fixed-shape set, in effect from the
-        next tick.  Returns ``(state, None)``.  Undoing a split
-        (``clear_split``, which migrates the partials) is item 15b."""
+        next tick.  Returns ``(state, None)``; undo with
+        :meth:`clear_split`."""
         if self._hot_capacity == 0:
             raise ValueError(
                 "split_keys needs the hot-key split path in the tick: "

@@ -27,9 +27,29 @@ one device (a WAL a shard), fed the same global events each tick
 
     python -m repro_torch.launch.stream --dir /tmp/m --ticks 64 --shards 8
 
-The live-elasticity options of the JAX launcher (``--scale-at``,
-``--rebalance-every``, ``--autoscale``) need ROADMAP queue 1 item 15b:
-they exit with a usage error that says so.
+Live elasticity (DESIGN.md section 12) on the same shards::
+
+    python -m repro_torch.launch.stream --dir /tmp/m --ticks 64 \
+        --shards 8 --scale-at 24:16 --scale-at 48:8
+
+Each ``--scale-at TICK:N`` rescales the active shard set live before
+source tick TICK, migrating slates and in-flight events loss-free;
+``--rebalance-every K`` reweights the ring from the per-shard load
+signal every K ticks.  Growing needs no devices: every shard lives on
+``--device``.
+
+Closed-loop autoscaling (DESIGN.md section 13) replaces the declared
+schedule with watermarks on the telemetry pressure signal::
+
+    python -m repro_torch.launch.stream --dir /tmp/m --ticks 48 \
+        --shards 2 --autoscale load:0.75,0.2
+
+``--autoscale load:HI,LO`` attaches a ``LoadAutoscaler``: the active
+shard set grows when windowed per-shard pressure stays above HI and
+shrinks back once it stays below LO (hysteresis: dwell + cooldown); the
+final telemetry report is printed with the stats.  Without
+``max_shards`` the controller's ceiling is the shard count the run
+starts with.
 """
 from __future__ import annotations
 
@@ -39,10 +59,8 @@ import json
 import numpy as np
 import torch
 
-from repro_torch import App, EventBatch, RuntimeConfig
-
-ELASTIC = ("needs live elasticity, which is ported by ROADMAP queue 1 "
-           "item 15b")
+from repro_torch import (App, AutoscalePolicy, EventBatch, LoadAutoscaler,
+                         RuntimeConfig)
 
 
 def make_app(args) -> App:
@@ -62,6 +80,22 @@ def make_app(args) -> App:
         return {"count": torch.ones_like(batch.key, dtype=torch.int32),
                 "sum": batch.value["x"]}
 
+    def on_change(rep):
+        print(f"reconfigured: active={len(rep.active)} shards, moved "
+              f"{sum(rep.moved_rows.values())} rows + "
+              f"{sum(rep.moved_events.values())} queued events "
+              f"({'recompiled' if rep.recompiled else 'ring swap only'})")
+
+    autoscale = None
+    if args.autoscale is not None:
+        hi, lo = args.autoscale
+        autoscale = LoadAutoscaler(high=hi, low=lo, window=4, dwell=1,
+                                   cooldown=1, on_change=on_change)
+    elif args.scale_at or args.rebalance_every:
+        autoscale = AutoscalePolicy(
+            scale_at=dict(args.scale_at or ()),
+            rebalance_every=args.rebalance_every,
+            on_change=on_change)
     telemetry = None
     if getattr(args, "trace", None):
         from repro_torch.telemetry import TelemetryConfig
@@ -70,6 +104,7 @@ def make_app(args) -> App:
                             queue_capacity=args.batch * 4,
                             chunk_size=args.chunk,
                             shards=args.shards,
+                            autoscale=autoscale,
                             telemetry=telemetry,
                             durable_dir=args.dir,
                             flush_every=args.flush_every,
@@ -102,6 +137,28 @@ def source_fn_sharded(t, app, batch, device=None):
     return {"S1": shaped}
 
 
+def parse_scale_at(spec: str):
+    try:
+        tick, n = spec.split(":")
+        return int(tick), int(n)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--scale-at wants TICK:N (e.g. 24:16), got {spec!r}")
+
+
+def parse_autoscale(spec: str):
+    try:
+        mode, rest = spec.split(":")
+        if mode != "load":
+            raise ValueError
+        hi, lo = (float(x) for x in rest.split(","))
+        return hi, lo
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--autoscale wants load:HI,LO (e.g. load:0.75,0.2), "
+            f"got {spec!r}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dir", required=True,
@@ -117,12 +174,18 @@ def main(argv=None):
     ap.add_argument("--shards", type=int, default=1,
                     help="shard count (>1 = DistributedEngine, every "
                          "shard on --device)")
-    ap.add_argument("--scale-at", action="append", default=None,
-                    metavar="TICK:N", help=f"live rescale; {ELASTIC}")
+    ap.add_argument("--scale-at", type=parse_scale_at, action="append",
+                    default=None, metavar="TICK:N",
+                    help="live-rescale to N active shards before source "
+                         "tick TICK (repeatable)")
     ap.add_argument("--rebalance-every", type=int, default=0,
-                    help=f"ring reweighting; {ELASTIC}")
-    ap.add_argument("--autoscale", default=None, metavar="load:HI,LO",
-                    help=f"closed-loop autoscaling; {ELASTIC}")
+                    help="reweight the ring from the per-shard load "
+                         "signal every K source ticks")
+    ap.add_argument("--autoscale", type=parse_autoscale, default=None,
+                    metavar="load:HI,LO",
+                    help="closed-loop autoscaling: grow the active "
+                         "shard set when windowed pressure > HI, "
+                         "shrink when < LO (DESIGN.md section 13)")
     ap.add_argument("--crash-at", type=int, default=None,
                     help="hard-exit after this many source ticks "
                          "(simulated machine crash; no final flush)")
@@ -135,11 +198,14 @@ def main(argv=None):
                          "Chrome trace JSON (open in Perfetto) after "
                          "the run")
     args = ap.parse_args(argv)
-    for flag, used in (("--scale-at", args.scale_at),
-                       ("--rebalance-every", args.rebalance_every),
-                       ("--autoscale", args.autoscale is not None)):
-        if used:
-            ap.error(f"{flag} {ELASTIC}")
+    if args.autoscale is not None and args.shards < 2:
+        ap.error("--autoscale needs --shards >= 2 (a distributed "
+                 "runtime to scale)")
+    if args.autoscale is not None and (args.scale_at
+                                       or args.rebalance_every):
+        ap.error("--autoscale (closed loop) and --scale-at/"
+                 "--rebalance-every (declared schedule) are mutually "
+                 "exclusive")
 
     app = make_app(args)
     eng = app.engine
@@ -188,6 +254,11 @@ def main(argv=None):
               f"(load in Perfetto / chrome://tracing)")
 
     print(json.dumps(app.stats(), indent=2))
+    if args.autoscale is not None:
+        rep = app.telemetry()
+        print(f"telemetry: active={len(rep.active)} shards, "
+              f"pressure={np.round(rep.pressure, 3).tolist()}, "
+              f"heavy={rep.heavy_hitters[:3]}")
     for key in (0, 1, 2):
         print(f"slate[{key}] =", _show(app.read_slate("U1", key)))
     app.close()

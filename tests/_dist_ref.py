@@ -4,8 +4,9 @@ needs ``XLA_FLAGS`` before JAX starts, so never in the pytest process).
 
     python tests/_dist_ref.py OUT.pkl GROUP [ARG ...]
 
-runs every reference scenario of GROUP (``engine``, ``hotspot`` or
-``durable``) and pickles their results — states in the plain numpy form
+runs every reference scenario of GROUP (``engine``, ``hotspot``,
+``durable``, ``elastic``, ``elastic_durable`` or ``closed_loop``) and
+pickles their results — states in the plain numpy form
 of ``repro_torch.convert.to_plain``, stats, reads, outputs — to OUT.pkl.
 The feeds are numpy, made here from seeds (``feeds``), and the port's
 tests build the same ones.  Module level imports numpy only.
@@ -46,6 +47,175 @@ EXCHANGE = dict(seed=9, shards=8, per_shard=64, cap=8)
 DURABLE_TICKS, DURABLE_CRASH, DURABLE_EVERY = 12, 9, 4
 READ_KEYS = np.arange(-4, 72, dtype=np.int32)    # hits and misses
 LOOP_KEYS = READ_KEYS[::4]      # the JAX engine's per-key reads are slow
+
+
+# ---- live elasticity: scenarios both packages play through ``play`` ----
+# workflows: "U1" = one counter (count + f32 sum of x, 1,024 slots) on S1;
+# "U1U2" = two such counters; "fwd" = a forwarding mapper S1 -> S2 (ts +
+# 1) in front of the counter on S2.  ``at[t]`` lists the calls made
+# before tick t runs, ``after`` the calls after the feed; each call is
+# (method, args, kwargs) of the engine, or ("remove_loaded", (k,), kw):
+# remove the k shards with the largest backlog.
+_BASE = dict(batch_size=32, queue_capacity=256, fused="off")
+# the first keys the 4-shard ring homes on shard 3 for U1: hammered, so
+# the planned leave of shard 3 has a backlog exactly where it re-homes
+LEAVE_HOT = (8, 11, 12, 13)
+ELASTIC = {
+    # tests/test_elasticity.py::test_scale_2to4_parity_fast
+    "scale_2to4": dict(shards=2, ops="U1", cfg=_BASE,
+                       feed=dict(seed=0, ticks=6, n=32, key_hi=32),
+                       at={3: [("scale", (4,), {})]}),
+    # ::test_device_migration_parity_fast, each tier
+    "device_tier": dict(shards=4, ops="U1U2",
+                        cfg=dict(_BASE, device_migration="auto"),
+                        feed=dict(seed=3, ticks=6, n=32, key_hi=48),
+                        at={2: [("remove_shards", ([3],), {})],
+                            4: [("scale", (4,), {})]}),
+    "host_tier": dict(shards=4, ops="U1U2",
+                      cfg=dict(_BASE, device_migration="off"),
+                      feed=dict(seed=3, ticks=6, n=32, key_hi=48),
+                      at={2: [("remove_shards", ([3],), {})],
+                          4: [("scale", (4,), {})]}),
+    # ::test_grow_compact_grow_roundtrip_fast
+    "grow_compact_grow": dict(shards=2, ops="U1",
+                              cfg=dict(_BASE, compact_threshold=0.5),
+                              feed=dict(seed=11, ticks=9, n=32, key_hi=48,
+                                        ones=True),
+                              at={2: [("scale", (4,), {})],
+                                  5: [("remove_shards", ([2, 3],), {})],
+                                  7: [("scale", (4,), {})]}),
+    # ::test_planned_leave_with_backlog_stays_on_device_path, each tier
+    "leave_backlog_device": dict(
+        shards=4, ops="U1", cfg=dict(_BASE, queue_capacity=2048,
+                                     device_migration="auto"),
+        feed=dict(seed=7, ticks=6, n=128, key_hi=24, hot=LEAVE_HOT,
+                  p_hot=0.6),
+        at={3: [("remove_shards", ([3],), {"drain_max": 0})]},
+        drain=256),
+    "leave_backlog_host": dict(
+        shards=4, ops="U1", cfg=dict(_BASE, queue_capacity=2048,
+                                     device_migration="off"),
+        feed=dict(seed=7, ticks=6, n=128, key_hi=24, hot=LEAVE_HOT,
+                  p_hot=0.6),
+        at={3: [("remove_shards", ([3],), {"drain_max": 0})]},
+        drain=256),
+    # ::test_remove_shards_loss_free_with_inflight_events, then rejoin
+    "inflight_rejoin": dict(
+        shards=8, ops="U1", cfg=dict(batch_size=16, queue_capacity=512,
+                                     exchange_slack=16.0),
+        feed=dict(seed=1, ticks=10, n=128, key_hi=64),
+        at={5: [("remove_loaded", (2,), {"drain_max": 0})]},
+        empty=40, after=[("scale", (8,), {})]),
+    # ::test_rebalance_hot_ring_sheds_load and test_telemetry.py::
+    # test_rebalance_window_rebase_back_to_back
+    "rebalance_hot": dict(
+        shards=8, ops="U1", cfg=dict(batch_size=32, queue_capacity=2048,
+                                     exchange_slack=16.0),
+        feed=dict(seed=2, ticks=6, n=128, key_hi=1, ones=True, base=7),
+        after=[("rebalance", (), {}), ("rebalance", (), {})], empty=40),
+    # ::test_multiaxis_pod_data_growth
+    "multiaxis": dict(shards=(2, 2), axes=("pod", "data"), ops="U1",
+                      cfg=_BASE,
+                      feed=dict(seed=9, ticks=8, n=32, key_hi=48, ones=True),
+                      at={4: [("scale", (8,), {})]}),
+    # ::test_compaction_folds_lifetime_counters (drops, telemetry)
+    "compact_fold": dict(
+        shards=4, ops="U1", cfg=dict(batch_size=16, queue_capacity=32,
+                                     fused="off", compact_threshold=0.0),
+        telemetry=dict(window=4, decay=0.5),
+        feed=dict(seed=1, ticks=10, n=64, key_hi=200, hot=(3,), p_hot=0.5),
+        drain=64, after=[("remove_shards", ([2, 3],), {}),
+                         ("compact", (), {}), ("compact", (), {})],
+        observe=True),
+    # test_telemetry.py::test_split_keys_runtime_exact_counts: a split,
+    # then clear_split converges the partials
+    "clear_split": dict(
+        shards=4, ops="U1", cfg=dict(batch_size=64, queue_capacity=2048,
+                                     exchange_slack=16.0,
+                                     hot_key_capacity=8),
+        telemetry=dict(width=256),
+        feed=dict(seed=4, ticks=9, n=64, key_hi=32, hot=(7,), p_hot=0.75),
+        at={3: [("split_keys", ([7, 9],), {})]}, empty=20,
+        after=[("clear_split", (), {})]),
+}
+ELASTIC_KEYS = np.arange(-2, 210, dtype=np.int32)
+
+
+def elastic_feed(seed, ticks, n, key_hi, hot=None, p_hot=0.0, ones=False,
+                 base=0):
+    """``ticks`` global batches of ``n`` events: (keys, xs float32)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(ticks):
+        keys = (base + rng.integers(0, key_hi, n)).astype(np.int32)
+        if hot is not None:
+            keys = np.where(rng.random(n) < p_hot,
+                            rng.choice(np.asarray(hot, np.int32), n),
+                            keys).astype(np.int32)
+        xs = np.ones(n, np.float32) if ones else \
+            rng.integers(0, 99, n).astype(np.float32)
+        out.append((keys, xs))
+    return out
+
+
+def report_fields(rep):
+    """A ``MigrationReport`` as a dict, ``pause_s`` aside (a wall time)."""
+    if rep is None:
+        return None
+    return {f: getattr(rep, f) for f in (
+        "n_shards", "active", "drain_ticks", "moved_rows", "moved_events",
+        "recompiled", "bytes_moved", "path")}
+
+
+def play(spec, eng, batch, host, reads):
+    """Drive either package's engine through an ``ELASTIC`` scenario.
+
+    ``batch(keys, xs, t, n_shards)`` makes a ``[n_shards, B]`` source
+    batch, ``host(state)`` the plain numpy state, ``reads(eng, state,
+    keys)`` the batched reads of ``U1``.  Returns the reports, the state
+    after each call and at the end, stats, reads and ring facts."""
+    reps, snaps, pause = [], [], []
+
+    def call(st, name, args, kw):
+        if name == "remove_loaded":
+            size = host(st)["queues"]["U1"]["size"]
+            loaded = [int(s) for s in np.argsort(size, kind="stable")
+                      [-args[0]:]]
+            st, rep = eng.remove_shards(st, sorted(loaded), **kw)
+        else:
+            st, rep = getattr(eng, name)(st, *args, **kw)
+        reps.append(report_fields(rep))
+        pause.append(None if rep is None else rep.pause_s > 0)
+        snaps.append(host(st))
+        return st
+
+    st = eng.init_state()
+    for t, (keys, xs) in enumerate(elastic_feed(**spec["feed"])):
+        for name, args, kw in spec.get("at", {}).get(t, ()):
+            st = call(st, name, args, kw)
+        st, _ = eng.step(st, {"S1": batch(keys, xs, t, eng.n_shards)})
+    if spec.get("drain"):
+        st, _ = eng.drain(st, spec["drain"])
+    for _ in range(spec.get("empty", 0)):
+        st = eng._step_empty(st)
+    for name, args, kw in spec.get("after", ()):
+        st = call(st, name, args, kw)
+    st, drained = eng.drain(st, 256)
+    out = dict(reports=reps, pause=pause, snaps=snaps, state=host(st),
+               stats=eng.stats(st), drained=drained,
+               reads=reads(eng, st, ELASTIC_KEYS),
+               n_shards=eng.n_shards, active=list(eng.active_shards),
+               vnodes=np.asarray(eng.ring.vnode_counts()),
+               weights=np.asarray(eng.ring.weights))
+    if spec.get("observe"):
+        r = eng.telemetry.observe(eng, st)
+        out["observe"] = dict(n_shards=r.n_shards, active=list(r.active),
+                              events=np.asarray(r.events),
+                              dropped=np.asarray(r.dropped_delta),
+                              occupancy=np.asarray(r.occupancy))
+    if spec["ops"] == "U1U2":
+        out["heat_owners"] = eng.heat_owners(np.arange(256, dtype=np.int32))
+    return out
 
 
 def feeds(seed, ticks, shards, per_shard, key_hi, p_valid=1.0, hot=None,
@@ -145,7 +315,7 @@ def _jax_env():
     from jax.sharding import Mesh
 
     from repro.core.event import EventBatch
-    from repro.core.operators import AssociativeUpdater
+    from repro.core.operators import AssociativeUpdater, Mapper
     from tests.conftest import (CountingUpdater, LastValueUpdater,
                                 PassThroughMapper)
 
@@ -185,6 +355,59 @@ def _jax_env():
         def merge(self, s, d):
             return {"count": s["count"] + d["count"]}
 
+    VF = {"x": ((), jnp.float32)}
+
+    class ECounter(AssociativeUpdater):
+        """``tests/test_elasticity.py``'s ``Counter``: count and f32 sum."""
+        name = "U1"
+        subscribes = ("S1",)
+        in_value_spec = VF
+        out_streams = {}
+        table_capacity = 1024
+        sum_mergeable = True
+
+        def slate_spec(self):
+            return {"count": ((), jnp.int32), "sum": ((), jnp.float32)}
+
+        def lift(self, b):
+            return {"count": jnp.ones_like(b.key), "sum": b.value["x"]}
+
+        def combine(self, a, b):
+            return {"count": a["count"] + b["count"],
+                    "sum": a["sum"] + b["sum"]}
+
+        merge = combine
+
+    class ECounter2(ECounter):
+        name = "U2"
+
+    class EFwd(Mapper):
+        name = "M1"
+        subscribes = ("S1",)
+        in_value_spec = VF
+        out_streams = {"S2": VF}
+
+        def map_batch(self, b):
+            return {"S2": EventBatch(sid=b.sid, ts=b.ts + 1, key=b.key,
+                                     value=b.value, valid=b.valid)}
+
+    class ECounterS2(ECounter):
+        subscribes = ("S2",)
+
+    def elastic_ops(kind):
+        return {"U1": lambda: [ECounter()],
+                "U1U2": lambda: [ECounter(), ECounter2()],
+                "fwd": lambda: [EFwd(), ECounterS2()]}[kind]()
+
+    def gbf(keys, xs, t, n, valid=None):
+        k = keys.reshape(n, -1)
+        v = np.ones(k.shape, bool) if valid is None else valid.reshape(n, -1)
+        return EventBatch(sid=jnp.zeros(k.shape, jnp.int32),
+                          ts=jnp.full(k.shape, t, jnp.int32),
+                          key=jnp.asarray(k),
+                          value={"x": jnp.asarray(xs.reshape(n, -1))},
+                          valid=jnp.asarray(v))
+
     def mesh(n):
         return Mesh(np.array(jax.devices()[:n]), ("data",))
 
@@ -198,7 +421,8 @@ def _jax_env():
                 EventBatch=EventBatch, PassThroughMapper=PassThroughMapper,
                 CountingUpdater=CountingUpdater,
                 LastValueUpdater=LastValueUpdater, SumCounter=SumCounter,
-                MaxCounter=MaxCounter, Counter1=Counter1)
+                MaxCounter=MaxCounter, Counter1=Counter1,
+                elastic_ops=elastic_ops, gbf=gbf)
 
 
 def _reads(eng, state, updater, keys=READ_KEYS, loop_keys=LOOP_KEYS):
@@ -565,11 +789,257 @@ def group_durable(base, port_crash):
     return res
 
 
+
+def _elastic_engine(E, spec, **more):
+    from jax.sharding import Mesh
+    from repro.core.distributed import DistConfig, DistributedEngine
+    from repro.core.workflow import Workflow
+    from repro.telemetry import TelemetryConfig
+    jax = E["jax"]
+    shards = spec["shards"]
+    axes = spec.get("axes", ("data",))
+    n = int(np.prod(shards))
+    m = Mesh(np.array(jax.devices()[:n]).reshape(shards), axes)
+    cfg = dict(spec["cfg"], **more)
+    if "telemetry" in spec:
+        cfg["telemetry"] = TelemetryConfig(**spec["telemetry"])
+    return DistributedEngine(
+        Workflow(E["elastic_ops"](spec["ops"]), external_streams=("S1",)),
+        m, DistConfig(axis_names=axes, **cfg))
+
+
+def _jax_play(E, spec):
+    jax = E["jax"]
+    return play(spec, _elastic_engine(E, spec), E["gbf"],
+                    lambda st: plain(jax.device_get(st)),
+                    lambda e, st, ks: [plain(r) for r in e.read_slates(
+                        st, "U1", ks, impl="jnp")])
+
+
+def group_elastic(*names):
+    """The ``ELASTIC`` scenarios named (each test file plays its own)."""
+    E = _jax_env()
+    return {name: _jax_play(E, ELASTIC[name]) for name in names}
+
+
+# the durable scenarios (tests/test_elasticity.py::test_autoscale_policy_
+# through_run_and_durability and ::test_compaction_durable_recovery)
+AUTOSCALE_DURABLE = dict(shards=4, ticks=8, scale_at={4: 8},
+                         rebalance_every=3, every_k=4)
+COMPACT_DURABLE = dict(shards=8, run=6, leave=list(range(2, 8)), more=2,
+                       every_k=2)
+
+
+def autoscale_feed(t, n=64):
+    """Source tick t of the durable autoscale run: its own seed, so a
+    replay regenerates it."""
+    r = np.random.default_rng(t)
+    return (r.integers(0, 32, n).astype(np.int32),
+            r.integers(0, 99, n).astype(np.float32))
+
+
+def compact_feed(t):
+    r = np.random.default_rng(100 + t)
+    return r.integers(0, 64, 64).astype(np.int32), np.ones(64, np.float32)
+
+
+def durable_elastic_run(eng, batch, host, reports):
+    """The autoscale run of either package (``reports`` the policy's
+    ``on_change`` list): 8 source ticks, 4 -> 8 shards at tick 4, a
+    rebalance every 3, a flush every 4."""
+    st = eng.init_state()
+    fed = []
+
+    def src(t, _mx):
+        fed.append(t)
+        return {"S1": batch(*autoscale_feed(t), t, eng.n_shards)}
+
+    st, _ = eng.run(st, src, AUTOSCALE_DURABLE["ticks"])
+    st, drained = eng.drain(st)
+    return dict(state=host(st), stats=eng.stats(st), fed=fed,
+                drained=drained, reports=[report_fields(r) for r in reports],
+                n_shards=eng.n_shards, cursor=eng.tick_cursor,
+                frontier=(eng.dur.frontier.tick,
+                          list(eng.dur.frontier.wal_offset),
+                          eng.dur.frontier.meta),
+                wal_ticks=[[tk for tk, _ in w.replay(from_offset=0)]
+                           for w in eng.dur.wals]), st
+
+
+def compact_durable_run(eng, batch, host):
+    """The compaction run of either package: 6 ticks on 8 shards, leave
+    6 of them (a compaction to 2), drain, 2 more ticks, drain."""
+    c = COMPACT_DURABLE
+    st, _ = eng.run(eng.init_state(), lambda t, _mx: {"S1": batch(
+        *compact_feed(t), t, eng.n_shards)}, c["run"])
+    st, rep = eng.remove_shards(st, c["leave"])
+    st, _ = eng.drain(st)
+    mid = host(st)
+    st, _ = eng.run(st, lambda t, _mx: {"S1": batch(
+        *compact_feed(t), t, eng.n_shards)}, c["more"],
+        start_tick=c["run"])
+    st, _ = eng.drain(st)
+    return dict(report=report_fields(rep), mid=mid, state=host(st),
+                stats=eng.stats(st), n_wals=len(eng.dur.wals),
+                frontier=(eng.dur.frontier.tick,
+                          list(eng.dur.frontier.wal_offset),
+                          eng.dur.frontier.meta)), st
+
+
+def group_elastic_durable(base, port_auto):
+    """In directories under ``base``: the JAX autoscale run (copied for
+    the port to recover), its own recovery on 8 and on 4 shards, the
+    port's autoscale run ``port_auto`` recovered on 8; the compaction run
+    (copied too) and its recovery on 2 shards; the launcher's
+    ``--scale-at`` run."""
+    import shutil
+    E = _jax_env()
+    jax = E["jax"]
+    from jax.sharding import Mesh
+    from repro.core.distributed import (AutoscalePolicy, DistConfig,
+                                        DistributedEngine)
+    from repro.core.durability import DurabilityConfig
+    from repro.core.workflow import Workflow
+    from repro.slates.flush import FlushConfig, FlushPolicy
+    host = lambda st: plain(jax.device_get(st))
+    res = {}
+
+    def build(d, n, every_k, ops="fwd", policy=None):
+        cfg = DistConfig(batch_size=64 if ops == "fwd" else 32,
+                         queue_capacity=512 if ops == "fwd" else 256,
+                         fused="off" if ops == "U1" else "auto",
+                         durability=DurabilityConfig(
+                             dir=d, flush=FlushConfig(
+                                 policy=FlushPolicy.EVERY_K,
+                                 every_k=every_k)),
+                         autoscale=policy)
+        return DistributedEngine(
+            Workflow(E["elastic_ops"](ops), external_streams=("S1",)),
+            Mesh(np.array(jax.devices()[:n]), ("data",)), cfg)
+
+    def recovered(d, n, every_k, ops="fwd"):
+        eng = build(d, n, every_k, ops)
+        st = eng.recover()
+        st, _ = eng.drain(st)
+        out = dict(state=host(st), stats=eng.stats(st),
+                   slates=[plain(r) for r in eng.read_slates(
+                       st, "U1", np.arange(64, dtype=np.int32),
+                       impl="jnp")])
+        eng.close()
+        return out
+
+    a = AUTOSCALE_DURABLE
+    d = os.path.join(base, "auto")
+    reports = []
+    eng = build(d, a["shards"], a["every_k"], policy=AutoscalePolicy(
+        scale_at=dict(a["scale_at"]), rebalance_every=a["rebalance_every"],
+        on_change=reports.append))
+    res["auto"], st = durable_elastic_run(eng, E["gbf"], host, reports)
+    res["auto"]["slates"] = [plain(r) for r in eng.read_slates(
+        st, "U1", np.arange(64, dtype=np.int32), impl="jnp")]
+    eng.close()
+    res["auto_files"] = dir_bytes(d)
+    shutil.copytree(d, os.path.join(base, "auto_for_port"))
+    for n in (8, 4):
+        res[f"auto_recover_{n}"] = recovered(d, n, a["every_k"])
+    # the port's files equal these byte for byte (the port's test checks
+    # it), so one recovery of them here stands for both shard counts and
+    # for the compaction run's files
+    res["port_auto_recover_8"] = recovered(port_auto, 8, a["every_k"])
+
+    c = COMPACT_DURABLE
+    d = os.path.join(base, "compact")
+    eng = build(d, c["shards"], c["every_k"], ops="U1")
+    res["compact"], st = compact_durable_run(eng, E["gbf"], host)
+    eng.close()
+    res["compact_files"] = dir_bytes(d)
+    shutil.copytree(d, os.path.join(base, "compact_for_port"))
+    res["compact_recover"] = recovered(d, 2, c["every_k"], ops="U1")
+
+    import contextlib
+    import io
+    from repro.launch import stream
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stream.main(["--dir", os.path.join(base, "launch_scale"),
+                     *LAUNCH_SCALE])
+    res["launcher"] = buf.getvalue()
+    return res
+
+
+# a leave to 2 of 4 shards and rebalances: the device tier (the
+# autoscale run above covers the grow)
+LAUNCH_SCALE = ["--ticks", "12", "--batch", "64", "--shards", "4",
+                "--scale-at", "6:2", "--rebalance-every", "4"]
+
+# tests/test_telemetry.py::test_closed_loop_square_wave_2to4_fast
+CLOSED_LOOP = dict(G=64, low=2, high=4, ticks=60)
+
+
+def closed_loop_feed(t, G=CLOSED_LOOP["G"]):
+    rng = np.random.default_rng(t)
+    keys = rng.integers(0, 48, G).astype(np.int32)
+    xs = rng.integers(0, 9, G).astype(np.float32)
+    hi = (t // 15) % 2 == 0          # square wave, period 30
+    n = G if hi else G // 10
+    return keys, xs, np.arange(G) < n
+
+
+def closed_loop_run(eng, batch, host, reads):
+    """The square wave through either package's ``run``: the active
+    count each tick reads, the state and reads after a drain."""
+    st = eng.init_state()
+    trace = []
+
+    def src(t, _mx):
+        trace.append(len(eng.active_shards))
+        keys, xs, valid = closed_loop_feed(t)
+        return {"S1": batch(keys, xs, t, eng.n_shards, valid)}
+
+    st, _ = eng.run(st, src, CLOSED_LOOP["ticks"])
+    st, _ = eng.drain(st)
+    return dict(trace=trace, state=host(st), stats=eng.stats(st),
+                reads=reads(eng, st, np.arange(48, dtype=np.int32)),
+                n_shards=eng.n_shards, active=list(eng.active_shards))
+
+
+def group_closed_loop(log_path):
+    E = _jax_env()
+    jax = E["jax"]
+    from jax.sharding import Mesh
+    from repro.core.distributed import DistConfig, DistributedEngine
+    from repro.core.workflow import Workflow
+    from repro.telemetry import LoadAutoscaler, TelemetryConfig
+    c = CLOSED_LOOP
+    reports = []
+    ctl = LoadAutoscaler(high=0.75, low=0.25, window=3, dwell=2,
+                         cooldown=1, min_shards=c["low"],
+                         max_shards=c["high"], on_change=reports.append)
+    eng = DistributedEngine(
+        Workflow(E["elastic_ops"]("U1"), external_streams=("S1",)),
+        Mesh(np.array(jax.devices()[:c["low"]]), ("data",)),
+        DistConfig(batch_size=c["G"] // c["low"], queue_capacity=4 * c["G"],
+                   fused="off", exchange_slack=8.0,
+                   telemetry=TelemetryConfig(width=256, alpha=1.0,
+                                             control_log=log_path),
+                   autoscale=ctl))
+    out = closed_loop_run(eng, E["gbf"], lambda st: plain(jax.device_get(st)),
+                          lambda e, st, ks: [plain(r) for r in e.read_slates(
+                              st, "U1", ks, impl="jnp")])
+    eng.close()
+    out["reports"] = [report_fields(r) for r in reports]
+    with open(log_path) as f:
+        out["control_log"] = f.read()
+    return out
+
+
 def main(argv):
     out, group, *args = argv
     sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
     res = {"engine": group_engine, "hotspot": group_hotspot,
-           "durable": group_durable}[group](*args)
+           "durable": group_durable, "elastic": group_elastic,
+           "elastic_durable": group_elastic_durable,
+           "closed_loop": group_closed_loop}[group](*args)
     with open(out, "wb") as f:
         pickle.dump(res, f)
 

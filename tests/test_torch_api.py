@@ -8,8 +8,9 @@ batches, engine state compared whole and bitwise through
 broken on the installed jax), the port on ``"auto"``, which is the same
 oracle on the CPU.  Also the public surface, the queue-3 repairs
 (``EventBatch.with_value``, ``Workflow.mappers`` / ``op_index``) and the
-multi-shard selection, which starts ``DistributedEngine`` (live
-elasticity raises and names ROADMAP item 15b)."""
+multi-shard selection, which starts ``DistributedEngine``, with live
+elasticity through ``App.run`` and the launcher's ``--scale-at`` /
+``--rebalance-every`` / ``--autoscale``."""
 import importlib.util
 import pathlib
 import subprocess
@@ -804,10 +805,14 @@ def test_runtime_config_compiles_to_engine_config(tmp_path):
 @pytest.mark.parametrize("kw", [dict(shards=2), dict(mesh=(2, 2))])
 def test_front_door_distributed_selection_names_item_15(kw):
     """``shards > 1`` or a mesh starts the multi-shard engine (item 15a);
-    ``run`` with an ``AutoscalePolicy`` and a non-policy ``autoscale``
-    raise, naming item 15b (live elasticity)."""
+    ``App.run`` under an ``AutoscalePolicy`` (live elasticity) scales the
+    active set mid-run (2 -> 4 at tick 2, a physical grow, then a
+    rebalance) with every count exact, against the JAX front door's
+    ``test_runtime_config_autoscale_front_door`` checks; a
+    ``LoadAutoscaler`` is accepted and anything else refused."""
     from repro_torch.core.distributed import (AutoscalePolicy, DistConfig,
                                               DistributedEngine, make_mesh)
+    from repro_torch.telemetry import LoadAutoscaler
     if "mesh" in kw:
         kw = dict(mesh=make_mesh(kw["mesh"], ("pod", "data")))
 
@@ -826,26 +831,39 @@ def test_front_door_distributed_selection_names_item_15(kw):
     n = app.engine.n_shards
     assert n == 2          # the mesh's "data" axis, the default axis
 
-    def src(t, mx):     # [n_shards, B]-leading batches
-        b = EventBatch.of(key=np.full(4 * n, 3, np.int32),
-                          value={"x": np.ones(4 * n, np.float32)},
-                          ts=np.full(4 * n, t, np.int32), device="cpu")
-        return {"S1": EventBatch(*[
-            {k: v.reshape(n, 4) for k, v in f.items()}
-            if isinstance(f, dict) else f.reshape(n, 4)
-            for f in (b.sid, b.ts, b.key, b.value, b.valid)])}
+    def src_of(app):
+        def src(t, mx):     # [n_shards, B]-leading batches, live count
+            n = app.engine.n_shards
+            b = EventBatch.of(key=np.full(16, 3, np.int32),
+                              value={"x": np.ones(16, np.float32)},
+                              ts=np.full(16, t, np.int32), device="cpu")
+            return {"S1": EventBatch(*[
+                {k: v.reshape(n, -1) for k, v in f.items()}
+                if isinstance(f, dict) else f.reshape(n, -1)
+                for f in (b.sid, b.ts, b.key, b.value, b.valid)])}
+        return src
 
-    app.run(src, 4, drain=True)
-    assert int(app.read_slate("U1", 3)["count"]) == 16 * n
+    app.run(src_of(app), 4, drain=True)
+    assert int(app.read_slate("U1", 3)["count"]) == 64
     app.close()
-    rt2 = RuntimeConfig(batch_size=16, autoscale=AutoscalePolicy(
-        scale_at={2: 4}), **kw)
+    reports = []
+    pol = AutoscalePolicy(scale_at={2: 4}, rebalance_every=3,
+                          on_change=reports.append)
+    rt2 = RuntimeConfig(batch_size=16, autoscale=pol, **kw)
+    assert rt2.dist_config().autoscale is pol
     app2 = build()
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        app2.run(src, 4, runtime=rt2, device="cpu")
+    app2.run(src_of(app2), 6, runtime=rt2, drain=True, device="cpu")
+    assert app2.engine.n_shards == 4 == len(app2.engine.active_shards)
+    assert reports[0].recompiled and reports[0].path == "host"
+    assert int(app2.read_slate("U1", 3)["count"]) == 96
+    assert app2.stats()["exchange_dropped"] == 0
     app2.close()
-    with pytest.raises(TypeError, match="item 15b"):
+    lc = RuntimeConfig(shards=2, autoscale=LoadAutoscaler())
+    assert isinstance(lc.dist_config().autoscale, LoadAutoscaler)
+    with pytest.raises(TypeError, match="AutoscalePolicy or LoadAutoscaler"):
         RuntimeConfig(shards=2, autoscale=object()).dist_config()
+    with pytest.raises(ValueError, match="distributed runtime"):
+        RuntimeConfig(shards=1, autoscale=pol).engine_config()
 
 
 # ---- the package surface ----
@@ -853,8 +871,7 @@ def test_front_door_distributed_selection_names_item_15(kw):
 def test_public_surface():
     import repro_torch
     from repro_torch.core import distributed
-    assert set(repro_torch.__all__) == set(repro.__all__) - {
-        "LoadAutoscaler"}
+    assert repro_torch.__all__ == repro.__all__
     assert set(repro_torch.__all__) <= set(dir(repro_torch))
     for name in repro_torch.__all__:
         assert getattr(repro_torch, name) is not None
@@ -862,11 +879,9 @@ def test_public_surface():
     for name in ("AutoscalePolicy", "DistributedEngine", "DistConfig",
                  "MigrationReport"):
         assert getattr(repro_torch, name) is getattr(distributed, name)
-    # live elasticity's controller: NotImplementedError, and absent to
-    # hasattr (the error is an AttributeError too)
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        repro_torch.LoadAutoscaler
-    assert not hasattr(repro_torch, "LoadAutoscaler")
+    from repro_torch.telemetry import controller
+    assert repro_torch.LoadAutoscaler is controller.LoadAutoscaler
+    assert not hasattr(repro_torch, "NotThere")
     from repro_torch import ml
     assert set(ml.__all__) == set(repro.ml.__all__)
 
@@ -1005,19 +1020,41 @@ def test_launcher_default_batch_recovery_matches_the_reference(
     assert stats["torch", "crash"]["tick"] == stats["torch", "full"]["tick"]
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2", "--scale-at", "4:2"],
+@pytest.mark.parametrize("flag", [["--shards", "2", "--scale-at", "4:4"],
                                   ["--scale-at", "4:2"],
                                   ["--rebalance-every", "2"],
                                   ["--autoscale", "load:0.7,0.2"]])
 def test_launcher_multi_shard_flags_name_item_15(tmp_path, capsys, flag):
-    """``--shards > 1`` runs (``tests/test_torch_distributed_durable.py``
-    holds it against the JAX launcher); the live-elasticity flags exit
-    with a usage error naming item 15b, with or without ``--shards``."""
+    """The live-elasticity flags run: ``--scale-at`` and
+    ``--rebalance-every`` print a line a reconfigure and the stats
+    (``tests/test_torch_elastic_durable.py`` holds a run against the JAX
+    launcher); ``--autoscale`` runs its closed loop and prints the
+    telemetry line.  The reference's usage errors stay: a malformed
+    ``--scale-at`` or ``--autoscale``, ``--autoscale`` on one shard, and
+    ``--autoscale`` with a schedule exit 2 with its messages."""
     from repro_torch.launch import stream
+    shards = [] if "--shards" in flag else ["--shards", "4"]
+    stream.main(["--device", "cpu", "--dir", str(tmp_path / "run"),
+                 "--ticks", "12", "--batch", "64", *shards, *flag])
+    out = capsys.readouterr().out
+    assert '"exchange_dropped": 0' in out
+    if "--autoscale" in flag:
+        assert "telemetry: active=" in out
+    else:
+        assert out.count("reconfigured:") >= 1
+    bad = {"--scale-at": (["--scale-at", "4-2"], "wants TICK:N"),
+           "--rebalance-every": (["--autoscale", "load:0.7,0.2",
+                                  "--rebalance-every", "2", "--shards",
+                                  "2"], "mutually exclusive"),
+           "--autoscale": (["--autoscale", "cpu:0.7"],
+                           "wants load:HI,LO")}
+    bad["--shards"] = (["--autoscale", "load:0.7,0.2"], "needs --shards")
+    argv, msg = bad[flag[0]]
     with pytest.raises(SystemExit) as e:
-        stream.main(["--device", "cpu", "--dir", str(tmp_path), *flag])
+        stream.main(["--device", "cpu", "--dir", str(tmp_path / "bad"),
+                     *argv])
     assert e.value.code == 2
-    assert "item 15b" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
 
 
 # ---- build-time spec validation (tests/test_workflow_specs.py) ----

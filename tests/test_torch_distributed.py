@@ -527,27 +527,237 @@ def test_step_rejects_sources_on_another_device():
         eng.step(st, {"S1": tb(d, device="meta")})
 
 
+def _rows_oracle(keys, counts, ts, dirty, owner, cap):
+    """The hand oracle of ``exchange_rows`` on a ``[S, C]`` counter
+    table: per destination, its stayers and the first ``cap`` movers of
+    each source (slot order), a key's rows summed, dirty when folded.
+    Returns ({d: {key: (count, ts, dirty)}}, lost per source)."""
+    S = keys.shape[0]
+    out = {d: {} for d in range(S)}
+    lost = np.zeros(S, np.int32)
+    for s in range(S):
+        sent = np.zeros(S, int)
+        for i in np.nonzero(keys[s] != -1)[0]:
+            d = int(owner[s, i])
+            if d != s:
+                if sent[d] == cap:
+                    lost[s] += 1
+                    continue
+                sent[d] += 1
+            k = int(keys[s, i])
+            row = (int(counts[s, i]), int(ts[s, i]), bool(dirty[s, i]))
+            if k in out[d]:
+                c0, t0, _ = out[d][k]
+                row = (c0 + row[0], max(t0, row[1]), True)
+            out[d][k] = row
+    return out, lost
+
+
+def _queue_oracle(q, owner, cap):
+    """The hand oracle of ``exchange_queue``: each destination's events in
+    (source, dequeue order), at most ``cap`` from a source, then the
+    queue capacity.  Returns ({d: [(key, sid, ts, x, valid)]}, drops)."""
+    S, Qp = q["key"].shape
+    Q = Qp - 1
+    out = {d: [] for d in range(S)}
+    drops = np.zeros(S, np.int32)
+    for s in range(S):
+        sent = np.zeros(S, int)
+        for r in range(int(q["size"][s])):
+            i = (int(q["head"][s]) + r) % Q
+            d = int(owner[s, i])
+            if sent[d] == cap:
+                drops[s] += 1
+                continue
+            sent[d] += 1
+            out[d].append(tuple(int(q[f][s, i]) for f in
+                                ("key", "sid", "ts", "x", "valid")))
+    for d in range(S):
+        if len(out[d]) > Q:
+            drops[d] += len(out[d]) - Q
+            out[d] = out[d][:Q]
+    return out, drops
+
+
+def _exchange_rows_case():
+    """Four shards of a 64-slot counter table; key 5 holds partials on
+    shards 0 and 2 (two-choice), key 9 one row; the new ring moves some
+    rows and a cap of 2 loses some: the rebuilt tables, drops and
+    movers equal the hand oracle's."""
+    from repro_torch.slates import table as tbl
+    S, C, cap = 4, 64, 2
+    rng = np.random.default_rng(4)
+    tabs = []
+    for s in range(S):
+        t = tbl.make_table(C, {"count": ((), torch.int32)}, device="cpu")
+        ks = rng.choice(np.arange(100, 400), 12, replace=False)
+        ks = np.concatenate([ks, [5] if s in (0, 2) else [],
+                             [9] if s == 1 else []]).astype(np.int32)
+        q = torch.from_numpy(ks)
+        t, slot, _, placed = tbl.insert_or_find(
+            t, q, torch.ones(len(ks), dtype=torch.bool))
+        assert bool(placed.all())
+        t.vals["count"][slot] = torch.from_numpy(
+            rng.integers(1, 50, len(ks)).astype(np.int32))
+        t.ts[slot] = torch.from_numpy(rng.integers(0, 9, len(ks))
+                                      .astype(np.int32))
+        t.dirty[slot] = torch.from_numpy(rng.random(len(ks)) < 0.5)
+        tabs.append(t)
+    st = dist._stack(tabs)
+    ring = th.HashRing(S)
+    ring.set_weights(np.array([1.0, 0.25, 2.0, 1.0]))
+    rh, rs = ring.table()
+    salt = dist._salt("U1")
+    keys = st.keys[:, :C].numpy()
+    owner = th.route(st.keys[:, :C], salt, rh, rs).numpy()
+    want, lost = _rows_oracle(keys, st.vals["count"][:, :C].numpy(),
+                              st.ts[:, :C].numpy(), st.dirty[:, :C].numpy(),
+                              owner, cap)
+    movers = ((keys != -1) & (owner != np.arange(S)[:, None])).sum(1)
+    new, moved = dist.exchange_rows(st, salt, rh, rs, S, cap,
+                                    TCounter1().combine)
+    assert moved.tolist() == movers.tolist()
+    assert new.dropped.tolist() == lost.tolist()
+    assert lost.sum() > 0 and movers.sum() > 0
+    for d in range(S):
+        k = new.keys[d, :C].numpy()
+        got = {int(k[i]): (int(new.vals["count"][d, i]), int(new.ts[d, i]),
+                           bool(new.dirty[d, i]))
+               for i in np.nonzero(k != -1)[0]}
+        assert got == want[d], d
+        # every kept row is found where a lookup looks for it
+        slot, found = tbl.lookup(tbl.SlateTable(
+            keys=new.keys[d], ts=new.ts[d], dirty=new.dirty[d],
+            vals={"count": new.vals["count"][d]}, dropped=new.dropped[d]),
+            torch.from_numpy(np.asarray(sorted(got), np.int32)))
+        assert bool(found.all())
+    assert sum(5 in want[d] for d in range(S)) == 1
+
+
+def _exchange_queue_case():
+    """Four shards' queues of 6 slots, wrapped heads, backlogs of 0-6
+    events; the new ring re-homes them with a cap of 3 a bucket: each
+    rebuilt queue (compacted at head 0), its drops, peak = size, and the
+    movers equal the hand oracle's."""
+    from repro_torch.core import queues as q_mod
+    S, Q, cap = 4, 6, 3
+    rng = np.random.default_rng(8)
+    qs = []
+    for s in range(S):
+        q = q_mod.make_queue(Q, {"x": ((), torch.int32)}, device="cpu")
+        q.head = torch.tensor(int(rng.integers(0, Q)), dtype=torch.int32)
+        q.size = torch.tensor([0, 6, 3, 5][s], dtype=torch.int32)
+        q.dropped = torch.tensor(s, dtype=torch.int32)
+        for f, hi in (("key", 40), ("sid", 3), ("ts", 20)):
+            getattr(q.buf, f)[:Q] = torch.from_numpy(
+                rng.integers(0, hi, Q).astype(np.int32))
+        q.buf.value["x"][:Q] = torch.from_numpy(
+            rng.integers(0, 9, Q).astype(np.int32))
+        q.buf.valid[:Q] = torch.from_numpy(rng.random(Q) < 0.8)
+        qs.append(q)
+    st = dist._stack(qs)
+    ring = th.HashRing(S)
+    ring.fail(1)
+    rh, rs = ring.table()
+    salt = dist._salt("U1")
+    owner = th.route(st.buf.key, salt, rh, rs).numpy()
+    plain = dict(key=st.buf.key.numpy(), sid=st.buf.sid.numpy(),
+                 ts=st.buf.ts.numpy(), x=st.buf.value["x"].numpy(),
+                 valid=st.buf.valid.numpy(), head=st.head.numpy(),
+                 size=st.size.numpy())
+    want, drops = _queue_oracle(plain, owner, cap)
+    live = np.arange(Q)[None, :] < plain["size"][:, None]
+    pos = (plain["head"][:, None] + np.arange(Q)) % Q
+    movers = (live & (np.take_along_axis(owner, pos, 1)
+                      != np.arange(S)[:, None])).sum(1)
+    new, moved = dist.exchange_queue(st, salt, rh, rs, S, cap)
+    assert moved.tolist() == movers.tolist() and movers.sum() > 0
+    assert new.head.tolist() == [0] * S
+    assert new.size.tolist() == [len(want[d]) for d in range(S)]
+    assert new.peak.tolist() == new.size.tolist()
+    assert new.peak.data_ptr() != new.size.data_ptr()
+    assert (new.dropped - st.dropped).tolist() == drops.tolist()
+    assert drops.sum() > 0
+    for d in range(S):
+        n = len(want[d])
+        got = list(zip(*[t[d, :n].tolist() for t in (
+            new.buf.key, new.buf.sid, new.buf.ts, new.buf.value["x"],
+            new.buf.valid.to(torch.int32))]))
+        assert got == want[d], d
+        assert not bool(new.buf.valid[d, n:Q].any())
+
+
 @pytest.mark.parametrize("call", [
     "scale", "add_shards", "remove_shards", "rebalance", "clear_split",
     "compact", "_reconfigure", "exchange_rows", "exchange_queue",
     "run_autoscale"])
 def test_elasticity_raises_naming_item_15b(call):
-    """Live elasticity is ROADMAP queue 1 item 15b: every method and
-    collective of it raises ``NotImplementedError`` naming the item,
-    and so does ``run`` with an ``AutoscalePolicy`` set."""
-    kw = dict(autoscale=dist.AutoscalePolicy(scale_at={1: 4})) \
+    """Live elasticity runs (the calls once raised): each
+    method on 8 shards after 4 ticks of a feed keeps every count exact
+    and reports what it did; ``exchange_rows`` and ``exchange_queue``
+    equal a hand oracle; ``run`` with an ``AutoscalePolicy`` scales."""
+    if call == "exchange_rows":
+        return _exchange_rows_case()
+    if call == "exchange_queue":
+        return _exchange_queue_case()
+    kw = dict(autoscale=dist.AutoscalePolicy(scale_at={2: 4})) \
         if call == "run_autoscale" else {}
-    eng = engine((TCounter1(),), batch_size=16, queue_capacity=64, **kw)
+    if call == "clear_split":
+        kw = dict(hot_key_capacity=8, telemetry=TelemetryConfig(width=256))
+    eng = engine((TCounter1(),), batch_size=32, queue_capacity=512,
+                 exchange_slack=8.0, **kw)
+    fs = [dict(d, key=np.where(np.arange(16) < 4, 7, d["key"]).astype(
+        np.int32)) for d in ref.feeds(seed=3, ticks=4, shards=8,
+                                      per_shard=16, key_hi=40)]
+    truth = np.zeros(64, np.int64)
+    for d in fs:
+        np.add.at(truth, d["key"][d["valid"]], 1)
+
+    def src(t, _mx):
+        d = fs[t]
+        n = eng.n_shards
+        return {"S1": tb({k: v.reshape(n, -1) for k, v in d.items()})}
+
     st = eng.init_state()
-    fn = {"scale": lambda: eng.scale(st, 4),
-          "add_shards": lambda: eng.add_shards(st, 1),
-          "remove_shards": lambda: eng.remove_shards(st, [7]),
-          "rebalance": lambda: eng.rebalance(st),
-          "clear_split": lambda: eng.clear_split(st),
-          "compact": lambda: eng.compact(st),
-          "_reconfigure": lambda: eng._reconfigure(st, deactivate=[7]),
-          "exchange_rows": lambda: dist.exchange_rows(),
-          "exchange_queue": lambda: dist.exchange_queue(),
-          "run_autoscale": lambda: eng.run(st, lambda t, mx: {}, 2)}[call]
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        fn()
+    if call == "run_autoscale":
+        st, _ = eng.run(st, src, 4)
+        assert eng.active_shards == [0, 1, 2, 3] and eng.n_shards == 8
+    else:
+        if call == "clear_split":
+            st, _ = eng.split_keys(st, [7])
+        st, _ = eng.run(st, src, 4)
+        fn = {"scale": lambda: eng.scale(st, 4),
+              "add_shards": lambda: eng.add_shards(st, 2),
+              "remove_shards": lambda: eng.remove_shards(st, [7]),
+              "rebalance": lambda: eng.rebalance(st),
+              "clear_split": lambda: eng.clear_split(st),
+              "compact": lambda: eng.compact(eng.remove_shards(
+                  st, [6, 7])[0]),
+              "_reconfigure": lambda: eng._reconfigure(st, deactivate=[7])
+              }[call]
+        st, rep = fn()
+        want = {"scale": ("device", False, 8, [0, 1, 2, 3]),
+                "add_shards": ("host", True, 10, list(range(10))),
+                "remove_shards": ("device", False, 8, list(range(7))),
+                "rebalance": ("device", False, 8, list(range(8))),
+                "clear_split": ("device", False, 8, list(range(8))),
+                "compact": ("host", True, 6, list(range(6))),
+                "_reconfigure": ("device", False, 8, list(range(7)))}[call]
+        assert (rep.path, rep.recompiled, rep.n_shards, rep.active) == want
+        assert rep.pause_s > 0
+        # compaction renumbers slots; every other call re-homes rows
+        assert (sum(rep.moved_rows.values()) > 0) == (call != "compact")
+        assert eng.n_shards == want[2] and eng.active_shards == want[3]
+        occ = st["tables"]["U1"].occupancy().tolist()
+        assert all(occ[s] == 0 for s in range(eng.n_shards)
+                   if s not in want[3])
+        if call == "clear_split":
+            assert eng.split_key_set() == []
+            assert int((st["tables"]["U1"].keys[:, :-1] == 7).sum()) == 1
+    st, _ = eng.drain(st)
+    got = [0 if r is None else int(r["count"])
+           for r in eng.read_slates(st, "U1", np.arange(64))]
+    assert got == truth.tolist()
+    stats = eng.stats(st)
+    assert stats["exchange_dropped"] == 0 and stats["queue_dropped"] == {
+        "U1": 0}

@@ -263,8 +263,23 @@ def test_split_keys_preconditions():
     st = eng.init_state()
     st, _ = eng.split_keys(st, list(range(12)))
     assert eng.split_key_set() == list(range(8))     # capacity 8
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        eng.clear_split(st)
+    # clear_split converges the partials: each key whole on
+    # its owner shard again, the fed count kept
+    fs = ref.feeds(**ref.SPLIT)
+    st, _ = steps(eng, fs, st)
+    for _ in range(4):
+        st = eng._step_empty(st)
+    before = eng.read_slates(st, "U1", np.arange(32))
+    keys = st["tables"]["U1"].keys[:, :-1]
+    assert max(int((keys == k).sum()) for k in range(8)) == 2
+    st, rep = eng.clear_split(st)
+    assert rep.path == "device" and eng.split_key_set() == []
+    keys = st["tables"]["U1"].keys[:, :-1]
+    assert all(int((keys == k).sum()) <= 1 for k in range(32))
+    for k, (a, b) in enumerate(zip(before, eng.read_slates(
+            st, "U1", np.arange(32)))):
+        eq_read(a and {f: v.numpy() for f, v in a.items()}, b, k)
+    assert eng.clear_split(st) == (st, None)         # nothing split
 
 
 def test_split_sub_keys_read_through_the_ring(jref):

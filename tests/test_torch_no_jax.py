@@ -120,9 +120,11 @@ def test_serving_slice_files_are_checked(rel):
 @pytest.mark.parametrize("rel", [
     "src/repro_torch/core/distributed.py", "src/repro_torch/core/hotspot.py",
     "src/repro_torch/core/hashing.py",
-    "tests/test_torch_distributed_kernel.py"])
+    "tests/test_torch_distributed_kernel.py",
+    "src/repro_torch/telemetry/controller.py",
+    "tests/test_torch_elastic_kernel.py"])
 def test_multi_shard_slice_files_are_checked(rel):
-    """The multi-shard slice's modules (the engine, key splitting, the
-    ring) and its card-only tests are among the files the check above
-    reads."""
+    """The multi-shard slices' modules (the engine, key splitting, the
+    ring, the closed-loop controller) and their card-only tests are
+    among the files the check above reads."""
     assert ROOT / rel in _port_files()
