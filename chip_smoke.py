@@ -84,7 +84,19 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    kernel line holds qwen2-0.5b's; zamba2-1.2b's are logged on their
    own line), ``rmsnorm`` beside
    ``torch.nn.functional.rms_norm`` (the kernel line holds 2048 x 2048;
-   the other shapes are logged on their own lines);
+   the other shapes are logged on their own lines).  The two backward
+   kernels of the training step against autograd of their plain
+   versions on the card (bf16 within 2**-5 of the reference gradient's
+   largest magnitude, f32 within 1e-4 of it; two calls bitwise equal):
+   ``flash_attention_bwd`` at phase 17's shape (4 x 1,024 tokens, 14/2
+   heads of 64, causal), gemma3-1b's local layers (Dh 256, window 512),
+   whisper-tiny's cross attention (256 over 384 keys, bidirectional),
+   deepseek-v2-lite-16b's MLA (Dh 192 over Dv 128) and an f32 shape,
+   the forward's output bitwise the same with its row statistics;
+   ``rmsnorm_bwd`` at phase 17's 4,096 rows of 896, bf16 with and
+   without scale_offset, and f32; each timed at phase 17's shape beside
+   its plain backward and the library's backward under autograd (SDPA's,
+   ``F.rms_norm``'s) as a yardstick;
 4. checks that a ``run_chunk`` tick never syncs the host (torch's sync
    debug mode set to "error"), on a small engine, with telemetry off
    and on;
@@ -346,6 +358,24 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    ``--elastic-durable-child DIR``) killed by SIGKILL at source tick 40;
    ``recover`` on 16 shards and the resumed run: every slate bitwise
    against the uninterrupted run's.
+17. trains qwen2-0.5b at full width on the card: ``launch.train.
+   Trainer``, f32 master weights from the seed, bf16 compute, default
+   AdamW, batch 4 x 1,024 tokens from ``TokenStream(seed=0)``.  (b) The
+   first step's gradients, the kernels' path against the plain versions
+   at f32 compute, leaf by leaf in relative L2, within twice the plain
+   versions' own bf16 path's distance.  (c) Six steps straight, the
+   first a warm-up: ms/step and tokens/s over the other five,
+   ``max_memory_allocated``, and each kernel's launches a step asserted
+   (a block's forward kernels twice under remat and its backward kernels
+   once; the final norm once each way; all ``flash_attention`` on
+   ``wgmma``, all ``rmsnorm`` on ``regs``).  (a) Three steps, a
+   checkpoint to a temporary directory, a simulated failure, a new
+   ``Trainer`` restored from it and three more steps: parameters and
+   optimizer state bitwise equal to the straight run's; then one
+   profiled step (device busy ms, operations, idle share, the top
+   kernels and the four training kernels' shares).  (d) A zamba2-1.2b
+   train step on the card raises (``ssd_scan`` has no backward kernel
+   yet, ROADMAP queue 1 item 22).
 Every serving phase also asserts every ``flash_attention`` launch on
 its ``wgmma`` route and prints its own wall time.  Each path's launch
 counters are set to 0 just before it and read just after.
@@ -1575,6 +1605,218 @@ def check_rmsnorm(dev, seed):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+# --------------------------------------------- phase 3: backward kernels
+# (name, (B, Sq, Skv, H, Hkv, Dh, Dv, dtype), mask): phase 17's training
+# shape first (the timed one), then gemma3-1b's local layers, whisper-tiny's
+# cross attention, deepseek-v2-lite-16b's MLA and an f32 shape
+ATTN_BWD = (
+    ("qwen2-0.5b train [4, 1024, 14/2, 64] causal bf16",
+     (4, 1024, 1024, 14, 2, 64, 64, "bf16"), {"causal": True}),
+    ("gemma3-1b local [2, 1024, 4/1, 256] window 512 bf16",
+     (2, 1024, 1024, 4, 1, 256, 256, "bf16"), {"causal": True,
+                                               "window": 512}),
+    ("whisper-tiny cross [2, 256 over 384, 6/6, 64] bf16",
+     (2, 256, 384, 6, 6, 64, 64, "bf16"), {"causal": False}),
+    ("deepseek-v2-lite-16b MLA [2, 256, 16/16, 192/128] causal bf16",
+     (2, 256, 256, 16, 16, 192, 128, "bf16"), {"causal": True}),
+    ("f32 [2, 256, 14/2, 64] causal (forward on simt)",
+     (2, 256, 256, 14, 2, 64, 64, "f32"), {"causal": True}),
+)
+
+
+def grad_tol(dtype):
+    """Backward tolerance, relative to the reference gradient's largest
+    magnitude: 2**-5 for bf16 (the port's bf16 convention,
+    tests/test_torch_models.py), 1e-4 for f32."""
+    return 2.0**-5 if "bfloat16" in str(dtype) else 1e-4
+
+
+def check_grads_close(name, got, want):
+    """Each gradient within ``grad_tol`` of the largest magnitude of its
+    reference; returns the largest absolute error."""
+    import torch
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        if not (g.dtype == w.dtype and g.shape == w.shape
+                and bool(torch.isfinite(g).all())
+                and err <= grad_tol(w.dtype) * scale):
+            raise AssertionError(f"{name}: gradient max_abs_err {err} over "
+                                 f"max |reference| {scale} (tolerance "
+                                 f"{grad_tol(w.dtype)} of it)")
+        worst = max(worst, err)
+    return worst
+
+
+def check_flash_attention_bwd(dev, seed):
+    """``flash_attention_bwd`` against autograd of the plain attention on
+    the card at ``ATTN_BWD``'s shapes: within ``grad_tol``, two calls
+    bitwise equal; the forward kernel's output bitwise the same with and
+    without its row statistics; timed at phase 17's shape beside the
+    plain backward and the backward of ``F.scaled_dot_product_attention``
+    (autograd, its fused kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ref as ar
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    errs, timed = {}, None
+    for label, (B, Sq, Skv, H, Hkv, Dh, Dv, dt), kw in ATTN_BWD:
+        r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
+            dts[dt])
+        q, k, v, do = r(B, Sq, H, Dh), r(B, Skv, Hkv, Dh), r(B, Skv, Hkv,
+                                                             Dv), r(B, Sq,
+                                                                    H, Dv)
+        o, lse = fk.flash_attention(q, k, v, lse=True, **kw)
+        if not torch.equal(o, fk.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash_attention {label}: the output "
+                                 f"with lse differs from without")
+        got = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label}: two calls "
+                                 f"gave different bits")
+        want = ar.mha_bwd(q, k, v, do, **kw)
+        errs[label] = check_grads_close(f"flash_attention_bwd {label}", got,
+                                        want)
+        if timed is None:
+            timed = (label, (q, k, v, o, lse, do), kw)
+        del got, again, want
+    label, (q, k, v, o, lse, do), kw = timed
+    B, S, H, Dh = q.shape
+    Hkv, Dv = k.shape[2], v.shape[3]
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_err = check_grads_close(
+        "SDPA backward (yardstick)", [x.transpose(1, 2) for x in
+                                      torch.autograd.grad(out, (qt, kt, vt),
+                                                          dot,
+                                                          retain_graph=True)],
+        ar.mha_bwd(q, k, v, do, **kw))
+    ms = device_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                   reps=10)
+    plain_ms = device_ms(lambda: ar.mha_bwd(q, k, v, do, **kw), reps=3,
+                         warmup=1)
+    library_ms = device_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), reps=10)
+    # q, k, v, o, dO read once and dq, dk, dv written once (bf16), lse read
+    # once (f32); five products (S, dP, dV, dK, dQ): 2 (3 Dh + 2 Dv) FLOPs
+    # a (query head, row, visible key), S (S + 1) / 2 causal pairs a head
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + 2 * o.numel()) + 4 * lse.numel()
+    flops = 2 * (3 * Dh + 2 * Dv) * B * H * S * (S + 1) // 2
+    bound_ms, bound_by = attention_bound(nbytes, flops)
+    log(f"flash_attention_bwd vs plain (autograd of the plain attention), "
+        f"gradients' max_abs_err: {errs} (tolerance 2**-5 of max "
+        f"|reference| bf16, 1e-4 f32); two calls bitwise equal; the "
+        f"forward's output bitwise the same with its row statistics")
+    log(f"flash_attention_bwd {label}: kernel {ms:.5f} ms, plain backward "
+        f"{plain_ms:.5f} ms, library (SDPA backward under autograd; "
+        f"max_abs_err against plain {lib_err}) {library_ms:.5f} "
+        f"ms (kernel / library {ms / library_ms:.3f}; device time, "
+        f"torch.profiler, mean of 10, 3 plain); bound {bound_ms:.6f} ms by {bound_by} ({nbytes} "
+        f"bytes at 3.35 TB/s, {flops} FLOPs at 989 TFLOP/s)")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "none: the JAX package's gradient is XLA autodiff "
+                        "of src/repro/kernels/attention/ops.py:21 (its "
+                        "forward replaces src/repro/kernels/"
+                        "flash_attention/kernel.py:124)",
+            "max_abs_err": max(e for lb, e in errs.items() if "bf16" in lb),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# phase 17's norms: 4 x 1,024 rows of qwen2-0.5b's d_model 896
+RMS_BWD_SHAPE = (4096, 896)
+
+
+def check_rmsnorm_bwd(dev, seed):
+    """``rmsnorm_bwd`` against autograd of the plain RMSNorm at phase 17's
+    rows (bf16, with and without ``scale_offset``) and an f32 case:
+    within ``grad_tol``, two calls bitwise equal; timed beside the plain
+    backward and ``F.rms_norm``'s backward under autograd (bf16 weight),
+    over copies of x and dy that together exceed the L2 four times, one a
+    call in turn, as training finds them in HBM."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rr
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    rows, D = RMS_BWD_SHAPE
+    errs = {}
+    for dt, off in ((torch.bfloat16, False), (torch.bfloat16, True),
+                    (torch.float32, False)):
+        x = torch.randn(rows, D, generator=gen, device=dev).to(dt)
+        w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+        dy = torch.randn(rows, D, generator=gen, device=dev).to(dt)
+        got = rk.rmsnorm_bwd(x, w, dy, eps=1e-6, scale_offset=off)
+        again = rk.rmsnorm_bwd(x, w, dy, eps=1e-6, scale_offset=off)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("rmsnorm_bwd: two calls gave different bits")
+        errs[f"{str(dt)[6:]} offset={off}"] = check_grads_close(
+            f"rmsnorm_bwd {str(dt)[6:]} offset={off}", got,
+            rr.rmsnorm_bwd(x, w, dy, eps=1e-6, scale_offset=off))
+    w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+    wx = w.to(torch.bfloat16).requires_grad_(True)
+    r = lambda: torch.randn(rows, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    # (x, dy, F.rms_norm's output on x with the graph kept) a copy
+    copies = []
+    for _ in range(L2_BYTES * 4 // (2 * rows * D * 2)):
+        x = r().requires_grad_(True)
+        copies.append((x, r(), F.rms_norm(x, (D,), wx, 1e-6)))
+    turn = itertools.cycle(copies)
+
+    def kern():
+        x, dy, _ = next(turn)
+        return rk.rmsnorm_bwd(x.detach(), w, dy, eps=1e-6)
+
+    def lib():
+        x, dy, y = next(turn)
+        return torch.autograd.grad(y, (x, wx), dy, retain_graph=True)
+
+    k1, l1, k2, l2 = (device_ms(f) for f in (kern, lib, kern, lib))
+    ms, library_ms = (k1 + k2) / 2, (l1 + l2) / 2
+    x, dy, _ = copies[0]
+    plain_ms = device_ms(lambda: rr.rmsnorm_bwd(x.detach(), w, dy,
+                                                eps=1e-6))
+    del copies, turn
+    # x and dy read once, dx written once (bf16), w read and dw written
+    # once (f32); ~10 f32 operations an element
+    nbytes = 3 * rows * D * 2 + 2 * D * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 10 * rows * D / F32_OPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"rmsnorm_bwd vs plain (autograd of the plain RMSNorm) "
+        f"[{rows}, {D}], gradients' max_abs_err: {errs} (tolerance 2**-5 "
+        f"of max |reference| bf16, 1e-4 f32); two calls bitwise equal; "
+        f"{rk.bwd_rows_per_block(rows)} rows a block")
+    log(f"rmsnorm_bwd [{rows}, {D}] bf16: kernel {ms:.5f} ms ({k1:.5f}, "
+        f"{k2:.5f}), plain backward {plain_ms:.5f} ms, library (F.rms_norm "
+        f"backward under autograd, bf16 weight) {library_ms:.5f} ms "
+        f"({l1:.5f}, {l2:.5f}); kernel / library {ms / library_ms:.3f} "
+        f"(device time, torch.profiler, mean of 20, in turns, x and dy from "
+        f"HBM); bound {bound_ms:.6f} ms by {bound_by} ({nbytes} bytes at "
+        f"3.35 TB/s)")
+    return {"name": "rmsnorm_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
+            "replaces": "none: the JAX package's gradient is XLA autodiff "
+                        "of src/repro/models/layers/norms.py:17 (its "
+                        "forward replaces src/repro/kernels/rmsnorm/"
+                        "kernel.py:40)",
+            "max_abs_err": max(e for lb, e in errs.items() if "bf" in lb),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------- workflow
@@ -5821,6 +6063,275 @@ def elastic_durable_path(dev, seed, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+# training qwen2-0.5b at full width on the card: batch x seq tokens a step
+# from TokenStream(seed=0); 17a runs ``steps`` straight and resumes at
+# ``resume_at`` from a checkpoint
+TRAIN = {"arch": "qwen2-0.5b", "batch": 4, "seq": 1024, "steps": 6,
+         "resume_at": 3}
+
+
+def train_launches(cfg, plan):
+    """Launches of each kernel a training step: each block's forward
+    kernels twice (the forward, and its recompute under remat) and its
+    backward kernels once; the final norm, outside remat, once each way.
+    A block runs ``NORMS`` norms and one attention."""
+    kinds = serving_blocks(cfg, plan)
+    if set(kinds) != {"attn"}:
+        raise AssertionError(f"phase 17 trains attention blocks only, not "
+                             f"{kinds}")
+    blocks, norms = kinds["attn"], NORMS["attn"] * kinds["attn"]
+    return {"flash_attention": 2 * blocks, "flash_attention_bwd": blocks,
+            "rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1}
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in f64."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def grad_bound(params, batch):
+    """17b: the first step's gradients, the kernels' bf16 path against the
+    plain versions at f32 compute, leaf by leaf in relative L2, held to
+    twice the plain versions' own bf16 path's distance from the same f32
+    gradients.  Both bf16 paths are roundings of one f32 function (the
+    same weights, the same batch; the kernels accumulate in f32 where the
+    plain versions do), so a path that rounds no worse than the plain
+    one lies within that distance of it.  Returns the leaves' worst ratio
+    and the distances of the worst leaf."""
+    import torch
+    from repro_torch.distributed import optimizer as adamw
+    from repro_torch.distributed.checkpoint import _leaf_paths
+    from repro_torch.models import lm
+    from repro_torch.models.context import Ctx
+    tree = params.tree()
+    leaves = adamw.leaves(tree)
+    names = list(_leaf_paths(tree))     # the paths, in the leaves' order
+
+    def grads(cdtype):
+        loss = lm.train_loss(params, batch, Ctx(cdtype=cdtype))
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    lk, gk = grads(torch.bfloat16)
+    with plain_versions():
+        lp, gp = grads(torch.bfloat16)
+        lf, gf = grads(torch.float32)
+    worst, at = 0.0, None
+    for name, a, b, f in zip(names, gk, gp, gf):
+        dk, dp = rel_l2(a, f), rel_l2(b, f)
+        if not (dk <= 2 * dp):
+            raise AssertionError(f"17b: {name}'s kernel-path gradient lies "
+                                 f"{dk} (relative L2) from the plain f32 "
+                                 f"one, past twice the plain bf16 path's "
+                                 f"{dp}")
+        if dk / dp > worst:
+            worst, at = dk / dp, (name, dk, dp)
+    return {"losses kernels / plain bf16 / plain f32": (lk, lp, lf),
+            "leaves": len(leaves), "worst ratio": worst,
+            "at (leaf, kernels, plain bf16)": at}
+
+
+def profile_train_step(trainer, params, opt, batch, step_s):
+    """One more training step under torch.profiler: device busy ms, device
+    operations, the idle share against the unprofiled ms/step, the top
+    kernels and the four training kernels' sums."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _ = trainer.run(params, opt, iter([batch]),
+                                     trainer.step + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        log("profile of a training step: the profiler recorded no device "
+            "events (device busy time not measured)")
+        return params, opt
+    busy_us = sum(e.device_time_total for e in ev)
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    log(f"profile of one training step: device busy {busy_us / 1e3:.4f} "
+        f"ms, {len(ev)} device operations, profiled wall {wall * 1e3:.3f} "
+        f"ms; idle share against the unprofiled {step_s * 1e3:.3f} ms/step: "
+        f"{1 - busy_us / 1e6 / step_s:.4f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"  {us / 1e3:.4f} ms/step  {name[:100]}")
+    for kname, parts in (("flash_attention", ("flash_attention_wgmma",
+                                              "flash_attention_simt")),
+                         ("flash_attention_bwd", ("attn_bwd_",)),
+                         ("rmsnorm", ("rmsnorm_regs", "rmsnorm_loop")),
+                         ("rmsnorm_bwd", ("rmsnorm_bwd_",))):
+        hits = [e.device_time_total for e in ev
+                if any(p in e.name for p in parts)]
+        log(f"  {kname}: {sum(hits) / 1e3:.4f} ms/step over {len(hits)} "
+            f"device launches ({sum(hits) / busy_us:.4f} of busy)")
+    return params, opt
+
+
+def train_path(dev, seed, card):
+    """Phase 17: ``Trainer`` on qwen2-0.5b at full width (``TRAIN``), f32
+    master weights drawn from ``seed``, bf16 compute, default AdamW.
+    17b the first step's gradients against the plain versions; 17a six
+    steps straight against three, a checkpoint, a new ``Trainer``
+    restored from it and three more, bitwise; 17c the kernels' launches a
+    step; 17d a zamba2-1.2b train step raises.  Returns the launches of
+    the path's kernels in its run."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import optimizer as adamw
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.launch.train import Trainer
+
+    t_phase = time.perf_counter()
+    tr = TRAIN
+    cfg = get_config(tr["arch"])
+    B, S, n, k = tr["batch"], tr["seq"], tr["steps"], tr["resume_at"]
+    stream = TokenStream(cfg.vocab_size, B, S, seed=0)
+    batches = [next(stream) for _ in range(n + 1)]
+    kernels = (fk.flash_attention, fk.flash_attention_bwd, rk.rmsnorm,
+               rk.rmsnorm_bwd)
+    routed = (fk.flash_attention, rk.rmsnorm)
+    counts = lambda: {f.__name__: f.launches for f in kernels}
+    torch.cuda.synchronize()
+    for f in kernels:
+        f.launches = 0
+    for f in routed:
+        f.launches_by_route = dict.fromkeys(f.launches_by_route, 0)
+
+    t0 = time.perf_counter()
+    straight = Trainer(cfg, device=dev)
+    params, opt = straight.init(seed)
+    torch.cuda.synchronize()
+    per_step = train_launches(cfg, params.plan)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"training: {cfg.name} at full width ({describe(cfg, {'attn': cfg.n_layers})}); "
+        f"{n_params} f32 parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; batch {B} x {S} tokens from "
+        f"TokenStream(seed=0), bf16 compute, AdamW {adamw.AdamWConfig()}")
+
+    # 17b: the first step's gradients, kernels against plain versions
+    dev_batch = {key: torch.as_tensor(v).to(dev)
+                 for key, v in batches[0].items()}
+    c0 = counts()
+    gb = grad_bound(params, dev_batch)
+    moved = {key: v - c0[key] for key, v in counts().items()}
+    if moved != per_step:
+        raise AssertionError(f"17b: the kernels' gradient launched {moved}, "
+                             f"expected a step's {per_step}")
+    torch.cuda.empty_cache()
+    log(f"17b, the first step's gradients, relative L2 a leaf, kernels "
+        f"(bf16) against the plain versions at f32, each within twice the "
+        f"plain bf16 path's distance: {gb}")
+
+    # 17a and 17c: six steps straight, the first a warm-up, the rest timed
+    torch.cuda.reset_peak_memory_stats()
+    c0 = counts()
+    # (a run pulls one batch past its last step: one list each)
+    params, opt, losses = straight.run(params, opt, iter(batches[:1]), 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, more = straight.run(params, opt, iter(batches[1:n]), n)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (n - 1)
+    losses += more
+    moved = {key: v - c0[key] for key, v in counts().items()}
+    want_n = {key: v * n for key, v in per_step.items()}
+    routes = {f.__name__: dict(f.launches_by_route) for f in routed}
+    if moved != want_n:
+        raise AssertionError(f"17c: {n} steps launched {moved}, expected "
+                             f"{want_n} ({per_step} a step)")
+    for name, route in (("flash_attention", "wgmma"), ("rmsnorm", "regs")):
+        if set(r for r, c in routes[name].items() if c) != {route}:
+            raise AssertionError(f"17c: {name} routes {routes[name]}, "
+                                 f"expected all on {route!r}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"17c, launches a step (asserted): {per_step} (each block's "
+        f"forward kernels twice under remat, its backward once; the final "
+        f"norm once each way); routes {routes}")
+    log(f"training {cfg.name} end to end: {n} steps, losses {losses}; "
+        f"steps 2-{n}: {step_s * 1e3:.3f} ms/step, {B * S / step_s:.1f} "
+        f"tokens/s; max_memory_allocated {peak / 2**30:.3f} GiB; {card}")
+    want = [t.detach().clone() for t in adamw.leaves(params.tree())
+            + adamw.leaves(opt.m) + adamw.leaves(opt.v) + [opt.count]]
+    del straight, params, opt
+    torch.cuda.empty_cache()
+
+    # 17a: three steps, a checkpoint, a failure, a new trainer, three more
+    with tempfile.TemporaryDirectory(prefix="phase17_") as d:
+        first = Trainer(cfg, ckpt_dir=d, ckpt_every=k, device=dev)
+        p1, o1 = first.init(seed)
+        it = iter(batches[:n])
+        t0 = time.perf_counter()
+        try:
+            first.run(p1, o1, it, n, fail_at=k)
+            raise AssertionError("17a: the simulated failure did not come")
+        except RuntimeError as e:
+            if "simulated node failure" not in str(e):
+                raise
+        first.ckpt.wait()
+        t_save = time.perf_counter() - t0
+        if first.ckpt.errors or first.ckpt.latest_step() != k:
+            raise AssertionError(f"17a: checkpoint {first.ckpt.errors}, "
+                                 f"latest {first.ckpt.latest_step()}")
+        first.close()
+        del first, p1, o1
+        torch.cuda.empty_cache()
+        second = Trainer(cfg, ckpt_dir=d, ckpt_every=10 * n, device=dev)
+        p2, o2 = second.init(seed + 1)        # restored over
+        t0 = time.perf_counter()
+        p2, o2 = second.maybe_restore(p2, o2)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        p2, o2, resumed = second.run(p2, o2, it, n)
+        got = [t.detach() for t in adamw.leaves(p2.tree())
+               + adamw.leaves(o2.m) + adamw.leaves(o2.v) + [o2.count]]
+        same = len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        if not same or resumed != losses[k:]:
+            diff = sum(not torch.equal(a, b) for a, b in zip(got, want))
+            raise AssertionError(f"17a: the resumed run differs from the "
+                                 f"straight one ({diff} of {len(want)} "
+                                 f"tensors; losses {resumed} against "
+                                 f"{losses[k:]})")
+        log(f"17a: {k} steps, a checkpoint ({sum(t.numel() for t in want)}"
+            f" values; step, save and write {t_save:.2f} s), a simulated "
+            f"failure, a new Trainer restored in {t_restore:.2f} s and "
+            f"{n - k} more steps: parameters, m, v and count bitwise equal "
+            f"to the straight run's; losses {resumed}")
+        del want, got
+        p2, o2 = profile_train_step(second, p2, o2, batches[n], step_s)
+        second.close()
+        del second, p2, o2
+    launches = counts()
+    torch.cuda.empty_cache()
+
+    # 17d: zamba2-1.2b's ssd_scan has no backward kernel: its train step
+    # raises, naming the ROADMAP item
+    zcfg = get_config("zamba2-1.2b")
+    z = Trainer(zcfg, device=dev)
+    pz, oz = z.init(seed)
+    try:
+        z.run(pz, oz, iter([next(TokenStream(zcfg.vocab_size, B, S,
+                                             seed=0))]), 1)
+        raise AssertionError("17d: a zamba2-1.2b train step ran on the card")
+    except NotImplementedError as e:
+        if "item 22" not in str(e):
+            raise
+        log(f"17d: a zamba2-1.2b train step on the card raises: {e}")
+    del z, pz, oz
+    torch.cuda.empty_cache()
+    log(f"training: the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"wall")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=128)
@@ -5878,8 +6389,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
     libs = _build.build(["slate_update", "slate_lookup", "countmin",
-                         "flash_attention", "decode_attention", "ssd_scan",
-                         "rmsnorm"])
+                         "flash_attention", "flash_attention_bwd",
+                         "decode_attention", "ssd_scan", "rmsnorm",
+                         "rmsnorm_bwd"])
     log(f"built {sorted(libs)} with {_build.nvcc_path()} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -5890,7 +6402,9 @@ def main(argv=None):
                check_flash_attention(dev, args.seed),
                check_decode_attention(dev, args.seed),
                check_ssd_scan(dev, args.seed),
-               check_rmsnorm(dev, args.seed)]
+               check_rmsnorm(dev, args.seed),
+               check_flash_attention_bwd(dev, args.seed),
+               check_rmsnorm_bwd(dev, args.seed)]
     torch.cuda.empty_cache()
     check_no_host_sync(dev, args.seed)
     torch.cuda.empty_cache()
@@ -5934,6 +6448,8 @@ def main(argv=None):
     elastic_tiers(dev, args.seed, card)
     torch.cuda.empty_cache()
     by_path["elastic durable"] = elastic_durable_path(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    by_path["train"] = train_path(dev, args.seed, card)
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}

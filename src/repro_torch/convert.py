@@ -26,6 +26,11 @@ and ``lm_states_from_numpy`` / ``lm_states_to_numpy`` the decode states
 reaches numpy as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses: both directions go through a ``uint16`` view, so the trip is
 bitwise.
+
+For training, ``opt_state_from_numpy`` / ``opt_state_to_numpy`` carry
+the AdamW state (``m`` and ``v`` trees of the parameters' structure, the
+int32 ``count``) and ``train_state_from_numpy`` / ``train_state_to_numpy``
+the ``{"params", "opt"}`` tree the checkpointer writes.
 """
 from __future__ import annotations
 
@@ -180,3 +185,34 @@ def lm_states_from_numpy(states, device=None):
 def lm_states_to_numpy(states):
     """The port's decode states -> the JAX package's numpy form."""
     return to_plain(states)
+
+
+# ---- training state ----
+
+def opt_state_from_numpy(opt, device=None):
+    """A JAX ``optimizer.OptState`` (numpy or jax arrays) -> the port's
+    ``OptState`` of tensors on ``device`` (default ``cuda``)."""
+    from repro_torch.distributed.optimizer import OptState
+    dev = resolve_device(device)
+    conv = lambda t: _map_leaves(lambda a: _t(a, dev), t)
+    return OptState(m=conv(opt.m), v=conv(opt.v), count=_t(opt.count, dev))
+
+
+def opt_state_to_numpy(opt):
+    """The port's ``OptState`` -> ``{"m", "v", "count"}`` in numpy (the
+    JAX ``OptState``'s fields)."""
+    return {"m": to_plain(opt.m), "v": to_plain(opt.v),
+            "count": to_plain(opt.count)}
+
+
+def train_state_from_numpy(tree, cfg, device=None):
+    """A JAX ``{"params", "opt"}`` training state -> ``(lm.Model,
+    OptState)`` on ``device`` (default ``cuda``)."""
+    return (lm_params_from_numpy(tree["params"], cfg, device),
+            opt_state_from_numpy(tree["opt"], device))
+
+
+def train_state_to_numpy(model, opt):
+    """``(lm.Model, OptState)`` -> ``{"params", "opt"}`` in numpy."""
+    return {"params": lm_params_to_numpy(model),
+            "opt": opt_state_to_numpy(opt)}

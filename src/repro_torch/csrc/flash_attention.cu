@@ -52,7 +52,9 @@
 //   stays here because the tensor cores would round it to TF32.
 //
 // Both routes sum in a fixed order with no atomics: two calls give the same
-// bits.
+// bits.  Given an lse buffer (the training forward), each route also writes
+// every row's log-sum-exp of the scaled scores, which the backward kernel
+// (csrc/flash_attention_bwd.cu) reads; O is computed as without it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +72,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] or null: each row's log-sum-exp, for training
   int B, Sq, Skv, H, Hkv, Dh, Dv;
   long long qs[3], ks[3], vs[3], os[3];  // element strides of b, s, head
   int causal, window, q_offset, vec;
@@ -441,6 +444,17 @@ flash_attention_wgmma(Args a) {
                                     o[c][n * 4 + i * 2 + 1] * inv);
       }
   }
+  // the rows' log-sum-exp of the scaled scores in natural units (m and l
+  // are in log2 units), for the backward kernel; O is not touched
+  if (a.lse && (lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + row_a + 8 * i;
+      if (row < a.Sq)
+        a.lse[((long long)b * a.H + h) * a.Sq + row] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
+    }
+  }
 }
 
 template <int DVP>
@@ -635,6 +649,16 @@ flash_attention_simt(Args a) {
       if (col < a.Dv) store(op + row * a.os[1] + col, acc[r][c] * inv);
     }
   }
+  // the rows' log-sum-exp of the scaled scores, for the backward kernel
+  if (a.lse && lane == 0) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row = q0 + wr0 + r;
+      if (row < a.Sq)
+        a.lse[((long long)b * a.H + h) * a.Sq + row] =
+            m[r] + logf(fmaxf(l[r], 1e-30f));
+    }
+  }
 }
 
 template <typename T, int NC>
@@ -665,7 +689,9 @@ int launch_t(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, k, v and o alike).  strides: 12 element
+// dtype: 0 = f32, 1 = bf16 (q, k, v and o alike).  lse: null, or [B, H,
+// Sq] f32 to receive each row's log-sum-exp of the scaled scores (natural
+// log; the backward kernel's input).  strides: 12 element
 // strides, (batch, seq, head) of q, k, v, o in turn.  route: 0 = simt,
 // 1 = wgmma (bf16, Dh and Dv multiples of 16, vec).  Sizes are checked by
 // the Python wrapper (1 <= Dh, Dv <= 256, H % Hkv == 0), which also picks
@@ -673,7 +699,8 @@ int launch_t(const Args& a, cudaStream_t s) {
 // cudaErrorInvalidValue without a launch.  Returns cudaGetLastError() after
 // the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
+                                      const void* v, void* o, float* lse,
+                                      int B, int Sq,
                                       int Skv, int H, int Hkv, int Dh, int Dv,
                                       const long long* strides, int causal,
                                       int window, int q_offset, float scale,
@@ -685,6 +712,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.B = B;
   a.Sq = Sq;
   a.Skv = Skv;

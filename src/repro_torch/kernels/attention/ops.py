@@ -6,10 +6,37 @@ ops.py``).
     plain version for a CPU ``q``
   - "cuda": the kernel (raises for CPU tensors or a shape it cannot take)
   - "ref": the plain PyTorch version
+
+Where q, k or v needs a gradient, "cuda" runs the kernel inside
+:class:`KernelAttention`, whose backward is the ``flash_attention_bwd``
+kernel; the plain version is differentiated by autograd.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.attention import ref as _ref
+
+
+class KernelAttention(torch.autograd.Function):
+    """The ``flash_attention`` kernel forward (with its rows'
+    log-sum-exp), the ``flash_attention_bwd`` kernel backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        from repro_torch.kernels.flash_attention import kernel as _k
+        o, lse = _k.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels.flash_attention import kernel as _k
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _k.flash_attention_bwd(q, k, v, o, lse, do, **ctx.mask)
+        return dq, dk, dv, None, None, None
 
 
 def mha(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
@@ -17,6 +44,9 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
     if impl == "auto":
         impl = "cuda" if q.is_cuda else "ref"
     if impl == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return KernelAttention.apply(q, k, v, causal, window, q_offset)
         from repro_torch.kernels.flash_attention import kernel as _k
         return _k.flash_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)

@@ -59,3 +59,14 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
                                   window=window, scale=scale))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.to(q.dtype)
+
+
+def mha_bwd(q, k, v, do, *, causal: bool = True, window: int = 0,
+            q_offset: int = 0, chunk: int = 512):
+    """The plain backward, the ``flash_attention_bwd`` kernel's oracle:
+    autograd of :func:`mha`.  Returns ``(dq, dk, dv)`` in q's dtype."""
+    with torch.enable_grad():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = mha(qg, kg, vg, causal=causal, window=window, q_offset=q_offset,
+                chunk=chunk)
+        return torch.autograd.grad(o, (qg, kg, vg), do)

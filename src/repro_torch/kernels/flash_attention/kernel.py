@@ -1,4 +1,5 @@
-"""CUDA wrapper for the flash attention forward (``csrc/flash_attention.cu``).
+"""CUDA wrappers for the flash attention forward (``csrc/flash_attention.cu``)
+and backward (``csrc/flash_attention_bwd.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py::
 flash_attention``: causal (with ``q_offset``), sliding-window or
@@ -15,7 +16,14 @@ CUDA cores, for the rest), launches on the current stream and counts
 launches in ``flash_attention.launches`` and, by route, in
 ``flash_attention.launches_by_route``.  It takes every shape the TPU
 kernel's ``supported()`` takes (and more: any ``Sq``, ``Skv`` >= 1,
-head dims 1-256); anything else raises.
+head dims 1-256); anything else raises.  With ``lse=True`` it also
+returns each row's log-sum-exp (``[B, H, Sq]`` f32), which
+:func:`flash_attention_bwd` reads.
+
+:func:`flash_attention_bwd` replaces no TPU kernel (the JAX package
+trains through XLA's autodiff of its plain attention): it gives
+``(dq, dk, dv)`` for every shape the forward takes, in two launches (dq,
+then dk and dv), counted once a call in ``flash_attention_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch
 from repro_torch.kernels import _build
 
 _NAME = "flash_attention"
+_BWD = "flash_attention_bwd"
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"simt": 0, "wgmma": 1}   # the C entry point's route codes
@@ -37,10 +46,22 @@ def _lib() -> ctypes.CDLL:
     """The built library with its entry point's signature set (once)."""
     lib = _build.load(_NAME)
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
                    + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward's library with its entry point's signature set."""
+    lib = _build.load(_BWD)
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -94,19 +115,14 @@ def check_layout(who: str, dev, **ts: torch.Tensor) -> None:
                              f"bfloat16, got {t.dtype}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv], one dtype
-    (f32 or bf16).  Returns [B,Sq,H,Dv] in q's dtype."""
-    dev = q.device
-    check_layout("flash_attention", dev, q=q, k=k, v=v)
+def check_shapes(who: str, q, k, v, window: int) -> None:
+    """The shape checks the forward and backward wrappers share."""
     B, Sq, H, Dh = q.shape
     _, Skv, Hkv, Dv = v.shape
 
     def require(cond, msg):
         if not cond:
-            raise ValueError(f"flash_attention kernel: {msg}")
+            raise ValueError(f"{who} kernel: {msg}")
 
     require(k.dtype == q.dtype and v.dtype == q.dtype,
             "q, k and v must share one dtype")
@@ -117,23 +133,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     require(0 < Dh <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM,
             f"head dims must be in [1, {MAX_HEAD_DIM}], got {Dh}, {Dv}")
     require(Skv > 0 and window >= 0, "need Skv >= 1 and window >= 0")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0, lse: bool = False):
+    """q: [B,Sq,H,Dh]; k: [B,Skv,Hkv,Dh]; v: [B,Skv,Hkv,Dv], one dtype
+    (f32 or bf16).  Returns [B,Sq,H,Dv] in q's dtype; with ``lse`` also
+    each row's log-sum-exp of the scaled scores, [B,H,Sq] f32."""
+    dev = q.device
+    check_layout("flash_attention", dev, q=q, k=k, v=v)
+    check_shapes("flash_attention", q, k, v, window)
+    B, Sq, H, Dh = q.shape
+    _, Skv, Hkv, Dv = v.shape
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    stats = torch.empty((B, H, Sq), dtype=torch.float32,
+                        device=dev) if lse else None
     if o.numel() == 0:
-        return o
+        return (o, stats) if lse else o
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     vec = vec_ok(q, k, v)
     path = route_of(q.dtype, Dh, Dv, vec)
     code = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        stats.data_ptr() if lse else None, B, Sq, Skv,
         H, Hkv, Dh, Dv, strides_of(q, k, v, o), int(causal), int(window),
         int(q_offset), float(Dh ** -0.5), DTYPES[q.dtype], int(vec),
         ROUTES[path], stream)
     flash_attention.launches += 1
     flash_attention.launches_by_route[path] += 1
     _build.check(lib, _NAME, code)
-    return o
+    return (o, stats) if lse else o
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = {r: 0 for r in ROUTES}
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0):
+    """The gradients of :func:`flash_attention` with respect to q, k and
+    v, given its output ``o`` and row statistics ``lse`` (``lse=True``)
+    and the output's gradient ``do`` ([B,Sq,H,Dv], any strides with the
+    last dimension contiguous; another layout is copied once).  Returns
+    ``(dq, dk, dv)`` in q's dtype, contiguous."""
+    dev = q.device
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    check_layout("flash_attention_bwd", dev, q=q, k=k, v=v, o=o, do=do)
+    check_shapes("flash_attention_bwd", q, k, v, window)
+    B, Sq, H, Dh = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    if not (o.shape == do.shape == (B, Sq, H, Dv)
+            and o.dtype == do.dtype == q.dtype):
+        raise ValueError(f"flash_attention_bwd kernel: o and do must be "
+                         f"[{B}, {Sq}, {H}, {Dv}] {q.dtype}")
+    if not (lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+            and lse.is_contiguous() and lse.device == dev):
+        raise ValueError(f"flash_attention_bwd kernel: lse must be "
+                         f"[{B}, {H}, {Sq}] float32, contiguous, on {dev}")
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, Hkv, Dh, Dv,
+        strides_of(q, k, v, o, do, dq, dk, dv), int(causal), int(window),
+        int(q_offset), float(Dh ** -0.5), DTYPES[q.dtype], stream)
+    flash_attention_bwd.launches += 1
+    _build.check(lib, _BWD, code)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -1,4 +1,5 @@
-"""CUDA wrapper for fused RMSNorm (``csrc/rmsnorm.cu``).
+"""CUDA wrappers for fused RMSNorm (``csrc/rmsnorm.cu``) and its backward
+(``csrc/rmsnorm_bwd.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/rmsnorm/kernel.py::
 rmsnorm``: ``x [..., D]`` (f32 or bf16) normalised over its last
@@ -14,6 +15,12 @@ the row, for the rest), launches on the current stream and counts
 launches in ``rmsnorm.launches`` and, by route, in
 ``rmsnorm.launches_by_route``.  It takes any D >= 1 (the TPU kernel's
 ``supported()`` asks D % 8 == 0); anything else raises.
+
+:func:`rmsnorm_bwd` replaces no TPU kernel (the JAX package trains
+through XLA's autodiff of its norms): it gives ``(dx, dw)`` for every
+shape the forward takes (D up to ``BWD_MAX_D``), in two launches (the
+rows and their per-block dw partials, then the partials' fixed-order
+sum), counted once a call in ``rmsnorm_bwd.launches``.
 """
 from __future__ import annotations
 
@@ -26,6 +33,9 @@ import torch
 from repro_torch.kernels import _build
 
 _NAME = "rmsnorm"
+_BWD = "rmsnorm_bwd"
+BWD_MAX_D = 12288      # the backward's dw partial in 48 KB of shared memory
+BWD_MAX_BLOCKS = 1024  # the backward's row blocks: one wave when resident
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("regs", "loop")
 MAX_BLOCK = 1024       # threads a block
@@ -101,6 +111,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward's library with its entry point's signature set."""
+    lib = _build.load(_BWD)
+    fn = lib.rmsnorm_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def bwd_rows_per_block(rows: int) -> int:
+    """Rows a block of the backward takes: the fewest that keep the
+    blocks at most ``BWD_MAX_BLOCKS`` (a function of the shape alone, so
+    a shape always sums dw in the same order)."""
+    return max(1, -(-rows // BWD_MAX_BLOCKS))
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             scale_offset: bool = False) -> torch.Tensor:
     """x: [..., D] f32/bf16, contiguous; w: [D] f32, on x's device.
@@ -143,3 +173,49 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
 
 rmsnorm.launches = 0
 rmsnorm.launches_by_route = {r: 0 for r in ROUTES}
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6, scale_offset: bool = False):
+    """The gradients of :func:`rmsnorm` with respect to x and w: x and dy
+    [..., D] (one dtype, f32 or bf16, contiguous), w [D] f32.  Returns
+    ``(dx, dw)``: dx in x's shape and dtype, dw [D] f32."""
+    dev = x.device
+
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"rmsnorm_bwd kernel: {msg}")
+
+    require(x.is_cuda and w.device == dev and dy.device == dev,
+            f"x, w and dy must be on one CUDA device, got {x.device}, "
+            f"{w.device} and {dy.device}")
+    require(x.dtype in DTYPES and dy.dtype == x.dtype
+            and w.dtype == torch.float32,
+            f"x and dy must share float32 or bfloat16 and w be float32, got "
+            f"{x.dtype}, {dy.dtype}, {w.dtype}")
+    require(x.ndim >= 1 and 0 < x.shape[-1] <= BWD_MAX_D
+            and w.shape == x.shape[-1:] and dy.shape == x.shape,
+            f"need x [..., D] with 1 <= D <= {BWD_MAX_D}, w [D] and dy as x, "
+            f"got {tuple(x.shape)}, {tuple(w.shape)}, {tuple(dy.shape)}")
+    require(x.is_contiguous() and w.is_contiguous() and dy.is_contiguous(),
+            "x, w and dy must be contiguous")
+    D = x.shape[-1]
+    rows = x.numel() // D
+    dx = torch.empty_like(x)
+    dw = torch.zeros_like(w)
+    if rows == 0:
+        return dx, dw
+    rpb = bwd_rows_per_block(rows)
+    part = torch.empty((-(-rows // rpb), D), dtype=torch.float32, device=dev)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.rmsnorm_bwd_launch(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                                  dx.data_ptr(), part.data_ptr(),
+                                  dw.data_ptr(), rows, D, rpb, float(eps),
+                                  int(scale_offset), DTYPES[x.dtype], stream)
+    rmsnorm_bwd.launches += 1
+    _build.check(lib, _BWD, code)
+    return dx, dw
+
+
+rmsnorm_bwd.launches = 0

@@ -17,3 +17,13 @@ def rmsnorm(x, w, *, eps: float = 1e-6, scale_offset: bool = False):
     wf = w.to(torch.float32)
     wf = (1.0 + wf) if scale_offset else wf
     return (xf * wf).to(x.dtype)
+
+
+def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6, scale_offset: bool = False):
+    """The plain backward, the ``rmsnorm_bwd`` kernel's oracle: autograd
+    of :func:`rmsnorm`.  Returns ``(dx, dw)`` in x's and w's dtypes."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        wg = w.detach().requires_grad_(True)
+        y = rmsnorm(xg, wg, eps=eps, scale_offset=scale_offset)
+        return torch.autograd.grad(y, (xg, wg), dy)

@@ -10,8 +10,15 @@
   - "ref": the plain PyTorch version
 
 ``ssd_step``, the decode recurrence, has no kernel in either package.
+
+The kernel has no backward yet (ROADMAP queue 1 item 22): where the
+kernel would run and an input needs a gradient (training zamba2 on the
+card), ``ssd`` raises rather than differentiating the plain version in
+its place.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.ssd import ref as _ref
 from repro_torch.kernels.ssd_scan import kernel as _k
@@ -25,6 +32,12 @@ def ssd(q, k, v, log_a, *, chunk: int = 256, initial_state=None,
         impl = "cuda" if (q.is_cuda and initial_state is None
                           and _k.supported(q, k, v)) else "ref"
     if impl == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v, log_a)):
+            raise NotImplementedError(
+                "ssd_scan kernel: no backward kernel yet, so the chunked "
+                "SSD scan cannot be trained on the card (ROADMAP queue 1 "
+                "item 22)")
         if initial_state is not None:
             raise ValueError("ssd_scan kernel: starts from a zero state "
                              "only (initial_state must be None)")

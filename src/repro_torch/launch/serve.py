@@ -75,7 +75,7 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (sharded serving) is ported with the "
-                "multi-card slice, ROADMAP queue 1 item 16")
+                "multi-card slice, ROADMAP queue 1 item 16b")
         self.device = resolve_device(device)
         self.journal = WriteAheadLog(journal) if journal else None
         self.scfg = serve_cfg or ServeConfig()

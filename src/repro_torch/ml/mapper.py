@@ -104,7 +104,7 @@ class ModelMapper(Mapper):
         contract (fused vs generic, pre vs post recovery) is bitwise."""
         ctx = self.ctx.replace(positions=lm._positions(toks.shape,
                                                        toks.device))
-        hidden, _, _ = lm.forward(self.model, toks, ctx)
+        hidden, _, _ = lm.forward(self.model, toks, ctx, remat=False)
         pad_mask = (toks != 0).to(hidden.dtype)             # 0 = pad
         denom = torch.clamp(pad_mask.sum(-1, keepdim=True), min=1.0)
         self.microbatches += 1

@@ -13,7 +13,7 @@ contributions with ``segment_sum``; the port inverts the sort and sums
 them in a fixed order (no float atomics), so a run repeats bit for bit.
 
 The JAX package's expert-parallel path (``apply_sharded``, a shard_map
-over a mesh) waits for the multi-card slice (ROADMAP queue 1 item 16).
+over a mesh) waits for the multi-card slice (ROADMAP queue 1 item 16b).
 """
 from __future__ import annotations
 

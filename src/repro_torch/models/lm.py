@@ -1,4 +1,4 @@
-"""Model-level API: init / forward / prefill / decode (port of
+"""Model-level API: init / forward / loss / prefill / decode (port of
 ``repro.models.lm``).
 
 ``Model`` is an ``nn.Module`` whose submodules mirror the JAX package's
@@ -7,8 +7,15 @@ params>`` stacked on a leading group axis, ``final_norm``, ``head`` when
 untied, whisper's ``enc_body`` and ``enc_norm``), so
 ``repro_torch.convert`` carries weights across by name.  The phase
 functions are plain functions over it with the JAX signatures minus
-``params``.  The port serves only: parameters carry no gradients,
-and ``lm_loss`` / ``train_loss`` wait for the training slice.
+``params``.  Parameters are registered without gradients (serving);
+a trainer sets ``requires_grad_(True)`` on its own model
+(``launch/train.py``).  Training never uses :func:`for_compute`, which
+makes new parameters and so cuts the graph: the layers cast each weight
+at its use, as the JAX package does, and those casts are differentiable.
+
+The language-model head uses a sequence-chunked cross-entropy
+(:func:`lm_loss`: each chunk under ``torch.utils.checkpoint``), so the
+``[B, S, V]`` logits never exist whole.
 """
 from __future__ import annotations
 
@@ -16,14 +23,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import init_utils as iu
 from repro_torch.models import transformer
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import norms
 from repro_torch.models.stack import (StackPlan, apply_stack, init_stack,
-                                      init_states)
+                                      init_states, specs_of)
 
 
 # parameters the JAX layers read in f32 whatever the compute dtype: the
@@ -113,6 +121,12 @@ def init(model: Model, gen: torch.Generator,
     cast to ``dtype`` as soon as its block is drawn (``F32_PARAMS`` stay
     f32): the values equal ``for_compute(init(model, gen), dtype)``, and
     the f32 copy never exists whole (at most one block of it does)."""
+    params, specs = _init_tree(model, gen, dtype)
+    return model.load_tree(params), specs
+
+
+def _init_tree(model: Model, gen, dtype: Optional[torch.dtype] = None):
+    """:func:`init`'s (params, specs) trees, loaded into nothing."""
     cfg = model.cfg
     cast = lambda t: t if dtype is None else _cast_tree(t, dtype)
     one = lambda t: t if dtype is None else t.to(dtype)
@@ -132,7 +146,13 @@ def init(model: Model, gen: torch.Generator,
         params["enc_body"], specs["enc_body"] = init_stack(
             gen, model.enc_plan, cast=cast)
         params["enc_norm"], specs["enc_norm"] = norms.init(gen, cfg.d_model)
-    return model.load_tree(params), specs
+    return params, specs
+
+
+def param_specs(model: Model):
+    """The parameter tree as ``meta`` tensors (shapes and dtypes, no
+    allocation) and its specs, without touching ``model``."""
+    return specs_of(lambda gen: _init_tree(model, gen))
 
 
 def _cast_tree(tree, cdtype: torch.dtype):
@@ -178,7 +198,7 @@ def encode(model: Model, enc_frames, ctx: Ctx):
                        positions=_positions(enc_frames.shape[:2],
                                             enc_frames.device))
     x, _, _ = apply_stack(model.enc_body.tree(), model.enc_plan, x, None,
-                          ectx)
+                          ectx, remat=(ctx.phase == "train"))
     return norms.apply(model.enc_norm.tree(), x, eps=model.cfg.norm_eps)
 
 
@@ -188,11 +208,12 @@ def _positions(bs, device):
         b, s)
 
 
-def forward(model: Model, tokens, ctx: Ctx, states=None):
+def forward(model: Model, tokens, ctx: Ctx, states=None, *,
+            remat: bool = True):
     """tokens [B,S] -> (hidden [B,S,D], new_states, aux)."""
     x = _embed(model, tokens, ctx)
     x, new_states, aux = apply_stack(model.body.tree(), model.plan, x,
-                                     states, ctx)
+                                     states, ctx, remat=remat)
     x = norms.apply(model.final_norm.tree(), x, eps=model.cfg.norm_eps,
                     scale_offset=model.cfg.norm_scale_offset)
     return x, new_states, aux
@@ -210,8 +231,65 @@ def logits_for(model: Model, hidden, ctx: Ctx):
 
 
 # --------------------------------------------------------------------------
+# loss (chunked cross-entropy)
+# --------------------------------------------------------------------------
+
+def _chunk_nll(h, y, w, cdtype):
+    """One chunk's summed NLL and its unmasked token count, in f32."""
+    lg = (h.to(cdtype) @ w).to(torch.float32)
+    lz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, y.clamp(min=0)[..., None].to(torch.int64)
+                        )[..., 0]
+    mask = (y >= 0).to(torch.float32)
+    return ((lz - gold) * mask).sum(), mask.sum()
+
+
+def lm_loss(model: Model, hidden, labels, ctx: Ctx, *, chunk: int = 512):
+    """Mean next-token NLL.  hidden [B,S,D], labels [B,S] (already
+    shifted; label -100 = masked).  The sequence is padded to a multiple
+    of ``chunk`` (label -100) and each chunk's logits are made, reduced
+    and, under autograd, made again in the backward pass
+    (``checkpoint``), as the JAX package's ``lax.scan`` of
+    ``jax.checkpoint`` does; the sums run over the chunks in order."""
+    B, S, D = hidden.shape
+    w = _unembed_matrix(model).to(ctx.cdtype)
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-100)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    n_tok = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S + pad, chunk):
+        h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(_chunk_nll, h, y, w, ctx.cdtype,
+                                use_reentrant=False)
+        else:
+            nll, n = _chunk_nll(h, y, w, ctx.cdtype)
+        loss_sum = loss_sum + nll
+        n_tok = n_tok + n
+    return loss_sum / torch.clamp(n_tok, min=1.0)
+
+
+# --------------------------------------------------------------------------
 # phase entry points
 # --------------------------------------------------------------------------
+
+def train_loss(model: Model, batch: Dict[str, Any], ctx: Ctx):
+    """batch: tokens/labels [B,S] (+ whisper's ``enc_frames``
+    [B,S_enc,D], the vision model's ``image_embeds`` [B,n_img,D]) -> the
+    mean NLL plus the blocks' auxiliary losses; the stack (and whisper's
+    encoder) under remat."""
+    tokens = batch["tokens"]
+    ctx = ctx.replace(phase="train",
+                      positions=_positions(tokens.shape, tokens.device))
+    if model.enc_plan is not None:
+        ctx = ctx.replace(enc_memory=encode(model, batch["enc_frames"], ctx))
+    if model.cfg.cross_attn_every:
+        ctx = ctx.replace(image_embeds=batch["image_embeds"].to(ctx.cdtype))
+    hidden, _, aux = forward(model, tokens, ctx, remat=True)
+    return lm_loss(model, hidden, batch["labels"], ctx) + aux
+
 
 def prefill(model: Model, batch: Dict[str, Any], ctx: Ctx, cache_len: int,
             *, full_logits: bool = False):
@@ -227,7 +305,7 @@ def prefill(model: Model, batch: Dict[str, Any], ctx: Ctx, cache_len: int,
         ctx = ctx.replace(enc_memory=encode(model, batch["enc_frames"], ctx))
     if model.cfg.cross_attn_every:
         ctx = ctx.replace(image_embeds=batch["image_embeds"].to(ctx.cdtype))
-    hidden, states, _ = forward(model, tokens, ctx)
+    hidden, states, _ = forward(model, tokens, ctx, remat=False)
     sel = hidden if full_logits else hidden[:, -1:]
     return logits_for(model, sel, ctx), states
 
@@ -240,7 +318,7 @@ def decode_step(model: Model, token, states, cur_index, ctx: Ctx):
     ctx = ctx.replace(phase="decode", positions=cur_index[:, None],
                       cur_index=cur_index,
                       cache_len=_states_cache_len(states))
-    hidden, new_states, _ = forward(model, token, ctx, states)
+    hidden, new_states, _ = forward(model, token, ctx, states, remat=False)
     return logits_for(model, hidden, ctx), new_states
 
 
@@ -263,3 +341,27 @@ def _states_cache_len(states) -> int:
 
 def decode_states(model: Model, batch: int, cache_len: int, make_leaf):
     return init_states(model.plan, batch, cache_len, make_leaf)
+
+
+# --------------------------------------------------------------------------
+# abstract inputs per (arch x shape)
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Every model input of the cell as a ``meta`` tensor (its shape and
+    dtype, no allocation)."""
+    B, S = shape.global_batch, shape.seq_len
+    sds = lambda sh, dt: torch.empty(sh, dtype=dt, device="meta")
+    if shape.phase in ("train", "prefill"):
+        out = {"tokens": sds((B, S), torch.int32)}
+        if shape.phase == "train":
+            out["labels"] = sds((B, S), torch.int32)
+        if cfg.encdec:
+            out["enc_frames"] = sds((B, S, cfg.d_model), torch.bfloat16)
+        if cfg.cross_attn_every:
+            out["image_embeds"] = sds((B, cfg.n_image_tokens, cfg.d_model),
+                                      torch.bfloat16)
+        return out
+    # decode: one new token against a cache of S
+    return {"token": sds((B, 1), torch.int32),
+            "cur_index": sds((B,), torch.int32)}

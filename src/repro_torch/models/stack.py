@@ -4,8 +4,9 @@ A model body is a list of ``Segment``s; each segment repeats a
 ``pattern`` of blocks over ``n_groups`` groups, with every parameter
 stacked on a leading group axis.  The JAX package scans the groups with
 ``lax.scan``; the port loops over the group axis in Python (eager
-PyTorch has nothing to compile), indexing views of the stacked
-parameters.
+PyTorch has nothing to compile), over views of the stacked parameters
+(``torch.unbind``, whose backward stacks the groups' gradients in one
+write).
 
 Blocks with ``use_extra=True`` read their parameters from the shared
 (unstacked) ``params["extra"][name]`` — zamba2's shared attention
@@ -22,7 +23,14 @@ xLSTM layers ``copy_`` their recurrent states), so no state is copied or
 re-emitted.  ``apply_stack``
 returns the caller's stacked states, which then hold the new values; a
 block that returned new tensors instead would never advance its state.
-No remat: the port serves only, so nothing is kept for a backward pass.
+
+Remat.  With ``remat`` (the default, as in the JAX package; prefill and
+decode pass False) each group of a segment runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, the
+counterpart of ``jax.checkpoint(nothing_saveable)`` around the scan
+body: a backward pass keeps only each group's input and runs the group's
+forward again to get the rest.  It applies only where autograd records
+(``torch.is_grad_enabled()``); decode never remats.
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import init_utils as iu
 from repro_torch.models.context import Ctx
 
 
@@ -61,7 +71,10 @@ class StackPlan:
 
 
 def _map(fn, *trees):
-    """Map over the leaves of nested dicts of tensors (one structure)."""
+    """Map over the leaves of nested dicts of tensors (one structure;
+    ``None`` an empty subtree, as in JAX)."""
+    if trees[0] is None:
+        return None
     if isinstance(trees[0], dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
@@ -75,6 +88,12 @@ def _map_spec(fn, spec):
     if _is_state_leaf(spec):
         return fn(spec)
     return {k: _map_spec(fn, v) for k, v in spec.items()}
+
+
+def specs_of(init_fn: Callable):
+    """Run ``init_fn`` on the ``meta`` device (no allocation, no draw);
+    return (a tree of meta tensors giving shapes and dtypes, specs)."""
+    return init_fn(iu.MetaGen())
 
 
 def init_stack(gen: torch.Generator, plan: StackPlan,
@@ -137,31 +156,55 @@ def _group(tree, i: int):
     return _map(lambda a: a[i], tree)
 
 
-def apply_stack(params, plan: StackPlan, x, states, ctx: Ctx):
+def _groups(tree, n: int):
+    """The ``n`` groups of a stacked tree (``None`` kept): views from one
+    ``torch.unbind`` a leaf."""
+    if tree is None:
+        return [None] * n
+    per_leaf = _map(lambda a: torch.unbind(a, 0), tree)
+    return [_map(lambda g: g[i], per_leaf) for i in range(n)]
+
+
+def apply_stack(params, plan: StackPlan, x, states, ctx: Ctx, *,
+                remat: bool = True):
     """Returns (x, new_states, aux_sum).
 
     Prefill returns each block's new states stacked on the group axis;
     decode has the blocks update ``states`` in place (the decode
-    contract, in the module docstring) and returns it.  ``aux_sum`` adds the blocks' auxiliary losses; blocks
-    without one return a Python 0.0, which launches nothing."""
+    contract, in the module docstring) and returns it.  ``aux_sum`` adds
+    the blocks' auxiliary losses; blocks without one return a Python
+    0.0, which launches nothing.  ``remat``: see the module docstring."""
     decode = states is not None and ctx.is_decode
+    remat = remat and not decode and torch.is_grad_enabled()
     extra = params["extra"]
     aux_total = 0.0
     new_states_all = []
     for si, seg in enumerate(plan.segments):
-        seg_params = params["segments"][si]
+        seg_params = [_groups(p, seg.n_groups) for p in params["segments"][si]]
         seg_states = states[si] if states is not None else \
             tuple(None for _ in seg.pattern)
         per_block = [[] for _ in seg.pattern]
-        for i in range(seg.n_groups):
-            for j, blk in enumerate(seg.pattern):
-                pj = extra[blk.name] if blk.use_extra else \
-                    _group(seg_params[j], i)
-                sj = _group(seg_states[j], i) \
-                    if seg_states[j] is not None else None
+
+        def body(x, aux, i, _seg=seg, _params=seg_params,
+                 _states=seg_states):
+            sts = []
+            for j, blk in enumerate(_seg.pattern):
+                pj = extra[blk.name] if blk.use_extra else _params[j][i]
+                sj = _group(_states[j], i) \
+                    if _states[j] is not None else None
                 x, st, a = blk.apply(pj, x, sj, ctx)
+                sts.append(st)
+                aux = aux + a
+            return x, aux, sts
+
+        for i in range(seg.n_groups):
+            if remat:
+                x, aux_total, sts = checkpoint(body, x, aux_total, i,
+                                               use_reentrant=False)
+            else:
+                x, aux_total, sts = body(x, aux_total, i)
+            for j, st in enumerate(sts):
                 per_block[j].append(st)
-                aux_total = aux_total + a
         if decode:
             new_states_all.append(seg_states)
         else:
