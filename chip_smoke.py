@@ -87,16 +87,19 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    the other shapes are logged on their own lines).  The two backward
    kernels of the training step against autograd of their plain
    versions on the card (bf16 within 2**-5 of the reference gradient's
-   largest magnitude, f32 within 1e-4 of it; two calls bitwise equal):
-   ``flash_attention_bwd`` at phase 17's shape (4 x 1,024 tokens, 14/2
-   heads of 64, causal), gemma3-1b's local layers (Dh 256, window 512),
-   whisper-tiny's cross attention (256 over 384 keys, bidirectional),
-   deepseek-v2-lite-16b's MLA (Dh 192 over Dv 128) and an f32 shape,
-   the forward's output bitwise the same with its row statistics;
-   ``rmsnorm_bwd`` at phase 17's 4,096 rows of 896, bf16 with and
-   without scale_offset, and f32; each timed at phase 17's shape beside
-   its plain backward and the library's backward under autograd (SDPA's,
-   ``F.rms_norm``'s) as a yardstick;
+   largest magnitude, f32 within 1e-4 of it; two calls bitwise equal;
+   each case's route asserted): ``flash_attention_bwd`` at phase 17's
+   shape (4 x 1,024 tokens, 14/2 heads of 64, causal), gemma3-1b's local
+   layers (Dh 256, window 512), whisper-tiny's cross attention (256 over
+   384 keys, bidirectional), deepseek-v2-lite-16b's MLA (Dh 192 over Dv
+   128) and a chunked prefill's q_offset on the ``wgmma`` route, an f32
+   shape on ``simt``, the forward's output bitwise the same with its row
+   statistics; ``rmsnorm_bwd`` at phase 17's 4,096 rows of 896, bf16
+   with and without scale_offset on ``regs``, f32 on ``loop``; each
+   timed at phase 17's shape on both routes (the CUDA-core or loop route
+   on unaligned copies of the same values) beside its plain backward and
+   the library's backward under autograd (SDPA's, ``F.rms_norm``'s) as a
+   yardstick;
 4. checks that a ``run_chunk`` tick never syncs the host (torch's sync
    debug mode set to "error"), on a small engine, with telemetry off
    and on;
@@ -367,8 +370,10 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    first a warm-up: ms/step and tokens/s over the other five,
    ``max_memory_allocated``, and each kernel's launches a step asserted
    (a block's forward kernels twice under remat and its backward kernels
-   once; the final norm once each way; all ``flash_attention`` on
-   ``wgmma``, all ``rmsnorm`` on ``regs``).  (a) Three steps, a
+   once; the final norm once each way; all ``flash_attention`` and
+   ``flash_attention_bwd`` on ``wgmma``, all ``rmsnorm`` and
+   ``rmsnorm_bwd`` on ``regs``, over the five steps and over the whole
+   phase).  (a) Three steps, a
    checkpoint to a temporary directory, a simulated failure, a new
    ``Trainer`` restored from it and three more steps: parameters and
    optimizer state bitwise equal to the straight run's; then one
@@ -389,7 +394,9 @@ some path.  ``launches`` sums the paths, ``launches_by_path`` splits it,
 kernels' ``fused`` their fused routes, and the two ``slate_lookup``
 rows' ``routes`` its three routes (their ``ms`` and bound are the
 ``keys`` route's, the read path's) and ``launches_by_route`` their
-launches.  The last line is
+launches; the two backward kernels' rows hold both routes' times under
+``routes`` (``ms`` is the main path's route: ``wgmma``, ``regs``) and
+phase 17's launches by route.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero and prints no result.  Without a CUDA device, or outside
 a checkout, it exits non-zero at once.
@@ -1608,21 +1615,25 @@ def check_rmsnorm(dev, seed):
 
 
 # --------------------------------------------- phase 3: backward kernels
-# (name, (B, Sq, Skv, H, Hkv, Dh, Dv, dtype), mask): phase 17's training
-# shape first (the timed one), then gemma3-1b's local layers, whisper-tiny's
-# cross attention, deepseek-v2-lite-16b's MLA and an f32 shape
+# (name, (B, Sq, Skv, H, Hkv, Dh, Dv, dtype), mask, route): phase 17's
+# training shape first (the timed one), then gemma3-1b's local layers,
+# whisper-tiny's cross attention, deepseek-v2-lite-16b's MLA, a bf16
+# q_offset case and an f32 shape; the route each must take
 ATTN_BWD = (
     ("qwen2-0.5b train [4, 1024, 14/2, 64] causal bf16",
-     (4, 1024, 1024, 14, 2, 64, 64, "bf16"), {"causal": True}),
+     (4, 1024, 1024, 14, 2, 64, 64, "bf16"), {"causal": True}, "wgmma"),
     ("gemma3-1b local [2, 1024, 4/1, 256] window 512 bf16",
      (2, 1024, 1024, 4, 1, 256, 256, "bf16"), {"causal": True,
-                                               "window": 512}),
+                                               "window": 512}, "wgmma"),
     ("whisper-tiny cross [2, 256 over 384, 6/6, 64] bf16",
-     (2, 256, 384, 6, 6, 64, 64, "bf16"), {"causal": False}),
+     (2, 256, 384, 6, 6, 64, 64, "bf16"), {"causal": False}, "wgmma"),
     ("deepseek-v2-lite-16b MLA [2, 256, 16/16, 192/128] causal bf16",
-     (2, 256, 256, 16, 16, 192, 128, "bf16"), {"causal": True}),
+     (2, 256, 256, 16, 16, 192, 128, "bf16"), {"causal": True}, "wgmma"),
+    ("chunked prefill [2, 200 over 456, 14/2, 64] q_offset 256 bf16",
+     (2, 200, 456, 14, 2, 64, 64, "bf16"), {"causal": True,
+                                            "q_offset": 256}, "wgmma"),
     ("f32 [2, 256, 14/2, 64] causal (forward on simt)",
-     (2, 256, 256, 14, 2, 64, 64, "f32"), {"causal": True}),
+     (2, 256, 256, 14, 2, 64, 64, "f32"), {"causal": True}, "simt"),
 )
 
 
@@ -1651,12 +1662,25 @@ def check_grads_close(name, got, want):
     return worst
 
 
+def unaligned_copy(t):
+    """The same values one element into a buffer: a view no 16-byte
+    load can read, which the wrappers send to their CUDA-core or loop
+    routes."""
+    import torch
+    buf = torch.empty(*t.shape[:-1], t.shape[-1] + 8, dtype=t.dtype,
+                      device=t.device)
+    buf[..., 1:1 + t.shape[-1]] = t
+    return buf[..., 1:1 + t.shape[-1]]
+
+
 def check_flash_attention_bwd(dev, seed):
     """``flash_attention_bwd`` against autograd of the plain attention on
-    the card at ``ATTN_BWD``'s shapes: within ``grad_tol``, two calls
+    the card at ``ATTN_BWD``'s shapes: each case on its route (asserted,
+    and only that route's counter moved), within ``grad_tol``, two calls
     bitwise equal; the forward kernel's output bitwise the same with and
-    without its row statistics; timed at phase 17's shape beside the
-    plain backward and the backward of ``F.scaled_dot_product_attention``
+    without its row statistics; timed at phase 17's shape on both routes
+    (``simt`` on unaligned copies of the same values) beside the plain
+    backward and the backward of ``F.scaled_dot_product_attention``
     (autograd, its fused kernel)."""
     import torch
     import torch.nn.functional as F
@@ -1665,7 +1689,7 @@ def check_flash_attention_bwd(dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 17)
     dts = {"bf16": torch.bfloat16, "f32": torch.float32}
     errs, timed = {}, None
-    for label, (B, Sq, Skv, H, Hkv, Dh, Dv, dt), kw in ATTN_BWD:
+    for label, (B, Sq, Skv, H, Hkv, Dh, Dv, dt), kw, route in ATTN_BWD:
         r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(
             dts[dt])
         q, k, v, do = r(B, Sq, H, Dh), r(B, Skv, Hkv, Dh), r(B, Skv, Hkv,
@@ -1675,21 +1699,35 @@ def check_flash_attention_bwd(dev, seed):
         if not torch.equal(o, fk.flash_attention(q, k, v, **kw)):
             raise AssertionError(f"flash_attention {label}: the output "
                                  f"with lse differs from without")
+        before = dict(fk.flash_attention_bwd.launches_by_route)
         got = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         again = fk.flash_attention_bwd(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
+        moved = {r_: n - before[r_] for r_, n in
+                 fk.flash_attention_bwd.launches_by_route.items()}
+        if moved != {r_: 2 * (r_ == route) for r_ in moved}:
+            raise AssertionError(f"flash_attention_bwd {label}: routes "
+                                 f"{moved}, expected {route!r}")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"flash_attention_bwd {label}: two calls "
                                  f"gave different bits")
         want = ar.mha_bwd(q, k, v, do, **kw)
-        errs[label] = check_grads_close(f"flash_attention_bwd {label}", got,
-                                        want)
+        errs[f"{label} ({route})"] = check_grads_close(
+            f"flash_attention_bwd {label}", got, want)
         if timed is None:
             timed = (label, (q, k, v, o, lse, do), kw)
         del got, again, want
     label, (q, k, v, o, lse, do), kw = timed
     B, S, H, Dh = q.shape
     Hkv, Dv = k.shape[2], v.shape[3]
+    uq, uk, uv = (unaligned_copy(x) for x in (q, k, v))
+    if fk.bwd_route(uq, uk, uv, o, do) != "simt":
+        raise AssertionError("flash_attention_bwd: unaligned views took "
+                             "the wgmma route")
+    simt_err = check_grads_close(
+        "flash_attention_bwd on simt (unaligned views)",
+        fk.flash_attention_bwd(uq, uk, uv, o, lse, do, **kw),
+        ar.mha_bwd(q, k, v, do, **kw))
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
                   for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -1703,6 +1741,9 @@ def check_flash_attention_bwd(dev, seed):
         ar.mha_bwd(q, k, v, do, **kw))
     ms = device_ms(lambda: fk.flash_attention_bwd(q, k, v, o, lse, do, **kw),
                    reps=10)
+    simt_ms = device_ms(lambda: fk.flash_attention_bwd(uq, uk, uv, o, lse,
+                                                       do, **kw), reps=3,
+                        warmup=1)
     plain_ms = device_ms(lambda: ar.mha_bwd(q, k, v, do, **kw), reps=3,
                          warmup=1)
     library_ms = device_ms(lambda: torch.autograd.grad(
@@ -1715,15 +1756,21 @@ def check_flash_attention_bwd(dev, seed):
     flops = 2 * (3 * Dh + 2 * Dv) * B * H * S * (S + 1) // 2
     bound_ms, bound_by = attention_bound(nbytes, flops)
     log(f"flash_attention_bwd vs plain (autograd of the plain attention), "
-        f"gradients' max_abs_err: {errs} (tolerance 2**-5 of max "
-        f"|reference| bf16, 1e-4 f32); two calls bitwise equal; the "
-        f"forward's output bitwise the same with its row statistics")
-    log(f"flash_attention_bwd {label}: kernel {ms:.5f} ms, plain backward "
-        f"{plain_ms:.5f} ms, library (SDPA backward under autograd; "
-        f"max_abs_err against plain {lib_err}) {library_ms:.5f} "
-        f"ms (kernel / library {ms / library_ms:.3f}; device time, "
-        f"torch.profiler, mean of 10, 3 plain); bound {bound_ms:.6f} ms by {bound_by} ({nbytes} "
-        f"bytes at 3.35 TB/s, {flops} FLOPs at 989 TFLOP/s)")
+        f"gradients' max_abs_err: {errs}; the simt route at "
+        f"{label} {simt_err} (tolerance 2**-5 of max |reference| bf16, "
+        f"1e-4 f32); every case's route asserted; two calls bitwise "
+        f"equal; the forward's output bitwise the same with its row "
+        f"statistics")
+    log(f"flash_attention_bwd {label}: kernel {ms:.5f} ms on the wgmma "
+        f"route, {simt_ms:.5f} ms on the simt route (the same values in "
+        f"unaligned views), plain backward {plain_ms:.5f} ms, library "
+        f"(SDPA backward under autograd; max_abs_err against plain "
+        f"{lib_err}) {library_ms:.5f} ms (kernel / library "
+        f"{ms / library_ms:.3f}, simt / library {simt_ms / library_ms:.3f};"
+        f" device time, torch.profiler, mean of 10, 3 simt and plain); "
+        f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes} bytes at 3.35 "
+        f"TB/s, {flops} FLOPs at 989 TFLOP/s)")
+    del uq, uk, uv
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
             "replaces": "none: the JAX package's gradient is XLA autodiff "
@@ -1732,7 +1779,8 @@ def check_flash_attention_bwd(dev, seed):
                         "flash_attention/kernel.py:124)",
             "max_abs_err": max(e for lb, e in errs.items() if "bf16" in lb),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "routes": {"wgmma": {"ms": ms}, "simt": {"ms": simt_ms}}}
 
 
 # phase 17's norms: 4 x 1,024 rows of qwen2-0.5b's d_model 896
@@ -1741,11 +1789,14 @@ RMS_BWD_SHAPE = (4096, 896)
 
 def check_rmsnorm_bwd(dev, seed):
     """``rmsnorm_bwd`` against autograd of the plain RMSNorm at phase 17's
-    rows (bf16, with and without ``scale_offset``) and an f32 case:
-    within ``grad_tol``, two calls bitwise equal; timed beside the plain
-    backward and ``F.rms_norm``'s backward under autograd (bf16 weight),
-    over copies of x and dy that together exceed the L2 four times, one a
-    call in turn, as training finds them in HBM."""
+    rows (bf16, with and without ``scale_offset``, on the ``regs`` route)
+    and an f32 case (896 f32 is 224 vectors: the ``loop`` route), each
+    route asserted: within ``grad_tol``, two calls bitwise equal; timed
+    on both routes (``loop`` on unaligned copies of the same values)
+    beside the plain backward and ``F.rms_norm``'s backward under
+    autograd (bf16 weight), over copies of x and dy that together exceed
+    the L2 four times, one a call in turn, as training finds them in
+    HBM."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import kernel as rk
@@ -1753,17 +1804,24 @@ def check_rmsnorm_bwd(dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed + 18)
     rows, D = RMS_BWD_SHAPE
     errs = {}
-    for dt, off in ((torch.bfloat16, False), (torch.bfloat16, True),
-                    (torch.float32, False)):
+    for dt, off, route in ((torch.bfloat16, False, "regs"),
+                           (torch.bfloat16, True, "regs"),
+                           (torch.float32, False, "loop")):
         x = torch.randn(rows, D, generator=gen, device=dev).to(dt)
         w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
         dy = torch.randn(rows, D, generator=gen, device=dev).to(dt)
+        before = dict(rk.rmsnorm_bwd.launches_by_route)
         got = rk.rmsnorm_bwd(x, w, dy, eps=1e-6, scale_offset=off)
         again = rk.rmsnorm_bwd(x, w, dy, eps=1e-6, scale_offset=off)
         torch.cuda.synchronize()
+        moved = {r: n - before[r]
+                 for r, n in rk.rmsnorm_bwd.launches_by_route.items()}
+        if moved != {r: 2 * (r == route) for r in moved}:
+            raise AssertionError(f"rmsnorm_bwd {dt} offset={off}: routes "
+                                 f"{moved}, expected {route!r}")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError("rmsnorm_bwd: two calls gave different bits")
-        errs[f"{str(dt)[6:]} offset={off}"] = check_grads_close(
+        errs[f"{str(dt)[6:]} offset={off} ({route})"] = check_grads_close(
             f"rmsnorm_bwd {str(dt)[6:]} offset={off}", got,
             rr.rmsnorm_bwd(x, w, dy, eps=1e-6, scale_offset=off))
     w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
@@ -1776,38 +1834,59 @@ def check_rmsnorm_bwd(dev, seed):
         x = r().requires_grad_(True)
         copies.append((x, r(), F.rms_norm(x, (D,), wx, 1e-6)))
     turn = itertools.cycle(copies)
+    # the same values one element into their buffers: the loop route
+    x, dy, _ = copies[0]
+    ux = unaligned_copy(x.detach().reshape(-1)).view(rows, D)
+    loop_err = check_grads_close(
+        "rmsnorm_bwd on the loop route (unaligned x)",
+        rk.rmsnorm_bwd(ux, w, dy, eps=1e-6),
+        rr.rmsnorm_bwd(x.detach(), w, dy, eps=1e-6))
+    if rk.bwd_plan(rows, D, torch.bfloat16, False).route != "loop":
+        raise AssertionError("rmsnorm_bwd: an unaligned x took regs")
+    del ux
+    uturn = itertools.cycle([(unaligned_copy(x.detach().reshape(-1)).view(
+        rows, D), dy) for x, dy, _ in copies])
 
     def kern():
         x, dy, _ = next(turn)
         return rk.rmsnorm_bwd(x.detach(), w, dy, eps=1e-6)
 
+    def loop():
+        x, dy = next(uturn)
+        return rk.rmsnorm_bwd(x, w, dy, eps=1e-6)
+
     def lib():
         x, dy, y = next(turn)
         return torch.autograd.grad(y, (x, wx), dy, retain_graph=True)
 
-    k1, l1, k2, l2 = (device_ms(f) for f in (kern, lib, kern, lib))
-    ms, library_ms = (k1 + k2) / 2, (l1 + l2) / 2
+    k1, l1, p1, k2, l2, p2 = (device_ms(f) for f in (kern, lib, loop, kern,
+                                                     lib, loop))
+    ms, library_ms, loop_ms = (k1 + k2) / 2, (l1 + l2) / 2, (p1 + p2) / 2
     x, dy, _ = copies[0]
     plain_ms = device_ms(lambda: rr.rmsnorm_bwd(x.detach(), w, dy,
                                                 eps=1e-6))
-    del copies, turn
+    del copies, turn, uturn
     # x and dy read once, dx written once (bf16), w read and dw written
     # once (f32); ~10 f32 operations an element
     nbytes = 3 * rows * D * 2 + 2 * D * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 10 * rows * D / F32_OPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    plan = rk.bwd_plan(rows, D, torch.bfloat16)
     log(f"rmsnorm_bwd vs plain (autograd of the plain RMSNorm) "
-        f"[{rows}, {D}], gradients' max_abs_err: {errs} (tolerance 2**-5 "
-        f"of max |reference| bf16, 1e-4 f32); two calls bitwise equal; "
-        f"{rk.bwd_rows_per_block(rows)} rows a block")
-    log(f"rmsnorm_bwd [{rows}, {D}] bf16: kernel {ms:.5f} ms ({k1:.5f}, "
-        f"{k2:.5f}), plain backward {plain_ms:.5f} ms, library (F.rms_norm "
+        f"[{rows}, {D}], gradients' max_abs_err: {errs}; the loop route "
+        f"on unaligned x {loop_err} (tolerance 2**-5 of max |reference| "
+        f"bf16, 1e-4 f32); every case's route asserted; two calls bitwise "
+        f"equal; plan {plan} (a {plan.blocks * D * 4}-byte dw partial)")
+    log(f"rmsnorm_bwd [{rows}, {D}] bf16: kernel {ms:.5f} ms on the regs "
+        f"route ({k1:.5f}, {k2:.5f}), {loop_ms:.5f} ms on the loop route "
+        f"({p1:.5f}, {p2:.5f}; the same values one element into their "
+        f"buffers), plain backward {plain_ms:.5f} ms, library (F.rms_norm "
         f"backward under autograd, bf16 weight) {library_ms:.5f} ms "
-        f"({l1:.5f}, {l2:.5f}); kernel / library {ms / library_ms:.3f} "
-        f"(device time, torch.profiler, mean of 20, in turns, x and dy from "
-        f"HBM); bound {bound_ms:.6f} ms by {bound_by} ({nbytes} bytes at "
-        f"3.35 TB/s)")
+        f"({l1:.5f}, {l2:.5f}); kernel / library {ms / library_ms:.3f}, "
+        f"loop / library {loop_ms / library_ms:.3f} (device time, "
+        f"torch.profiler, mean of 20, in turns, x and dy from HBM); bound "
+        f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes at 3.35 TB/s)")
     return {"name": "rmsnorm_bwd", "route": "cuda",
             "source": "src/repro_torch/csrc/rmsnorm_bwd.cu",
             "replaces": "none: the JAX package's gradient is XLA autodiff "
@@ -1816,7 +1895,8 @@ def check_rmsnorm_bwd(dev, seed):
                         "kernel.py:40)",
             "max_abs_err": max(e for lb, e in errs.items() if "bf" in lb),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "routes": {"regs": {"ms": ms}, "loop": {"ms": loop_ms}}}
 
 
 # ---------------------------------------------------------------- workflow
@@ -6069,6 +6149,9 @@ def elastic_durable_path(dev, seed, card):
 # ``resume_at`` from a checkpoint
 TRAIN = {"arch": "qwen2-0.5b", "batch": 4, "seq": 1024, "steps": 6,
          "resume_at": 3}
+# the route each kernel of the training step takes on every launch
+TRAIN_ROUTES = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
+                "rmsnorm": "regs", "rmsnorm_bwd": "regs"}
 
 
 def train_launches(cfg, plan):
@@ -6134,7 +6217,8 @@ def grad_bound(params, batch):
 def profile_train_step(trainer, params, opt, batch, step_s):
     """One more training step under torch.profiler: device busy ms, device
     operations, the idle share against the unprofiled ms/step, the top
-    kernels and the four training kernels' sums."""
+    kernels and the four training kernels' sums, each split by device
+    kernel (a backward call's several launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -6165,10 +6249,16 @@ def profile_train_step(trainer, params, opt, batch, step_s):
                          ("flash_attention_bwd", ("attn_bwd_",)),
                          ("rmsnorm", ("rmsnorm_regs", "rmsnorm_loop")),
                          ("rmsnorm_bwd", ("rmsnorm_bwd_",))):
-        hits = [e.device_time_total for e in ev
-                if any(p in e.name for p in parts)]
-        log(f"  {kname}: {sum(hits) / 1e3:.4f} ms/step over {len(hits)} "
-            f"device launches ({sum(hits) / busy_us:.4f} of busy)")
+        hits = [e for e in ev if any(p in e.name for p in parts)]
+        total = sum(e.device_time_total for e in hits)
+        by_kernel = {}
+        for e in hits:    # a call's launches (dQ, dK/dV, the sum, ...)
+            key = e.name.replace("(anonymous namespace)::", "").split(
+                "(")[0].split("<")[0].split("::")[-1].split()[-1]
+            by_kernel[key] = by_kernel.get(key, 0.0) + e.device_time_total
+        log(f"  {kname}: {total / 1e3:.4f} ms/step over {len(hits)} device "
+            f"launches ({total / busy_us:.4f} of busy); by device kernel, "
+            f"ms/step: { {k: round(v / 1e3, 4) for k, v in by_kernel.items()} }")
     return params, opt
 
 
@@ -6197,7 +6287,7 @@ def train_path(dev, seed, card):
     batches = [next(stream) for _ in range(n + 1)]
     kernels = (fk.flash_attention, fk.flash_attention_bwd, rk.rmsnorm,
                rk.rmsnorm_bwd)
-    routed = (fk.flash_attention, rk.rmsnorm)
+    routed = kernels
     counts = lambda: {f.__name__: f.launches for f in kernels}
     torch.cuda.synchronize()
     for f in kernels:
@@ -6247,7 +6337,7 @@ def train_path(dev, seed, card):
     if moved != want_n:
         raise AssertionError(f"17c: {n} steps launched {moved}, expected "
                              f"{want_n} ({per_step} a step)")
-    for name, route in (("flash_attention", "wgmma"), ("rmsnorm", "regs")):
+    for name, route in TRAIN_ROUTES.items():
         if set(r for r, c in routes[name].items() if c) != {route}:
             raise AssertionError(f"17c: {name} routes {routes[name]}, "
                                  f"expected all on {route!r}")
@@ -6310,6 +6400,18 @@ def train_path(dev, seed, card):
         second.close()
         del second, p2, o2
     launches = counts()
+    # every launch of the phase on its route, the backward kernels' too
+    for f in routed:
+        name = f.__name__
+        if f.launches_by_route != {r: launches[name] * (r == TRAIN_ROUTES[
+                name]) for r in f.launches_by_route}:
+            raise AssertionError(f"17: {name} routes {f.launches_by_route} "
+                                 f"over {launches[name]} launches, expected "
+                                 f"all on {TRAIN_ROUTES[name]!r}")
+        if name.endswith("_bwd"):      # their launches are phase 17's
+            launches[f"{name} routes"] = dict(f.launches_by_route)
+    log(f"17: every launch of the phase on its route (asserted): "
+        f"{ {f.__name__: f.launches_by_route for f in routed} }")
     torch.cuda.empty_cache()
 
     # 17d: zamba2-1.2b's ssd_scan has no backward kernel: its train step
@@ -6454,13 +6556,15 @@ def main(argv=None):
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}
         e["launches"] = sum(e["launches_by_path"].values())
-        if e["name"] in ("slate_lookup", "slate_lookup_wide"):
-            # each instance's launches by route (int32 keys on phases
-            # 5-11, 15a-b and 16a-b, int64 on phases 12, 15d and 16d)
-            rk = f"{e['name']} routes"
+        rk = f"{e['name']} routes"
+        if any(rk in n for n in by_path.values()):
+            # each instance's launches by route (slate_lookup: int32 keys
+            # on phases 5-11, 15a-b and 16a-b, int64 on phases 12, 15d and
+            # 16d; the backward kernels on phase 17)
             e["launches_by_route"] = {r: sum(
-                n[rk][r] for n in by_path.values() if rk in n)
-                for r in ("cand", "keys", "find")}
+                n[rk].get(r, 0) for n in by_path.values() if rk in n)
+                for r in sorted({r for n in by_path.values() if rk in n
+                                 for r in n[rk]})}
         if e["launches"] <= 0:
             raise AssertionError(f"{e['name']} never ran on a path")
     keys = ["name", "route", "source", "replaces", "launches",

@@ -16,17 +16,35 @@
 // ~10 FLOPs an element: at the training shape (4 x 1,024 rows of D = 896,
 // bf16) 22 MB, ~6.6 us at 3.35 TB/s.
 //
-// Design: two launches, no atomics, so two calls give the same bits.
-//   1. rows: a 256-thread block takes `rpb` consecutive rows, one at a
-//      time: a first pass over the row sums x**2 and w' dy x (each thread
-//      its columns in turn, a shuffle tree in each warp, the 8 warps' sums
-//      in order), a second writes dx and adds dy x rstd into the block's
-//      dw partial, which stays in shared memory (a thread owns the columns
-//      c = tid mod 256, so no two threads touch one word), and is written
-//      to part[block, :] at the end.
-//   2. dw: a thread a column sums part[:, column] over the blocks in order.
-// The wrapper's plan (kernels/rmsnorm/kernel.py::bwd_plan) gives at most
-// 1,024 blocks, one wave of resident blocks at the training shape.
+// Design: two launches, no atomics, so two calls give the same bits.  The
+// wrapper's plain-Python plan (kernels/rmsnorm/kernel.py::bwd_plan, a
+// function of rows, D, the dtype and alignment alone, never of the device,
+// so a shape always sums dw in one order) picks one of two routes:
+//
+// * regs (D a whole number of 16-byte vectors, at most WARP_VECTORS = 4 a
+//   lane: D <= 1,024 bf16 or 512 f32; 16-byte aligned tensors), the
+//   forward's `regs` route turned around.  A warp owns a row: each lane
+//   holds its VPT 16-byte vectors of x and dy (vectors lane, lane + 32,
+//   ...), read from memory once, and the next row's are loaded before this
+//   row's sums, so the two latencies overlap.  Sum x**2 and sum w' dy x
+//   reduce by a shuffle tree alone, with no barrier; dx is written from
+//   the registers.  A warp takes `rpw` consecutive rows and adds each
+//   row's dy x rstd into its own row of shared memory (a lane owns its
+//   columns, so no two lanes touch one word and no barrier is needed);
+//   at the end the block's 8 warps' rows are added in warp order into
+//   part[block, :].  The plan keeps the blocks at most 256 (at the
+//   training shape 256 blocks of 16 rows: a 917 KB partial, one wave of
+//   resident blocks).  The second launch sums a column's partials with 32
+//   warps, each a contiguous 32nd of the blocks in order, then the 32
+//   sums in warp order (on the loop route too).
+// * loop (odd D, unaligned tensors, D past the register budget up to
+//   12,288): a 256-thread block takes `rpb` consecutive rows, one at a
+//   time: a first pass over the row sums x**2 and w' dy x (each thread its
+//   columns in turn, a shuffle tree in each warp, the 8 warps' sums in
+//   order), a second writes dx and adds dy x rstd into the block's dw
+//   partial, which stays in shared memory (a thread owns the columns
+//   c = tid mod 256, so no two threads touch one word), and is written to
+//   part[block, :] at the end.  At most 1,024 blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,14 +123,38 @@ rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ w,
   for (int i = tid; i < D; i += kThreads) pb[i] = acc[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_dw(const float* __restrict__ part, float* __restrict__ dw,
-               int n_blocks, int D) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= D) return;
+// dw[c] = sum of part[:, c]: a block takes 32 columns; warp q of its 32
+// sums the blocks [q nb / 32, (q + 1) nb / 32) in order, then lane c's
+// sums are added in warp order
+constexpr int kSumWarps = 32;
+__global__ void __launch_bounds__(kSumWarps * 32)
+rmsnorm_bwd_dw_cols(const float* __restrict__ part, float* __restrict__ dw,
+                    int n_blocks, int D) {
+  __shared__ float red[kSumWarps][33];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col = blockIdx.x * 32 + lane;
+  const int lo = (int)((long long)warp * n_blocks / kSumWarps);
+  const int hi = (int)((long long)(warp + 1) * n_blocks / kSumWarps);
   float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += part[(long long)b * D + d];
-  dw[d] = s;
+  if (col < D) {
+#pragma unroll 8
+    for (int b = lo; b < hi; ++b) s += part[(long long)b * D + col];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < D) {
+    float t = 0.f;
+    for (int q = 0; q < kSumWarps; ++q) t += red[q][lane];
+    dw[col] = t;
+  }
+}
+
+// the second launch of both routes: dw from the row blocks' partials
+int sum_dw(const float* part, float* dw, int n_blocks, int D,
+           cudaStream_t s) {
+  rmsnorm_bwd_dw_cols<<<(D + 31) / 32, kSumWarps * 32, 0, s>>>(part, dw,
+                                                               n_blocks, D);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -125,25 +167,209 @@ int launch(const void* x, const float* w, const void* dy, void* dx,
       static_cast<T*>(dx), part, rows, D, rpb, eps, offset);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  rmsnorm_bwd_dw<<<(D + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      part, dw, nb, D);
+  return sum_dw(part, dw, nb, D, s);
+}
+
+// ------------------------------------------------------------ regs route
+constexpr int kRegsWarps = 8;   // a block's warps
+
+template <typename T, int VPT>
+struct RowRegs {
+  uint4 x[VPT], dy[VPT];
+};
+
+// a lane's vectors of row r (zeros past the row)
+template <typename T, int VPT>
+__device__ __forceinline__ void load_row(RowRegs<T, VPT>& v, const T* x,
+                                         const T* dy, long long r, int nv,
+                                         int lane, int D) {
+  const uint4* xr = reinterpret_cast<const uint4*>(x + r * D);
+  const uint4* gr = reinterpret_cast<const uint4*>(dy + r * D);
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = lane + 32 * k;
+    const bool ok = i < nv;
+    v.x[k] = ok ? __ldg(xr + i) : make_uint4(0u, 0u, 0u, 0u);
+    v.dy[k] = ok ? __ldg(gr + i) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// w' of vector i's kVec elements (w, 16-byte aligned, read through the
+// read-only cache: it stays in L1)
+template <int kVec>
+__device__ __forceinline__ void w_vec(float (&wk)[kVec], const float* w,
+                                      int i, int offset) {
+  const float4* wv = reinterpret_cast<const float4*>(w) + i * (kVec / 4);
+#pragma unroll
+  for (int c = 0; c < kVec / 4; ++c) {
+    const float4 f = __ldg(wv + c);
+    wk[4 * c] = f.x;
+    wk[4 * c + 1] = f.y;
+    wk[4 * c + 2] = f.z;
+    wk[4 * c + 3] = f.w;
+  }
+  if (offset)
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) wk[j] += 1.f;
+}
+
+// A warp takes rows [r0, r0 + rpw) of x and dy and writes their dx; its
+// dw partial (its lanes' columns) is summed in its row of shared memory,
+// row after row; then the block's warps' rows are added in warp order
+// into part[blockIdx.x, :].
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kRegsWarps * 32, 2)
+rmsnorm_bwd_regs(const T* __restrict__ x, const float* __restrict__ w,
+                 const T* __restrict__ dy, T* __restrict__ dx,
+                 float* __restrict__ part, long long rows, int D, int rpw,
+                 float eps, int offset) {
+  constexpr int kVec = 16 / sizeof(T);        // elements a vector
+  extern __shared__ __align__(16) float red[];  // [kRegsWarps][D]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = D / kVec;
+  const long long r0 = ((long long)blockIdx.x * kRegsWarps + warp) * rpw;
+  const long long r1 = r0 + rpw < rows ? r0 + rpw : rows;
+  float* mine = red + warp * D;
+
+  if (r0 >= r1) {          // a warp past the last row adds zeros
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nv)
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) mine[i * kVec + j] = 0.f;
+    }
+  }
+  RowRegs<T, VPT> cur;
+  if (r0 < r1) load_row(cur, x, dy, r0, nv, lane, D);
+  for (long long r = r0; r < r1; ++r) {
+    RowRegs<T, VPT> nxt;
+    if (r + 1 < r1) load_row(nxt, x, dy, r + 1, nv, lane, D);
+    float ss = 0.f, dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = lane + 32 * k;
+      if (i >= nv) continue;
+      const T* xe = reinterpret_cast<const T*>(&cur.x[k]);
+      const T* ge = reinterpret_cast<const T*>(&cur.dy[k]);
+      float wk[kVec];
+      w_vec(wk, w, i, offset);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float xf = to_f32(xe[j]);
+        ss = fmaf(xf, xf, ss);
+        dot = fmaf(to_f32(ge[j]) * wk[j], xf, dot);
+      }
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    const float rstd = rsqrtf(ss / (float)D + eps);
+    const float c = rstd * rstd * rstd * (dot / (float)D);
+    uint4* dxr = reinterpret_cast<uint4*>(dx + r * D);
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int i = lane + 32 * k;
+      if (i >= nv) continue;
+      const T* xe = reinterpret_cast<const T*>(&cur.x[k]);
+      const T* ge = reinterpret_cast<const T*>(&cur.dy[k]);
+      float wk[kVec];
+      w_vec(wk, w, i, offset);
+      float4* acc = reinterpret_cast<float4*>(mine + i * kVec);
+      uint4 res;
+      T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+      for (int q = 0; q < kVec / 4; ++q) {
+        float4 m = r == r0 ? make_float4(0.f, 0.f, 0.f, 0.f) : acc[q];
+        float* mv = reinterpret_cast<float*>(&m);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * q + e;
+          const float xf = to_f32(xe[j]), gy = to_f32(ge[j]);
+          from_f32(o + j, rstd * (gy * wk[j]) - xf * c);
+          mv[e] = fmaf(gy, xf * rstd, mv[e]);
+        }
+        acc[q] = m;
+      }
+      dxr[i] = res;
+    }
+    if (r + 1 < r1) cur = nxt;
+  }
+  __syncthreads();
+  float* pb = part + (long long)blockIdx.x * D;
+  for (int e = threadIdx.x; e < D; e += kRegsWarps * 32) {
+    float t = 0.f;
+    for (int q = 0; q < kRegsWarps; ++q) t += red[q * D + e];
+    pb[e] = t;
+  }
+}
+
+template <typename T, int VPT>
+int launch_regs_vpt(const T* x, const float* w, const T* dy, T* dx,
+                    float* part, long long rows, int D, int rpw, float eps,
+                    int offset, unsigned nb, cudaStream_t s) {
+  rmsnorm_bwd_regs<T, VPT>
+      <<<nb, kRegsWarps * 32, kRegsWarps * D * sizeof(float), s>>>(
+          x, w, dy, dx, part, rows, D, rpw, eps, offset);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_regs(const void* x, const float* w, const void* dy, void* dx,
+                float* part, float* dw, long long rows, int D, int rpw,
+                float eps, int offset, int vpt, cudaStream_t s) {
+  const long long per_block = (long long)kRegsWarps * rpw;
+  const unsigned nb = (unsigned)((rows + per_block - 1) / per_block);
+  const T* xt = static_cast<const T*>(x);
+  const T* gt = static_cast<const T*>(dy);
+  T* ot = static_cast<T*>(dx);
+  int e;
+  switch (vpt) {
+    case 1:
+      e = launch_regs_vpt<T, 1>(xt, w, gt, ot, part, rows, D, rpw, eps,
+                                offset, nb, s);
+      break;
+    case 2:
+      e = launch_regs_vpt<T, 2>(xt, w, gt, ot, part, rows, D, rpw, eps,
+                                offset, nb, s);
+      break;
+    case 4:
+      e = launch_regs_vpt<T, 4>(xt, w, gt, ot, part, rows, D, rpw, eps,
+                                offset, nb, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  return sum_dw(part, dw, (int)nb, D, s);
 }
 
 }  // namespace
 
 // x_dtype: 0 = f32, 1 = bf16 (x, dy and dx); w, dw and part are f32.  x,
-// dy and dx are [rows, D] contiguous, part [ceil(rows / rpb), D] scratch.
-// The plan (rpb rows a block) is the Python wrapper's.  Returns
-// cudaGetLastError() after the launches (the first failing one's code).
+// dy and dx are [rows, D] contiguous, part [blocks, D] scratch.  vpt = 0
+// takes the loop route with rpb rows a block (blocks = ceil(rows / rpb));
+// vpt in {1, 2, 4} the regs route with rpb rows a warp, 8 warps a block
+// (blocks = ceil(rows / (8 rpb)); x, dy, dx and w 16-byte aligned, D a
+// whole number of 16-byte vectors, at most 32 vpt of them).  The plan is
+// the Python wrapper's.  Returns cudaGetLastError() after the launches
+// (the first failing one's code).
 extern "C" int rmsnorm_bwd_launch(const void* x, const float* w,
                                   const void* dy, void* dx, float* part,
                                   float* dw, long long rows, int D, int rpb,
                                   float eps, int offset, int x_dtype,
-                                  void* stream) {
+                                  int vpt, void* stream) {
   if (rows <= 0 || D <= 0) return 0;
   if (D > kMaxD || rpb < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (vpt != 0) {
+    const int vec = x_dtype == 1 ? 8 : 4;
+    if (D % vec || D / vec > 32 * vpt) return (int)cudaErrorInvalidValue;
+    return x_dtype == 1
+               ? launch_regs<__nv_bfloat16>(x, w, dy, dx, part, dw, rows, D,
+                                            rpb, eps, offset, vpt, s)
+               : launch_regs<float>(x, w, dy, dx, part, dw, rows, D, rpb,
+                                    eps, offset, vpt, s);
+  }
   return x_dtype == 1
              ? launch<__nv_bfloat16>(x, w, dy, dx, part, dw, rows, D, rpb,
                                      eps, offset, s)

@@ -22,8 +22,13 @@ returns each row's log-sum-exp (``[B, H, Sq]`` f32), which
 
 :func:`flash_attention_bwd` replaces no TPU kernel (the JAX package
 trains through XLA's autodiff of its plain attention): it gives
-``(dq, dk, dv)`` for every shape the forward takes, in two launches (dq,
-then dk and dv), counted once a call in ``flash_attention_bwd.launches``.
+``(dq, dk, dv)`` for every shape the forward takes.  Its route
+(:func:`bwd_route`) follows the forward's rule over q, k, v, o and dO:
+``"wgmma"`` (tensor cores: a dQ launch, a dK/dV launch a query head and,
+for a GQA group, a launch that sums the heads' f32 partials in order) or
+``"simt"`` (f32 CUDA cores: a dQ launch and a dK/dV launch a kv head).
+Calls are counted in ``flash_attention_bwd.launches`` and, by route, in
+``flash_attention_bwd.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -59,9 +64,10 @@ def _bwd_lib() -> ctypes.CDLL:
     """The backward's library with its entry point's signature set."""
     lib = _build.load(_BWD)
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -98,6 +104,15 @@ def route_of(dtype: torch.dtype, Dh: int, Dv: int, aligned: bool) -> str:
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The route :func:`flash_attention` takes for these tensors."""
     return route_of(q.dtype, q.shape[-1], v.shape[-1], vec_ok(q, k, v))
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, do: torch.Tensor) -> str:
+    """The route :func:`flash_attention_bwd` takes for these tensors: the
+    forward's rule (:func:`route_of`) with o and dO read 16 bytes at a
+    time too."""
+    return route_of(q.dtype, q.shape[-1], v.shape[-1],
+                    vec_ok(q, k, v, o, do))
 
 
 def check_layout(who: str, dev, **ts: torch.Tensor) -> None:
@@ -199,18 +214,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
+    path = bwd_route(q, k, v, o, do)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    # each query head's f32 partials of dK and dV, summed in head order by
+    # the wgmma route's last launch (a GQA group only)
+    dkp = dvp = None
+    if path == "wgmma" and H != Hkv:
+        dkp = torch.empty((B, H, Skv, Dh), dtype=torch.float32, device=dev)
+        dvp = torch.empty((B, H, Skv, Dv), dtype=torch.float32, device=dev)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, Hkv, Dh, Dv,
+        dk.data_ptr(), dv.data_ptr(),
+        None if dkp is None else dkp.data_ptr(),
+        None if dvp is None else dvp.data_ptr(), B, Sq, Skv, H, Hkv, Dh, Dv,
         strides_of(q, k, v, o, do, dq, dk, dv), int(causal), int(window),
-        int(q_offset), float(Dh ** -0.5), DTYPES[q.dtype], stream)
+        int(q_offset), float(Dh ** -0.5), DTYPES[q.dtype], ROUTES[path],
+        stream)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[path] += 1
     _build.check(lib, _BWD, code)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {r: 0 for r in ROUTES}

@@ -20,7 +20,12 @@ launches in ``rmsnorm.launches`` and, by route, in
 through XLA's autodiff of its norms): it gives ``(dx, dw)`` for every
 shape the forward takes (D up to ``BWD_MAX_D``), in two launches (the
 rows and their per-block dw partials, then the partials' fixed-order
-sum), counted once a call in ``rmsnorm_bwd.launches``.
+sum).  Its plan (:func:`bwd_plan`, plain Python, a function of the shape,
+dtype and alignment alone) picks the route: ``"regs"``, a warp a row held
+in registers, for rows of at most ``WARP_VECTORS`` 16-byte vectors a
+lane; ``"loop"``, a 256-thread block walking its rows, for the rest.
+Calls are counted in ``rmsnorm_bwd.launches`` and, by route, in
+``rmsnorm_bwd.launches_by_route``.
 """
 from __future__ import annotations
 
@@ -35,7 +40,10 @@ from repro_torch.kernels import _build
 _NAME = "rmsnorm"
 _BWD = "rmsnorm_bwd"
 BWD_MAX_D = 12288      # the backward's dw partial in 48 KB of shared memory
-BWD_MAX_BLOCKS = 1024  # the backward's row blocks: one wave when resident
+BWD_MAX_BLOCKS = 1024  # the backward's row blocks on the loop route
+BWD_WARPS = 8          # the backward's warps a block on the regs route
+#                        (csrc/rmsnorm_bwd.cu::kRegsWarps)
+BWD_REGS_BLOCKS = 256  # its blocks at most: a ~1 MB dw partial at D = 896
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("regs", "loop")
 MAX_BLOCK = 1024       # threads a block
@@ -119,16 +127,56 @@ def _bwd_lib() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 6
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
 def bwd_rows_per_block(rows: int) -> int:
-    """Rows a block of the backward takes: the fewest that keep the
-    blocks at most ``BWD_MAX_BLOCKS`` (a function of the shape alone, so
-    a shape always sums dw in the same order)."""
+    """Rows a block of the backward's loop route takes: the fewest that
+    keep the blocks at most ``BWD_MAX_BLOCKS`` (a function of the shape
+    alone, so a shape always sums dw in the same order)."""
     return max(1, -(-rows // BWD_MAX_BLOCKS))
+
+
+class BwdPlan(NamedTuple):
+    """A backward launch: ``per_thread`` 16-byte vectors a lane holds (0:
+    the loop route), ``rows_each`` consecutive rows a warp takes (regs,
+    ``BWD_WARPS`` warps a block) or a block takes (loop, 256 threads),
+    ``blocks`` row blocks (the dw partial's rows) and ``vec`` elements a
+    vector (1 on the loop route)."""
+    per_thread: int
+    rows_each: int
+    blocks: int
+    vec: int
+
+    @property
+    def route(self) -> str:
+        return "regs" if self.per_thread else "loop"
+
+
+def bwd_plan(rows: int, D: int, dtype: torch.dtype,
+             aligned: bool = True) -> BwdPlan:
+    """The backward's launch for ``rows`` rows of ``D`` elements: a
+    function of the shape, dtype and alignment alone, never of the
+    device, so a shape always sums dw in one order.
+
+    Rows of whole 16-byte vectors, at most ``WARP_VECTORS`` a lane (the
+    forward's one-warp limit: D <= 1,024 bf16, 512 f32), on 16-byte
+    aligned tensors take "regs": a warp a row, ``BWD_WARPS`` warps a
+    block, each warp the fewest consecutive rows that keep the blocks at
+    most ``BWD_REGS_BLOCKS`` (4,096 rows: 2 a warp, 256 blocks).  The
+    rest take the 256-thread "loop" (:func:`bwd_rows_per_block`)."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    nv = D // vec
+    if aligned and D % vec == 0 and 0 < nv <= 32 * WARP_VECTORS:
+        per = 1
+        while 32 * per < nv:
+            per *= 2
+        rpw = max(1, -(-rows // (BWD_WARPS * BWD_REGS_BLOCKS)))
+        return BwdPlan(per, rpw, -(-rows // (BWD_WARPS * rpw)), vec)
+    rpb = bwd_rows_per_block(rows)
+    return BwdPlan(0, rpb, -(-rows // rpb), 1)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
@@ -205,17 +253,21 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
     dw = torch.zeros_like(w)
     if rows == 0:
         return dx, dw
-    rpb = bwd_rows_per_block(rows)
-    part = torch.empty((-(-rows // rpb), D), dtype=torch.float32, device=dev)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy, dx))
+    p = bwd_plan(rows, D, x.dtype, aligned)
+    part = torch.empty((p.blocks, D), dtype=torch.float32, device=dev)
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.rmsnorm_bwd_launch(x.data_ptr(), w.data_ptr(), dy.data_ptr(),
                                   dx.data_ptr(), part.data_ptr(),
-                                  dw.data_ptr(), rows, D, rpb, float(eps),
-                                  int(scale_offset), DTYPES[x.dtype], stream)
+                                  dw.data_ptr(), rows, D, p.rows_each,
+                                  float(eps), int(scale_offset),
+                                  DTYPES[x.dtype], p.per_thread, stream)
     rmsnorm_bwd.launches += 1
+    rmsnorm_bwd.launches_by_route[p.route] += 1
     _build.check(lib, _BWD, code)
     return dx, dw
 
 
 rmsnorm_bwd.launches = 0
+rmsnorm_bwd.launches_by_route = {r: 0 for r in ROUTES}
