@@ -4425,6 +4425,8 @@ ENGINE_TF = {
 # index past cache_len (a tick decodes idle slots only while some slot is
 # active, and an idle slot is refilled while the queue holds requests)
 HELD_BACK = 8
+# each request's tokens from 14a's engine, read by phase 18c
+ENGINE_TOKENS = {}
 # 14a against phase 7's tokens: a request may part from them only at a
 # step whose top-2 logit margin (the engine's tokens teacher-forced, bf16
 # kernels) is below twice phase 7's teacher-forced tolerance: each run
@@ -4697,6 +4699,7 @@ def engine_path(dev, seed, card, arch):
                              f"expected {want}, routes {routes}, calls "
                              f"{calls}, tokens {n_tok}")
     done = {r.rid: r for r in eng.finished}
+    ENGINE_TOKENS[arch] = {rid: list(r.tokens_out) for rid, r in done.items()}
     if sorted(done) != sorted(r.rid for r in reqs) or any(
             len(r.tokens_out) != ev["max_new"] for r in eng.finished) \
             or stats["shed"] or stats["queued"] or stats["active"]:
@@ -6152,6 +6155,9 @@ TRAIN = {"arch": "qwen2-0.5b", "batch": 4, "seq": 1024, "steps": 6,
 # the route each kernel of the training step takes on every launch
 TRAIN_ROUTES = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
                 "rmsnorm": "regs", "rmsnorm_bwd": "regs"}
+# 17a's state after ``resume_at`` straight steps: (tensors, losses, the
+# kernels' launches a step, 17c's s/step), read by phase 18a
+TRAIN_AT = {}
 
 
 def train_launches(cfg, plan):
@@ -6367,6 +6373,11 @@ def train_path(dev, seed, card):
                 raise
         first.ckpt.wait()
         t_save = time.perf_counter() - t0
+        # the state after k straight steps, which phase 18a reproduces
+        # (run updates parameters, m and v in place; its count is new)
+        TRAIN_AT[k] = ([t.detach().clone() for t in adamw.leaves(p1.tree())
+                        + adamw.leaves(o1.m) + adamw.leaves(o1.v)],
+                       losses[:k], per_step, step_s)
         if first.ckpt.errors or first.ckpt.latest_step() != k:
             raise AssertionError(f"17a: checkpoint {first.ckpt.errors}, "
                                  f"latest {first.ckpt.latest_step()}")
@@ -6431,6 +6442,324 @@ def train_path(dev, seed, card):
     torch.cuda.empty_cache()
     log(f"training: the phase took {time.perf_counter() - t_phase:.1f} s "
         f"wall")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 18
+# the mesh slice: Trainer, the expert-parallel MoE and ServingEngine on a
+# one-rank NCCL mesh over the card (parameters, optimizer state, batches
+# and decode states are DTensors; each kernel runs on the rank's local
+# shards), then the dry run of two production cells on the card's host
+MESH_TRAIN_STEPS = 3              # 17a's straight steps before its save
+MESH_MOE = {"arch": "deepseek-v2-lite-16b", "batch": 8, "seq": 256}
+MESH_SERVE_TICKS = 8
+MESH_DRYRUN = (("qwen2-0.5b", "train_4k", False),
+               ("deepseek-v2-lite-16b", "train_4k", True))
+
+
+def mesh_train(dev, seed, card, mesh):
+    """18a: ``Trainer(mesh=...)`` on qwen2-0.5b at full width, phase 17's
+    batches and seed, ``MESH_TRAIN_STEPS`` steps: parameters, m, v and
+    losses bitwise equal to 17a's straight steps, the same launches and
+    routes a step, the parameters DTensors.  Returns (ms/step, profile
+    logged)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import optimizer as adamw
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.launch.train import Trainer
+
+    k = MESH_TRAIN_STEPS
+    want, want_losses, per_step, step17 = TRAIN_AT.pop(k)
+    cfg = get_config(TRAIN["arch"])
+    stream = TokenStream(cfg.vocab_size, TRAIN["batch"], TRAIN["seq"],
+                         seed=0)
+    batches = [next(stream) for _ in range(k + 1)]
+    kernels = (fk.flash_attention, fk.flash_attention_bwd, rk.rmsnorm,
+               rk.rmsnorm_bwd)
+    counts = lambda: {f.__name__: f.launches for f in kernels}
+    routes = lambda: {f.__name__: dict(f.launches_by_route)
+                      for f in kernels}
+    tr = Trainer(cfg, mesh=mesh, device=dev)
+    params, opt = tr.init(seed)
+    if not all(isinstance(p, DTensor) for p in params.parameters()):
+        raise AssertionError("18a: the mesh trainer's parameters are not "
+                             "all DTensors")
+    c0, r0 = counts(), routes()
+    params, opt, losses = tr.run(params, opt, iter(batches[:1]), 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, more = tr.run(params, opt, iter(batches[1:k]), k)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (k - 1)
+    losses += more
+    moved = {n: v - c0[n] for n, v in counts().items()}
+    r1 = routes()
+    by_route = {n: {r: c - r0[n].get(r, 0) for r, c in r1[n].items()
+                    if c - r0[n].get(r, 0)} for n in r1}
+    want_n = {n: v * k for n, v in per_step.items()}
+    if moved != want_n:
+        raise AssertionError(f"18a: {k} mesh steps launched {moved}, "
+                             f"expected 17c's {want_n}")
+    for name, route in TRAIN_ROUTES.items():
+        if set(by_route[name]) != {route}:
+            raise AssertionError(f"18a: {name} routes {by_route[name]}, "
+                                 f"expected all on {route!r}")
+    got = [t.detach().full_tensor() for t in adamw.leaves(params.tree())
+           + adamw.leaves(opt.m) + adamw.leaves(opt.v)]
+    diff = sum(not torch.equal(a, b) for a, b in zip(got, want))
+    if len(got) != len(want) or diff or losses != want_losses or \
+            int(opt.count) != k:
+        raise AssertionError(f"18a: the mesh run differs from 17a's "
+                             f"straight steps ({diff} of {len(want)} "
+                             f"tensors; losses {losses} against "
+                             f"{want_losses}; count {int(opt.count)})")
+    log(f"18a: Trainer(mesh={tuple(mesh.shape)} {mesh.mesh_dim_names}, "
+        f"{torch.distributed.get_backend()}) on {cfg.name}, {k} steps: "
+        f"parameters, m and v "
+        f"({len(want)} tensors, all DTensors) and losses {losses} bitwise "
+        f"equal to 17a's first {k} straight steps; launches {moved} "
+        f"(17c's a step, asserted), routes {by_route}; steps 2-{k}: "
+        f"{step_s * 1e3:.3f} ms/step on the mesh against phase 17's "
+        f"{step17 * 1e3:.3f} ms/step; {card}")
+    del got, want
+    params, opt = profile_train_step(tr, params, opt, batches[k], step_s)
+    del tr, params, opt
+    torch.cuda.empty_cache()
+    return step_s
+
+
+def mesh_moe(dev, seed, card, mesh):
+    """18b: one MoE sublayer of deepseek-v2-lite-16b at full width (its
+    pre-norm, then the MoE: 64 experts, top-6, 2 shared; bf16 weights
+    drawn from ``seed``), prefill phase on ``batch`` x ``seq`` tokens:
+    ``apply_sharded`` over the one-rank "model" group against the
+    one-card ``moe.apply``, ``y`` within 2**-5 of the one-card output's
+    largest magnitude and ``aux`` within 1e-6; a backward through the
+    mesh path gives finite gradients, non-zero in every leaf."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.cells import on_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.context import Ctx
+    from repro_torch.models.layers import moe, norms
+
+    cfg = get_config(MESH_MOE["arch"])
+    m = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    p, specs = moe.init(gen, cfg)
+    p = lm._cast_tree(p, torch.bfloat16)
+    norm, nspecs = norms.init(gen, cfg.d_model)
+    x = torch.randn((MESH_MOE["batch"], MESH_MOE["seq"], cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    one = Ctx(cdtype=torch.bfloat16, phase="prefill")
+    walls = []
+    for _ in range(2):            # the first call, then a warm one
+        t0 = time.perf_counter()
+        ref, ref_aux = moe.apply(p, norms.apply(norm, x, eps=cfg.norm_eps),
+                                 one, cfg=cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rules = shd.rules_for(mesh, phase="prefill")
+    ctx = Ctx(cdtype=torch.bfloat16, phase="prefill", mesh=mesh,
+              rules=rules, constrain=shd.make_constrainer(mesh, rules))
+    if not moe._sharded_ok(cfg, ctx):
+        raise AssertionError("18b: the mesh does not take the "
+                             "expert-parallel path")
+    pd = shd.distribute_tree(p, shd.tree_shardings(specs, p, mesh, rules),
+                             mesh)
+    nd = shd.distribute_tree(norm, shd.tree_shardings(nspecs, norm, mesh,
+                                                      rules), mesh)
+    leaves = [pd[k] for k in sorted(pd) if k != "shared"] + \
+        [pd["shared"][k] for k in sorted(pd["shared"])] + [nd["scale"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    xd = shd.distribute(x, mesh, shd.placements_for(
+        ("act_batch", "act_seq", None), x.shape, mesh, rules))
+    calls = []
+    orig = moe.apply_sharded
+    moe.apply_sharded = lambda *a, **kw: calls.append(1) or orig(*a, **kw)
+    try:
+        with on_mesh(mesh):
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                moe.apply(pd, norms.apply(nd, xd, eps=cfg.norm_eps), ctx,
+                          cfg=cfg)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            y, aux = moe.apply(pd, norms.apply(nd, xd, eps=cfg.norm_eps),
+                               ctx, cfg=cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            grads = torch.autograd.grad(y.float().sum() + aux, leaves)
+            y, aux = y.full_tensor(), aux.full_tensor()
+            grads = [g.full_tensor() for g in grads]
+    finally:
+        moe.apply_sharded = orig
+    err = float((y.float() - ref.float()).abs().max())
+    big = float(ref.float().abs().max())
+    daux = abs(float(aux) - float(ref_aux))
+    bad = [i for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    if calls != [1, 1] or not err <= 2.0**-5 * big or not daux < 1e-6 or \
+            bad:
+        raise AssertionError(f"18b: apply_sharded calls {calls}, max |y - "
+                             f"one-card| {err} against 2**-5 x {big}, aux "
+                             f"{float(aux)} vs {float(ref_aux)}, leaves with "
+                             f"bad gradients {bad}")
+    log(f"18b: one MoE sublayer of {cfg.name} at full width ({m.n_routed_experts}"
+        f" experts, top-{m.top_k}, {m.n_shared_experts} shared, d_expert "
+        f"{m.d_expert}; bf16) on {MESH_MOE['batch']} x {MESH_MOE['seq']} "
+        f"prefill tokens: apply_sharded on the one-rank model group against "
+        f"the one-card moe.apply, max |dy| {err} (bound 2**-5 x {big}), "
+        f"|d aux| {daux}; gradients finite and non-zero in all "
+        f"{len(grads)} leaves; forward wall, first call and warm: "
+        f"{walls[2] * 1e3:.2f} and {walls[3] * 1e3:.2f} ms on the mesh "
+        f"(the warm one recording for the backward), {walls[0] * 1e3:.2f} "
+        f"and {walls[1] * 1e3:.2f} ms on one card; {card}")
+    del pd, nd, grads, y, ref
+    torch.cuda.empty_cache()
+
+
+def mesh_serve(dev, seed, card, mesh):
+    """18c: ``ServingEngine(mesh=...)`` on qwen2-0.5b at 14a's
+    configuration and weights, ``MESH_SERVE_TICKS`` ticks: every
+    request's tokens a prefix of 14a's (bitwise), and the launches a
+    prefill and a decode step 14a's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import (ServeConfig, ServingEngine,
+                                          set_lm_params)
+    from repro_torch.models import lm
+
+    arch = "qwen2-0.5b"
+    cfg, ev = get_config(arch), ENGINE[arch]
+    model, _ = lm.init(lm.build(cfg), torch.Generator(device=dev).manual_seed(
+        seed), dtype=torch.bfloat16)
+    eng = ServingEngine(cfg, ServeConfig(**ev["serve"]), mesh=mesh,
+                        device=dev)
+    set_lm_params(eng, model)
+    del model
+    reqs = engine_requests(arch, seed, cfg.vocab_size)[:-HELD_BACK]
+    for r in reqs:
+        if not eng.submit(r):
+            raise AssertionError(f"18c: request {r.rid} shed")
+    calls = count_calls(eng)
+    c0 = {f.__name__: f.launches for f in (fk.flash_attention,
+                                          dk.decode_attention)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(MESH_SERVE_TICKS)
+    torch.cuda.synchronize()
+    tick_s = (time.perf_counter() - t0) / MESH_SERVE_TICKS
+    moved = {f.__name__: f.launches - c0[f.__name__]
+             for f in (fk.flash_attention, dk.decode_attention)}
+    per_prefill, per_decode = engine_launches(cfg)
+    want = {"flash_attention": per_prefill["flash_attention"]
+            * calls["prefill"],
+            "decode_attention": per_decode["decode_attention"]
+            * calls["decode"]}
+    if moved != want:
+        raise AssertionError(f"18c: launches {moved}, expected {want} "
+                             f"(calls {calls})")
+    base = ENGINE_TOKENS[arch]
+    got = {r.rid: list(r.tokens_out) for r in reqs}
+    bad = [rid for rid, t in got.items() if t != base[rid][:len(t)]]
+    n_tok = sum(len(t) for t in got.values())
+    if bad or not n_tok:
+        raise AssertionError(f"18c: requests {bad} part from 14a's tokens")
+    log(f"18c: ServingEngine(mesh) on {cfg.name} at 14a's configuration, "
+        f"{MESH_SERVE_TICKS} ticks ({calls['prefill']} prefills, "
+        f"{calls['decode']} decode steps): all {n_tok} tokens bitwise 14a's; "
+        f"launches {moved} (14a's a prefill and a decode step, asserted); "
+        f"{tick_s * 1e3:.3f} ms/tick (prefills included); {card}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def mesh_dryrun(card):
+    """18d: ``python -m repro_torch.launch.dryrun`` for ``MESH_DRYRUN``'s
+    cells, each in its own process on the card's host (the fake world of
+    512 ranks; nothing runs on the card), both at once; each record must
+    be ``ok`` with positive FLOPs, bytes, collective bytes and peak."""
+    import os
+    from repro_torch.launch import dryrun
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.perf_counter()
+    procs = []
+    for arch, shape, mp in MESH_DRYRUN:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape] + (["--multi-pod"] if mp else [])
+        procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    wall = time.perf_counter() - t0
+    for (arch, shape, mp), p, out in zip(MESH_DRYRUN, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"18d: the dry run of {arch} {shape} "
+                                 f"failed:\n{out[-3000:]}")
+        path = Path(dryrun.RESULT_DIR) / (dryrun.cell_id(arch, shape, mp)
+                                          + ".json")
+        rec = json.loads(path.read_text())
+        c, mem = rec.get("hlo_walker_per_device", {}), rec.get(
+            "memory_analysis", {})
+        peak = mem.get("peak_estimate_bytes_per_device", 0)
+        counts = [c.get("flops", 0), c.get("hbm_bytes", 0),
+                  c.get("collective_bytes_total", 0), peak]
+        if rec.get("status") != "ok" or not all(v > 0 for v in counts):
+            raise AssertionError(f"18d: {arch} {shape}: record {rec}")
+        log(f"18d: dry run {arch} {shape} on {rec['mesh']} "
+            f"({rec['n_chips']} ranks, lowered in {rec['lower_s']} s): per "
+            f"rank {c['flops']:.6g} FLOPs, {c['hbm_bytes']:.6g} bytes, "
+            f"collective bytes {c['collective_bytes']} "
+            f"(total {c['collective_bytes_total']:.6g}); peak "
+            f"{peak / 2**30:.3f} GiB (fits in {rec['hbm_limit_bytes'] / 2**30:.0f}"
+            f" GiB: {rec['fits']}); dominant {rec['dominant_term']} "
+            f"{rec['roofline_terms_s']}; useful_flops_fraction "
+            f"{rec['useful_flops_fraction']}; roofline from the "
+            f"{rec['roofline_source']}")
+    log(f"18d: both dry runs in {wall:.1f} s wall, side by side")
+
+
+def mesh_path(dev, seed, card):
+    """Phase 18: 18a-c on a one-rank NCCL mesh over the card, then 18d.
+    Returns the launches of the path's kernels in its run (18a-c)."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.launch import mesh as tmesh
+
+    t_phase = time.perf_counter()
+    kernels = (fk.flash_attention, fk.flash_attention_bwd,
+               dk.decode_attention, rk.rmsnorm, rk.rmsnorm_bwd)
+    routed = (fk.flash_attention_bwd, rk.rmsnorm_bwd)
+    torch.cuda.synchronize()
+    for f in kernels:
+        f.launches = 0
+    for f in routed:
+        f.launches_by_route = dict.fromkeys(f.launches_by_route, 0)
+    mesh = tmesh.make_host_mesh(device=dev)
+    try:
+        mesh_train(dev, seed, card, mesh)
+        mesh_moe(dev, seed, card, mesh)
+        mesh_serve(dev, seed, card, mesh)
+    finally:
+        tmesh.close_world()
+    launches = {f.__name__: f.launches for f in kernels}
+    for f in routed:
+        launches[f"{f.__name__} routes"] = dict(f.launches_by_route)
+    log(f"18: launches on the mesh path (18a-c): {launches}")
+    mesh_dryrun(card)
+    log(f"mesh: the phase took {time.perf_counter() - t_phase:.1f} s wall")
     return launches
 
 
@@ -6552,6 +6881,8 @@ def main(argv=None):
     by_path["elastic durable"] = elastic_durable_path(dev, args.seed, card)
     torch.cuda.empty_cache()
     by_path["train"] = train_path(dev, args.seed, card)
+    torch.cuda.empty_cache()
+    by_path["mesh"] = mesh_path(dev, args.seed, card)
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}

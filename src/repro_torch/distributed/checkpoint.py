@@ -13,9 +13,13 @@ keys sorted, ``None`` an empty subtree), e.g.
 
 - ``save`` copies every leaf to host memory, then writes on a
   background thread (training never blocks on disk).
-- ``restore`` rebuilds the tree with each leaf on ``device``.  Restoring
-  onto another mesh (the JAX package's ``shardings``) waits for ROADMAP
-  queue 1 item 16b.
+- ``restore`` rebuilds the tree with each leaf on ``device``, or, given
+  ``shardings`` (a matching tree of DTensor placements, as
+  ``sharding.tree_shardings`` gives them), as a DTensor on the mesh: the
+  JAX package's elastic restore onto a new mesh.  Each rank reads the
+  whole leaf from the host and keeps its shard.
+- ``save`` gathers a DTensor leaf whole first (``full_tensor``), so the
+  files are those of an unsharded run.
 - ``latest_step`` only trusts committed checkpoints, so a crash mid-write
   rolls back to the previous step (restart-safety).
 """
@@ -44,10 +48,16 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return [x for f in tree._fields for x in _flatten(getattr(tree, f),
                                                           prefix + (f,))]
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not _is_placements(tree):
         return [x for i, t in enumerate(tree) for x in _flatten(
             t, prefix + (str(i),))]
     return [("/".join(prefix), tree)]
+
+
+def _is_placements(t) -> bool:
+    """A tuple of DTensor placements (a ``shardings`` leaf)."""
+    return isinstance(t, tuple) and len(t) > 0 and all(
+        hasattr(e, "is_shard") for e in t)
 
 
 def _leaf_paths(tree) -> Dict[str, Any]:
@@ -76,6 +86,8 @@ def _to_host(leaf) -> np.ndarray:
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf)
     t = leaf.detach()
+    if hasattr(t, "full_tensor"):          # a DTensor: the whole leaf
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:       # numpy has no bf16 of its own
         import ml_dtypes
         return np.array(t.view(torch.uint16).cpu().numpy()).view(
@@ -172,16 +184,23 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, step: int, target_tree, shardings=None, *,
-                device=None):
+                mesh=None, device=None):
         """``target_tree``: a tree of tensors (or any leaves) giving the
         structure; returns it with every leaf read from the checkpoint, as
         a tensor on ``device`` (default: the target leaf's device when it
-        is a tensor, else ``cuda``).  ``shardings`` (the JAX package's
-        restore onto another mesh) raises: ROADMAP queue 1 item 16b."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto a mesh (shardings) waits for the multi-card "
-                "slice, ROADMAP queue 1 item 16b")
+        is a tensor, else ``cuda``).  ``shardings``: an optional matching
+        tree of placements; each such leaf comes back as a DTensor on
+        ``mesh`` (default: the first DTensor leaf's mesh of
+        ``target_tree``), on the mesh's device."""
+        shard_leaves = _leaf_paths(shardings) if shardings is not None \
+            else {}
+        if shardings is not None and mesh is None:
+            mesh = next((t.device_mesh for t in _leaf_paths(
+                target_tree).values() if hasattr(t, "device_mesh")), None)
+            if mesh is None:
+                raise ValueError(
+                    "restore with shardings needs a mesh: pass mesh= or a "
+                    "target tree holding DTensors")
         d = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -190,8 +209,15 @@ class Checkpointer:
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
+            arr = np.load(os.path.join(d, meta["file"]))
+            pl = shard_leaves.get(key)
+            if pl is not None:
+                from repro_torch.distributed.sharding import distribute
+                out[key] = distribute(_from_host(
+                    arr, meta["dtype"], resolve_device(mesh.device_type)),
+                    mesh, pl)
+                continue
             dev = device if device is not None else (
                 leaf.device if isinstance(leaf, torch.Tensor) else None)
-            out[key] = _from_host(np.load(os.path.join(d, meta["file"])),
-                                  meta["dtype"], resolve_device(dev))
+            out[key] = _from_host(arr, meta["dtype"], resolve_device(dev))
         return _unflatten(target_tree, out)

@@ -61,8 +61,9 @@ def map_tree(fn, tree, *rest):
 
 
 def init(params) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    # zeros_like keeps a DTensor parameter's mesh and placements
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                       memory_format=torch.contiguous_format)
     dev = leaves(params)[0].device
     return OptState(m=map_tree(zeros, params), v=map_tree(zeros, params),
                     count=torch.zeros((), dtype=torch.int32, device=dev))

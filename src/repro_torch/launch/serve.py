@@ -30,7 +30,12 @@ request is admitted only when its bucket is ``cache_len`` (otherwise
 other).  Both packages feed zero memories (``_aux_inputs``).
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; it never falls back
-to the CPU.
+to the CPU.  With a ``mesh`` (``launch.mesh.make_host_mesh``, of
+``device``'s type) the weights and the slots' states are DTensors placed
+by ``sharding.tree_shardings`` / ``state_shardings`` under
+``rules_for(mesh, phase="decode")``; the steps run on them, and an
+admission writes its slot on the rank that holds it.  The tokens and
+write indices stay whole on every rank.
 """
 from __future__ import annotations
 
@@ -43,7 +48,9 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.event import EventBatch, flatten_sorted
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import cells
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.models import lm
 from repro_torch.slates.wal import WriteAheadLog
 from repro_torch.telemetry.metrics import MetricsRegistry, TelemetryConfig
@@ -72,24 +79,30 @@ class ServeConfig:
 class ServingEngine:
     def __init__(self, cfg_model, serve_cfg: ServeConfig = None, mesh=None,
                  journal: Optional[str] = None, *, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (sharded serving) is ported with the "
-                "multi-card slice, ROADMAP queue 1 item 16b")
+        check_mesh(mesh)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = shd.rules_for(mesh, phase="decode") if mesh else None
         self.journal = WriteAheadLog(journal) if journal else None
         self.scfg = serve_cfg or ServeConfig()
         self.model = lm.build(cfg_model)
         self.cfg = cfg_model
         sc = self.scfg
 
-        self._decode = cells.make_decode_step(self.model)
+        self._decode = cells.make_decode_step(self.model, mesh=mesh,
+                                              rules=self.rules)
         self._prefill = cells.make_prefill_step(
-            self.model, cache_len=sc.cache_len, full_logits=True)
+            self.model, cache_len=sc.cache_len, full_logits=True,
+            mesh=mesh, rules=self.rules)
 
         # batched decode state over slots = the slate table
         self.states = cells.concrete_states(self.model, sc.n_slots,
                                             sc.cache_len, device=self.device)
+        if mesh is not None:
+            self.states = shd.distribute_tree(
+                self.states, shd.state_shardings(
+                    self.model, sc.n_slots, sc.cache_len, mesh, self.rules),
+                mesh)
         self.cur_index = torch.zeros((sc.n_slots,), dtype=torch.int32,
                                      device=self.device)
         self.last_token = torch.zeros((sc.n_slots, 1), dtype=torch.int32,
@@ -160,7 +173,7 @@ class ServingEngine:
         for d, s in zip(flatten_sorted(self.states)[0],
                         flatten_sorted(new_states)[0]):
             if d is not None:
-                d[:, slot] = s[:, 0].to(d.dtype)
+                _write_slot(d, s, slot)
         self.cur_index[slot] = cur_value
         self.last_token[slot, 0] = tok
 
@@ -189,7 +202,7 @@ class ServingEngine:
             # last *real* prompt position; pad rows beyond P sit past the
             # decode frontier (lengths = cur_index+1) and are overwritten
             # as generation advances, so they are never attended.
-            tok = int(torch.argmax(logits[0, min(P, bucket) - 1]))
+            tok = int(torch.argmax(shd.whole(logits)[0, min(P, bucket) - 1]))
             self._insert(new_states, slot, min(P, bucket), tok)
             req.tokens_out.append(tok)
             self.active[slot] = True
@@ -213,9 +226,10 @@ class ServingEngine:
         self._admit()
         if self.active.any():
             self._tokens_cum += int(self.active.sum())
-            tok, self.states, self.cur_index = self._decode(
+            tok, self.states, cur = self._decode(
                 lm_params(self), self.last_token, self.states,
                 self.cur_index)
+            tok, self.cur_index = shd.whole(tok), shd.whole(cur)
             self.last_token = tok
             # one host copy a tick: the new tokens and the write indices
             toks, cur = torch.stack([tok[:, 0], self.cur_index]).cpu().numpy()
@@ -317,15 +331,46 @@ class ServingEngine:
         return out
 
 
+def _write_slot(d, s, slot: int):
+    """Write prefill state ``s`` [G, 1, ...] into slot ``slot`` of the
+    stacked state ``d`` [G, n_slots, ...], in place.  On a mesh each rank
+    writes its own shard, and only the rank holding the slot does."""
+    if not hasattr(d, "device_mesh"):
+        d[:, slot] = s[:, 0].to(d.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = d.device_mesh
+    # the prefill state in the slots' placements, its one row whole
+    pl = tuple(Replicate() if p.is_shard() and p.dim == 1 else p
+               for p in d.placements)
+    if hasattr(s, "device_mesh"):
+        s = s.redistribute(mesh, pl).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        d.shape, mesh, d.placements)
+    lo = offset[1]
+    if lo <= slot < lo + shape[1]:
+        d.to_local()[:, slot - lo] = s[:, 0].to(d.dtype)
+
+
+def _place(engine: ServingEngine, model: lm.Model, specs) -> lm.Model:
+    if engine.mesh is not None:
+        shd.distribute_model(model, specs, engine.mesh, engine.rules)
+    return model
+
+
 def lm_params(engine: ServingEngine) -> lm.Model:
     """The weights ``engine`` serves: drawn at first use from seed 0 on its
     device, in bf16 (``lm.init(..., dtype=bf16)``, bitwise
     ``lm.for_compute`` of the f32 draw, which never exists whole), or
-    those :func:`set_lm_params` gave it."""
+    those :func:`set_lm_params` gave it; on a mesh, DTensors in their
+    specs' placements."""
     if getattr(engine, "_params", None) is None:
         gen = torch.Generator(device=engine.device).manual_seed(0)
-        engine._params, _ = lm.init(lm.build(engine.cfg), gen,
-                                    dtype=cells.CDTYPE)
+        model, specs = lm.init(lm.build(engine.cfg), gen,
+                               dtype=cells.CDTYPE)
+        engine._params = _place(engine, model, specs)
     return engine._params
 
 
@@ -333,7 +378,9 @@ def set_lm_params(engine: ServingEngine, model: lm.Model) -> lm.Model:
     """Serve ``model``'s weights (e.g. a JAX tree through
     ``convert.lm_params_from_numpy``), cast once to bf16 with
     ``lm.for_compute``; returns the cast model."""
-    engine._params = lm.for_compute(model, cells.CDTYPE)
+    cast = lm.for_compute(model, cells.CDTYPE)
+    engine._params = _place(engine, cast, lm.param_specs(cast)[1]
+                            if engine.mesh is not None else None)
     return engine._params
 
 

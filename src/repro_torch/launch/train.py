@@ -7,10 +7,14 @@ tolerance: checkpoint every k steps (atomic COMMIT), restart resumes from
 the latest committed step, straggler steps are counted, and a simulated
 failure flag exercises the restart path end-to-end in tests.
 
-On one card (``device``, default ``cuda``); a ``mesh`` waits for ROADMAP
-queue 1 item 16b.  ``params`` is the trainer's ``lm.Model`` (its
-parameters need gradients, which :meth:`Trainer.init` sets), updated in
-place by every step.
+On one card (``device``, default ``cuda``), or on a ``DeviceMesh``
+(``launch.mesh.make_host_mesh``; its device type must be ``device``'s):
+the parameters and the optimizer state are then DTensors placed by
+``sharding.tree_shardings`` under ``rules_for(mesh, phase="train")``,
+each batch is split on its batch dim, and each rank keeps its shards.
+``params`` is the trainer's ``lm.Model`` (its parameters need
+gradients, which :meth:`Trainer.init` sets), updated in place by every
+step.
 
 CLI (reduced configs run on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
@@ -29,8 +33,10 @@ from repro_torch._device import resolve_device
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.synthetic import Prefetcher, TokenStream
 from repro_torch.distributed import optimizer as adamw
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.checkpoint import Checkpointer
 from repro_torch.launch import cells
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.models import lm
 
 
@@ -38,15 +44,15 @@ class Trainer:
     def __init__(self, cfg, mesh=None, *, opt_cfg=None,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) waits for the multi-card slice, ROADMAP "
-                "queue 1 item 16b; the port trains on one card")
+        check_mesh(mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = shd.rules_for(mesh, phase="train") if mesh else None
         self.model = lm.build(cfg)
         self.step_fn = cells.make_train_step(
-            self.model, opt_cfg or adamw.AdamWConfig())
+            self.model, opt_cfg or adamw.AdamWConfig(), mesh=mesh,
+            rules=self.rules)
         self.ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
         self.ckpt_every = ckpt_every
         self.step = 0
@@ -58,7 +64,11 @@ class Trainer:
         """Parameters drawn from ``torch.Generator(device).manual_seed(
         seed)``, made trainable, and a zero optimizer state."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params, _ = lm.init(self.model, gen)
+        params, specs = lm.init(self.model, gen)
+        if self.mesh is not None:
+            shd.distribute_model(params, specs, self.mesh, self.rules)
+            self.shardings = shd.tree_shardings(specs, params.tree(),
+                                                self.mesh, self.rules)
         for p in params.parameters():
             p.requires_grad_(True)
         return params, adamw.init(params.tree())
@@ -69,8 +79,14 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is None:
             return params, opt
+        shardings = None
+        if self.mesh is not None:
+            shardings = {"params": self.shardings,
+                         "opt": adamw.OptState(m=self.shardings,
+                                               v=self.shardings, count=None)}
         state = self.ckpt.restore(latest, {"params": params.tree(),
-                                           "opt": opt})
+                                           "opt": opt}, shardings,
+                                  mesh=self.mesh)
         with torch.no_grad():
             for p, v in zip(adamw.leaves(params.tree()),
                             adamw.leaves(state["params"])):
@@ -88,8 +104,12 @@ class Trainer:
             t0 = time.time()
             dev_batch = {k: torch.as_tensor(v).to(self.device)
                          for k, v in batch.items()}
+            if self.mesh is not None:
+                dev_batch = shd.distribute_tree(
+                    dev_batch, shd.batch_shardings(dev_batch, self.mesh,
+                                                   self.rules), self.mesh)
             params, opt, metrics = self.step_fn(params, opt, dev_batch)
-            loss = float(metrics["loss"])
+            loss = float(shd.whole(metrics["loss"]))
             losses.append(loss)
             self.step += 1
             dt = time.time() - t0
@@ -99,7 +119,7 @@ class Trainer:
                                            "opt": opt})
             if self.step % log_every == 0:
                 print(f"step {self.step}: loss={loss:.4f} "
-                      f"gnorm={float(metrics['grad_norm']):.3f} "
+                      f"gnorm={float(shd.whole(metrics['grad_norm'])):.3f} "
                       f"({dt*1e3:.0f} ms)")
             if fail_at is not None and self.step >= fail_at:
                 raise RuntimeError("simulated node failure")

@@ -27,6 +27,8 @@ from repro_torch.models import init_utils as iu
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import rope as rope_mod
+from repro_torch.models.layers.spmd import (flatten_last, mm, pad_seq,
+                                           unflatten_last)
 
 
 def init(gen, cfg: ModelConfig, *, is_cross: bool = False):
@@ -63,7 +65,7 @@ def state_spec(cfg: ModelConfig, batch: int, cache_len: int,
 def _proj(x, w, cd):
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
     D, H, K = w.shape
-    return (x.to(cd) @ w.to(cd).reshape(D, H * K)).unflatten(-1, (H, K))
+    return unflatten_last(mm(x.to(cd), w.to(cd).reshape(D, H * K)), H, K)
 
 
 def _proj_qkv(p, x, kv_src, cd):
@@ -83,7 +85,10 @@ def _write_caches(caches, news, idx):
     A write at idx >= S is dropped, as JAX's scatter drops it (a serving
     engine decodes idle slots too, and their index runs on past the
     cache): the index is clamped and the row already there written back,
-    with no host sync.  The rows are worked out once for all the caches."""
+    with no host sync.  The rows are worked out once for all the caches.
+    DTensor caches are written shard by shard (:func:`_write_shards`)."""
+    if hasattr(caches[0], "device_mesh"):
+        return _write_shards(caches, news, idx)
     S = caches[0].shape[1]
     b = torch.arange(caches[0].shape[0], device=caches[0].device)
     idx = idx.to(torch.int64)
@@ -96,11 +101,42 @@ def _write_caches(caches, news, idx):
     return caches
 
 
+def _write_shards(caches, news, idx):
+    """:func:`_write_caches` on DTensor caches: each rank writes its own
+    shard in place -- the requests of its batch rows, at the positions of
+    its sequence rows (a write outside them is another rank's, and is
+    dropped here as one past the cache is)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    c0 = caches[0]
+    mesh = c0.device_mesh
+    shape, off = compute_local_shape_and_global_offset(
+        c0.shape, mesh, c0.placements)
+    idx = idx.full_tensor() if hasattr(idx, "full_tensor") else idx
+    idx = idx.to(torch.int64)[off[0]:off[0] + shape[0]] - off[1]
+    S = shape[1]
+    b = torch.arange(shape[0], device=idx.device)
+    row = idx.clamp(0, S - 1)
+    past = (idx >= S) | (idx < 0)
+    # the new rows in the caches' placements, their one position whole
+    pl = tuple(Replicate() if p.is_shard() and p.dim == 1 else p
+               for p in c0.placements)
+    for cache, new in zip(caches, news):
+        if hasattr(new, "device_mesh"):
+            new = new.redistribute(mesh, pl).to_local()
+        new = new[:, 0].to(cache.dtype)
+        local = cache.to_local()
+        keep = past.view((-1,) + (1,) * (new.ndim - 1))
+        local[b, row] = torch.where(keep, local[b, row], new)
+    return caches
+
+
 def _out(y, p, cd):
     """einsum("bshk,hkd->bsd") as one matmul over the flattened heads."""
     B, S, H, Dv = y.shape
     wo = p["wo"].to(cd)
-    return y.to(cd).reshape(B, S, H * Dv) @ wo.reshape(H * Dv, wo.shape[-1])
+    return mm(flatten_last(y.to(cd)), wo.reshape(H * Dv, wo.shape[-1]))
 
 
 def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig, causal: bool = True,
@@ -124,9 +160,12 @@ def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig, causal: bool = True,
             y = attn_ops.mha(q, k, v, causal=False)
             new_state = {"k": k.to(torch.bfloat16),
                          "v": v.to(torch.bfloat16)}
-        return _out(y, p, cd), new_state
+        out = ctx.constrain(_out(y, p, cd), ("act_batch", "act_seq", None))
+        return out, new_state
 
     q, k, v = _proj_qkv(p, x, x, cd)
+    q = ctx.constrain(q, ("act_batch", None, "heads", None))
+    k = ctx.constrain(k, ("act_batch", None, "kv_heads", None))
     positions = ctx.positions
     q = rope_mod.apply_rope(q, positions, theta=theta)
     k = rope_mod.apply_rope(k, positions, theta=theta)
@@ -141,9 +180,9 @@ def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig, causal: bool = True,
         y = attn_ops.mha(q, k, v, causal=causal, window=window)
         if ctx.phase == "prefill":
             pad = ctx.cache_len - k.shape[1]
-            padded = lambda t: torch.nn.functional.pad(
-                t, (0, 0, 0, 0, 0, pad)).to(torch.bfloat16)
+            padded = lambda t: pad_seq(t, 0, pad).to(torch.bfloat16)
             new_state = {"k": padded(k), "v": padded(v)}
         else:
             new_state = None
-    return _out(y, p, cd), new_state
+    out = ctx.constrain(_out(y, p, cd), ("act_batch", "act_seq", None))
+    return out, new_state

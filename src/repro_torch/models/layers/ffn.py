@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.models import init_utils as iu
 from repro_torch.models.context import Ctx
+from repro_torch.models.layers.spmd import mm
 
 
 def _act(name: str):
@@ -28,5 +29,7 @@ def init(gen, d_model: int, d_ff: int):
 def apply(p, x, ctx: Ctx, *, act: str = "silu"):
     cd = ctx.cdtype
     xc = x.to(cd)
-    h = _act(act)(xc @ p["w_gate"].to(cd)) * (xc @ p["w_in"].to(cd))
-    return h @ p["w_out"].to(cd)
+    h = _act(act)(mm(xc, p["w_gate"].to(cd))) * mm(xc, p["w_in"].to(cd))
+    h = ctx.constrain(h, ("act_batch", None, "ffn"))
+    out = mm(h, p["w_out"].to(cd))
+    return ctx.constrain(out, ("act_batch", "act_seq", None))

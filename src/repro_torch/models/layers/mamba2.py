@@ -18,6 +18,7 @@ from repro_torch.models import init_utils as iu
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import norms
+from repro_torch.models.layers.spmd import mm, pad_seq
 
 
 def _dims(cfg: ModelConfig):
@@ -67,7 +68,7 @@ def _conv_full(xbc, w, b):
     S = xbc.shape[1]
     out = xbc * w[W - 1]
     for i in range(1, W):
-        shifted = F.pad(xbc, (0, 0, i, 0))[:, :S]
+        shifted = pad_seq(xbc, i, 0)[:, :S]
         out = out + shifted * w[W - 1 - i]
     return F.silu(out + b)
 
@@ -86,7 +87,7 @@ def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
     B, S, _ = x.shape
     N, P = s.state_dim, s.head_dim
 
-    zxd = x.to(cd) @ p["in_proj"].to(cd)
+    zxd = mm(x.to(cd), p["in_proj"].to(cd))
     z, xbc, dt_raw = _split(cfg, zxd, d_inner, conv_ch)
     w = p["conv_w"].to(cd)
     b = p["conv_b"].to(cd)
@@ -129,5 +130,5 @@ def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
     y = y + p["d_skip"].to(cd)[None, None, :, None] * xs
     y = y.reshape(B, -1, d_inner)
     y = norms.apply(p["norm"], y * F.silu(z), eps=cfg.norm_eps)
-    out = y.to(cd) @ p["out_proj"].to(cd)
-    return out, new_state
+    out = mm(y.to(cd), p["out_proj"].to(cd))
+    return ctx.constrain(out, ("act_batch", "act_seq", None)), new_state

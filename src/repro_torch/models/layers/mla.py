@@ -21,6 +21,7 @@ from repro_torch.models.context import Ctx
 from repro_torch.models.layers import norms
 from repro_torch.models.layers import rope as rope_mod
 from repro_torch.models.layers.attention import _proj, _write_caches
+from repro_torch.models.layers.spmd import flatten_last, mm, pad_seq
 
 
 def init(gen, cfg: ModelConfig):
@@ -60,7 +61,7 @@ def state_spec(cfg: ModelConfig, batch: int, cache_len: int):
 def _latent(p, x, ctx: Ctx, cd):
     """x -> the normed latent [B,S,R] and the roped shared key [B,S,r]
     (the norm at its default eps, the rope at its default theta)."""
-    dkv = x.to(cd) @ p["w_dkv"].to(cd)
+    dkv = mm(x.to(cd), p["w_dkv"].to(cd))
     lora = p["w_uk"].shape[0]
     # the norm kernel takes contiguous rows
     c_kv = norms.apply(p["kv_norm"], dkv[..., :lora].contiguous())
@@ -71,7 +72,7 @@ def _latent(p, x, ctx: Ctx, cd):
 def _queries(p, x, ctx: Ctx, cd, rope_dim: int):
     q_in = x.to(cd)
     if "w_dq" in p:
-        q_in = q_in @ p["w_dq"].to(cd)
+        q_in = mm(q_in, p["w_dq"].to(cd))
     q = _proj(q_in, p["wq"], cd)
     q_nope, q_rope = q[..., :-rope_dim], q[..., -rope_dim:]
     q_rope = rope_mod.apply_rope(q_rope, ctx.positions)
@@ -105,13 +106,12 @@ def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
         y = attn_ops.mha(q, k, v, causal=True)
         if ctx.phase == "prefill":
             pad = ctx.cache_len - c_kv.shape[1]
-            padded = lambda t: torch.nn.functional.pad(
-                t, (0, 0, 0, pad)).to(torch.bfloat16)
+            padded = lambda t: pad_seq(t, 0, pad).to(torch.bfloat16)
             new_state = {"c_kv": padded(c_kv), "k_rope": padded(k_rope)}
         else:
             new_state = None
 
     B, S, H, Dv = y.shape
     wo = p["wo"].to(cd)
-    out = y.to(cd).reshape(B, S, H * Dv) @ wo.reshape(H * Dv, wo.shape[-1])
-    return out, new_state
+    out = mm(flatten_last(y.to(cd)), wo.reshape(H * Dv, wo.shape[-1]))
+    return ctx.constrain(out, ("act_batch", "act_seq", None)), new_state

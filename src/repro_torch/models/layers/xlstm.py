@@ -26,6 +26,7 @@ from repro_torch.models.context import Ctx
 from repro_torch.models.layers import norms
 from repro_torch.models.layers.attention import _proj
 from repro_torch.models.layers.mamba2 import _conv_full
+from repro_torch.models.layers.spmd import mm
 
 # --------------------------------------------------------------------------
 # mLSTM
@@ -78,7 +79,7 @@ def mlstm_apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
     cd = ctx.cdtype
     f32 = torch.float32
     B, S, _ = x.shape
-    up = x.to(cd) @ p["w_up"].to(cd)
+    up = mm(x.to(cd), p["w_up"].to(cd))
     xin, z = up[..., :d_inner], up[..., d_inner:]
     w, b = p["conv_w"].to(cd), p["conv_b"].to(cd)
 
@@ -96,7 +97,7 @@ def mlstm_apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
     # the scale rounded to the compute dtype first, as JAX's weak type does
     k = _proj(xcv, p["w_k"], cd) * float(torch.tensor(N ** -0.5, dtype=cd))
     v = _proj(xin, p["w_v"], cd)
-    gates = (xcv @ p["w_gates"].to(cd)).to(f32) + p["gate_bias"].to(f32)
+    gates = mm(xcv, p["w_gates"].to(cd)).to(f32) + p["gate_bias"].to(f32)
     i_gate = torch.sigmoid(gates[..., :H])               # [B,S,H]
     log_f = F.logsigmoid(gates[..., H:])                 # [B,S,H]
 
@@ -121,8 +122,8 @@ def mlstm_apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
     h = num / torch.clamp(den.abs(), min=1.0)
     h = h.reshape(B, -1, d_inner).to(cd)
     h = norms.apply(p["norm"], h, eps=cfg.norm_eps) * F.silu(z)
-    out = h.to(cd) @ p["w_down"].to(cd)
-    return out, new_state
+    out = mm(h.to(cd), p["w_down"].to(cd))
+    return ctx.constrain(out, ("act_batch", "act_seq", None)), new_state
 
 
 # --------------------------------------------------------------------------
@@ -186,7 +187,7 @@ def slstm_apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
 
     xn = norms.apply(p["norm"], x, eps=cfg.norm_eps)
     # x-side gates: one matmul over the whole sequence
-    gx = xn.to(cd) @ p["w_x"].to(cd) + p["bias"].to(cd)
+    gx = mm(xn.to(cd), p["w_x"].to(cd)) + p["bias"].to(cd)
     w_h = p["w_h"].to(cd)
     # h in the compute dtype, so that the step's matmul stays bf16
     carry = (carry[0].to(cd),) + carry[1:]
@@ -211,5 +212,6 @@ def slstm_apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
                      "n": carry[2], "m": carry[3]}
 
     h_seq = h_seq.to(cd)
-    ff = F.gelu(h_seq @ p["w_ff1"].to(cd), approximate="tanh")
-    return ff @ p["w_ff2"].to(cd), new_state
+    ff = F.gelu(mm(h_seq, p["w_ff1"].to(cd)), approximate="tanh")
+    out = mm(ff, p["w_ff2"].to(cd))
+    return ctx.constrain(out, ("act_batch", "act_seq", None)), new_state

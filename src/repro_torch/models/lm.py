@@ -25,11 +25,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels._local import split_dims
 from repro_torch.models import init_utils as iu
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.context import Ctx
 from repro_torch.models.layers import norms
+from repro_torch.models.layers.spmd import mm, pad_seq
 from repro_torch.models.stack import (StackPlan, apply_stack, init_stack,
                                       init_states, specs_of)
 
@@ -182,11 +184,18 @@ def for_compute(model: Model, cdtype: torch.dtype) -> Model:
 
 def _embed(model: Model, tokens, ctx: Ctx):
     cfg = model.cfg
-    x = model.embed[tokens.to(torch.int64)].to(ctx.cdtype)
+    ids = tokens.to(torch.int64)
+    if split_dims(model.embed):
+        # a table split across ranks: DTensor's embedding rule (its
+        # vocab-parallel lookup); indexing's backward rule fails there
+        # in some torch releases (2.11)
+        x = torch.nn.functional.embedding(ids, model.embed).to(ctx.cdtype)
+    else:
+        x = model.embed[ids].to(ctx.cdtype)
     if cfg.embed_scale:
         # the scale rounded to the compute dtype first, as in JAX
         x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=ctx.cdtype))
-    return x
+    return ctx.constrain(x, ("act_batch", "act_seq", None))
 
 
 def encode(model: Model, enc_frames, ctx: Ctx):
@@ -227,21 +236,26 @@ def _unembed_matrix(model: Model):
 
 def logits_for(model: Model, hidden, ctx: Ctx):
     w = _unembed_matrix(model).to(ctx.cdtype)
-    return hidden.to(ctx.cdtype) @ w
+    return ctx.constrain(mm(hidden.to(ctx.cdtype), w),
+                         ("act_batch", None, "tp"))
 
 
 # --------------------------------------------------------------------------
 # loss (chunked cross-entropy)
 # --------------------------------------------------------------------------
 
-def _chunk_nll(h, y, w, cdtype):
+def _chunk_nll(h, y, w, cdtype, constrain):
     """One chunk's summed NLL and its unmasked token count, in f32."""
-    lg = (h.to(cdtype) @ w).to(torch.float32)
+    lg = constrain(mm(h.to(cdtype), w), ("act_batch", None, "tp"))
+    lg = lg.to(torch.float32)
     lz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, y.clamp(min=0)[..., None].to(torch.int64)
-                        )[..., 0]
+    gold = torch.gather(lg, -1, y.clamp(min=0)[..., None].to(torch.int64))
+    # subtract before dropping the gathered dim: on a vocab-sharded
+    # DTensor the gather is a masked partial sum, which DTensor reduces
+    # only at the gather's own rank
+    nll = (lz[..., None] - gold)[..., 0]
     mask = (y >= 0).to(torch.float32)
-    return ((lz - gold) * mask).sum(), mask.sum()
+    return (nll * mask).sum(), mask.sum()
 
 
 def lm_loss(model: Model, hidden, labels, ctx: Ctx, *, chunk: int = 512):
@@ -255,17 +269,18 @@ def lm_loss(model: Model, hidden, labels, ctx: Ctx, *, chunk: int = 512):
     w = _unembed_matrix(model).to(ctx.cdtype)
     pad = (-S) % chunk
     if pad:
-        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
-        labels = torch.nn.functional.pad(labels, (0, pad), value=-100)
+        hidden = pad_seq(hidden, 0, pad)
+        labels = pad_seq(labels, 0, pad, value=-100)
     loss_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
     n_tok = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S + pad, chunk):
         h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
             nll, n = checkpoint(_chunk_nll, h, y, w, ctx.cdtype,
+                                ctx.constrain,
                                 use_reentrant=False)
         else:
-            nll, n = _chunk_nll(h, y, w, ctx.cdtype)
+            nll, n = _chunk_nll(h, y, w, ctx.cdtype, ctx.constrain)
         loss_sum = loss_sum + nll
         n_tok = n_tok + n
     return loss_sum / torch.clamp(n_tok, min=1.0)

@@ -393,7 +393,7 @@ def test_steps_and_mesh():
     assert tok.shape == (2, 1) and tok.dtype == torch.int32
     assert st[0][0]["k"] is eng.states[0][0]["k"]      # updated in place
     assert nxt.tolist() == [4, 21]
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ts.ServingEngine(cfg, mesh=object(), device="cpu")
     logits, new = cells.make_prefill_step(eng.model, 16, full_logits=True)(
         params, {"tokens": torch.ones((1, 8), dtype=torch.int32)})

@@ -114,12 +114,12 @@ def test_loss_trajectory_follows_the_jax_trainer():
 
 
 def test_mesh_raises_and_the_cli_trains_and_resumes(tmp_path, capsys):
-    """``Trainer(mesh=...)`` names ROADMAP item 16b; ``python -m
+    """``Trainer(mesh=...)`` takes a ``DeviceMesh`` only; ``python -m
     repro_torch.launch.train`` trains on the CPU, saves at the end, and a
     second run resumes from that step (and has nothing left to run at the
     same ``--steps``, so it trains two more)."""
     cfg = reduced_config("qwen2-0.5b")
-    with pytest.raises(NotImplementedError, match="16b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg, mesh=object(), device="cpu")
     args = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "2", "--seq",
             "16", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
