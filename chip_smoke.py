@@ -381,6 +381,24 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    kernels and the four training kernels' shares).  (d) A zamba2-1.2b
    train step on the card raises (``ssd_scan`` has no backward kernel
    yet, ROADMAP queue 1 item 22).
+18. the mesh slice on a (1, 1) NCCL mesh over the card (``mesh_path``:
+   ``Trainer(mesh=...)``, a deepseek MoE layer, the ``ServingEngine`` on
+   the mesh, then the dry runs); its NCCL world of one stays up for 19.
+19. drives the multi-shard engine over the ranks of that world of one
+   (the card machine has one H100, and NCCL refuses two ranks on one
+   card), on ``make_mesh(..., group=WORLD)``: 15a's deployment (8
+   shards, 2**19 slots an updater a shard, ``[8, 8,192]`` sources of
+   phase 5's feed) for 16 ticks, its state bitwise 15a's after 15a's
+   first 16 ticks (15a keeps a copy on the card) and its launches
+   exactly 15a's over them; then, with the queues' backlog in place,
+   ``scale`` 8 -> 4 -> 8 on the device tier (``exchange_rows`` and
+   ``exchange_queue`` over the group, events moved), a drain and 15a's
+   reads, each bitwise what 15a's engine gives from its kept state;
+   one ``all_to_all_single`` a hop (3 a fed tick, 2 a drain tick, one
+   for each updater and each queue a reconfigure), every slate equal
+   to the numpy reference; before it a rank-path chunk under the sync
+   debug mode "error"; ms/tick and busy ms beside 15a's, and the
+   collective alone (a local copy at a world of one).
 Every serving phase also asserts every ``flash_attention`` launch on
 its ``wgmma`` route and prints its own wall time.  Each path's launch
 counters are set to 0 just before it and read just after.
@@ -4918,6 +4936,11 @@ SHARD_C = C // SHARDS            # 2**19 slots an updater a shard
 SHARD_B = 32768
 SHARD_SLACK = 4.0
 HOT_TICKS, HOT_SPLIT_AT = 64, 16
+# 15a's ms/tick and profile (busy ms, operations), and its engine, its
+# state (a copy on the card) and its launches after its first RANK_TICKS
+# ticks: phase 19's reference
+SHARDED_AT = {}
+RANK_TICKS = 16
 FAILOVER = {"capacity": 1 << 14, "events": 4096, "ticks": 16,
             "fail_at": 8, "batch": 2048, "slack": 8.0}
 
@@ -4938,14 +4961,16 @@ def sharded_source(source_fn):
 
 
 def sharded_engine(dev, capacity=None, batch=None, slack=None, shards=None,
-                   **cfg):
-    """Phase 5's workflow on 8 shards (default: 15a's sizes)."""
+                   group=None, **cfg):
+    """Phase 5's workflow on 8 shards (default: 15a's sizes); over the
+    ranks of ``group`` when one is given (phase 19)."""
     from repro_torch.core.distributed import (DistConfig, DistributedEngine,
                                               make_mesh)
     capacity, batch = capacity or SHARD_C, batch or SHARD_B
     slack = slack or SHARD_SLACK
     return DistributedEngine(
-        build_workflow(capacity), make_mesh((shards or SHARDS,), ("data",)),
+        build_workflow(capacity), make_mesh((shards or SHARDS,), ("data",),
+                                            group=group),
         DistConfig(**{**dict(batch_size=batch, queue_capacity=4 * batch,
                              chunk_size=8, exchange_slack=slack), **cfg}),
         device=dev)
@@ -5001,14 +5026,16 @@ def reset_launches():
     reset_lookup_routes()
 
 
-def check_sharded_no_host_sync(dev, seed):
+def check_sharded_no_host_sync(dev, seed, group=None):
     """A chunk of 3 ticks of the sharded engine under the sync debug mode
-    "error": telemetry off, and on with a split key in the hot set."""
+    "error": telemetry off, and on with a split key in the hot set; over
+    ``group``'s ranks when given (phase 19: the collectives inside)."""
     import torch
     from repro_torch.telemetry import TelemetryConfig
     for tel in (None, TelemetryConfig()):
         kw = {} if tel is None else dict(telemetry=tel, hot_key_capacity=8)
-        eng = sharded_engine(dev, capacity=1 << 16, batch=4096, **kw)
+        eng = sharded_engine(dev, capacity=1 << 16, batch=4096, group=group,
+                             **kw)
         state = eng.init_state()
         if tel is not None:
             state, _ = eng.split_keys(state, [0, 1])
@@ -5022,7 +5049,8 @@ def check_sharded_no_host_sync(dev, seed):
             state, _, info = eng.run_chunk(state, stacked)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        log(f"sharded run_chunk of 3 ticks x {SHARDS} shards, telemetry "
+        log(f"sharded run_chunk of 3 ticks x {SHARDS} shards"
+            f"{'' if group is None else ' over a process group'}, telemetry "
             f"{'off' if tel is None else 'on, keys 0 and 1 split'}, under "
             f"sync debug mode 'error': no host sync (throttle trace "
             f"{info['throttle_hits'].sum(dim=1).tolist()})")
@@ -5109,10 +5137,24 @@ def sharded_path(dev, ticks, seed, card, ref, phase5):
     state = eng.init_state()
     reset_launches()
     with torch_probe_calls() as torch_calls:
+        # two spans, RANK_TICKS and the rest: between them (off the
+        # clock) phase 19's reference is kept
+        split = min(RANK_TICKS, ticks)
         t0 = time.perf_counter()
-        state, _ = eng.run(state, src, ticks)
+        state, _ = eng.run(state, src, split)
         torch.cuda.synchronize()
-        t_run = time.perf_counter() - t0
+        t_split = time.perf_counter() - t0
+        from repro_torch.core.event import tree_map
+        SHARDED_AT.update(eng=eng, at=split, state=tree_map(torch.clone,
+                                                            state),
+                          tick_s_at=t_split / split, launches_at={
+                              "slate_update": uk.slate_update.launches,
+                              **lk.slate_lookup.launches_by_route})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = eng.run(state, src, ticks - split, start_tick=split)
+        torch.cuda.synchronize()
+        t_run = t_split + time.perf_counter() - t0
         state, drained = eng.drain(state)
         read_keys = read_set(seed)
         reads = {u: eng.read_slates(state, u, read_keys)
@@ -5121,8 +5163,9 @@ def sharded_path(dev, ticks, seed, card, ref, phase5):
         single = {k: (eng.read_slate(state, "U1", k),
                       eng.read_slate(state, "U2", k)) for k in singles}
     torch.cuda.synchronize()
-    gib = (torch.cuda.memory_allocated() - mem0) / 2**30
-    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    kept = tree_bytes(SHARDED_AT["state"])     # phase 19's copy
+    gib = (torch.cuda.memory_allocated() - mem0 - kept) / 2**30
+    peak = (torch.cuda.max_memory_allocated() - mem0 - kept) / 2**30
     launches = {"slate_update": uk.slate_update.launches,
                 "slate_lookup": lk.slate_lookup.launches}
     launches["slate_lookup routes"] = check_lookup_routes("sharded",
@@ -5169,6 +5212,7 @@ def sharded_path(dev, ticks, seed, card, ref, phase5):
                              start_kw="start_tick", ranges=ranges)
     finally:
         dist.exchange = real
+    SHARDED_AT.update(tick_s=tick_s, prof=prof)
     if prof and phase5[1]:
         log(f"sharded tick, profiled: {prof[1]:.1f} device operations and "
             f"{prof[0]:.4f} ms busy a tick against phase 5's "
@@ -6731,7 +6775,8 @@ def mesh_dryrun(card):
 
 def mesh_path(dev, seed, card):
     """Phase 18: 18a-c on a one-rank NCCL mesh over the card, then 18d.
-    Returns the launches of the path's kernels in its run (18a-c)."""
+    Returns the launches of the path's kernels in its run (18a-c).  The
+    world stays up for phase 19."""
     import torch
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
@@ -6752,14 +6797,269 @@ def mesh_path(dev, seed, card):
         mesh_train(dev, seed, card, mesh)
         mesh_moe(dev, seed, card, mesh)
         mesh_serve(dev, seed, card, mesh)
-    finally:
+    except BaseException:
         tmesh.close_world()
+        raise
+    # the NCCL world of one stays up for phase 19 (a second
+    # init_process_group in this process fails); main closes it
     launches = {f.__name__: f.launches for f in kernels}
     for f in routed:
         launches[f"{f.__name__} routes"] = dict(f.launches_by_route)
     log(f"18: launches on the mesh path (18a-c): {launches}")
     mesh_dryrun(card)
     log(f"mesh: the phase took {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 19
+# The multi-shard engine over the ranks of a process group: 15a's
+# deployment on the NCCL world of one that phase 18 started (the card
+# machine has one H100; NCCL refuses two ranks on one card), so every
+# hop goes through ``all_to_all_single`` and every read through
+# ``all_gather``, held against 15a's run with no group.
+RANK_SCALE = (4, 8)            # a leave to 4 active, then a rejoin
+
+
+def tree_bytes(tree):
+    import torch.utils._pytree as pytree
+    return sum(x.numel() * x.element_size()
+               for x in pytree.tree_leaves(tree) if hasattr(x, "numel"))
+
+
+def same_tree(a, b, what, sink=False):
+    """Two engine states (trees of tensors on the card) bitwise equal,
+    leaf by leaf, without the sink row that every table and queue buffer
+    carries (``convert.state_to_numpy``'s cut: masked scatters land
+    there, in no defined order)."""
+    import dataclasses
+    import torch
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{what}: keys {set(a) ^ set(b)}")
+        for k in a:
+            same_tree(a[k], b[k], f"{what}.{k}", sink)
+    elif dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            same_tree(getattr(a, f.name), getattr(b, f.name),
+                      f"{what}.{f.name}", sink or f.name in (
+                          "keys", "ts", "dirty", "vals", "buf"))
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            same_tree(x, y, f"{what}[{i}]", sink)
+    elif isinstance(a, torch.Tensor):
+        if not torch.equal(a[:, :-1], b[:, :-1]) if sink else \
+                not torch.equal(a, b):
+            raise AssertionError(f"{what} differs")
+    elif a != b:
+        raise AssertionError(f"{what} differs")
+
+
+def reconfigure(eng, state):
+    """``scale`` 8 -> 4 -> 8 on the device tier with the queues' backlog
+    left in them (``drain_max=0``), so ``exchange_rows`` and
+    ``exchange_queue`` both run.  Returns (state, reports)."""
+    reps = []
+    for n in RANK_SCALE:
+        state, rep = eng.scale(state, n, drain_max=0)
+        reps.append(rep)
+    return state, reps
+
+
+def read_all(eng, state, read_keys, singles):
+    reads = {u: eng.read_slates(state, u, read_keys) for u in ("U1", "U2")}
+    single = {k: (eng.read_slate(state, "U1", k),
+                  eng.read_slate(state, "U2", k)) for k in singles}
+    return reads, single
+
+
+def same_reads(a, b, what):
+    import torch
+    for x, y in zip(a, b):
+        if (x is None) != (y is None) or (x is not None and not
+                                          torch.equal(x["v"], y["v"])):
+            raise AssertionError(f"{what} differs")
+
+
+def ranks_path(dev, seed, card):
+    """Phase 19: 15a's deployment (8 shards, 2**19 slots an updater a
+    shard, sources [8, 8,192] of phase 5's Zipf feed) through the rank
+    path on the NCCL world of one phase 18 started, held against 15a's
+    run with no group: the state after 15a's first ``RANK_TICKS`` ticks
+    bitwise 15a's, its kernels' launches exactly 15a's over them; then,
+    with the queues' backlog in place, ``scale`` 8 -> 4 -> 8 on the
+    device tier (``exchange_rows`` / ``exchange_queue`` over the group,
+    events moved), a drain and 15a's reads, each bitwise what 15a's
+    engine gives from its own state at that tick; one
+    ``all_to_all_single`` a hop; every slate equal to the numpy
+    reference; a chunk of the rank path under the sync debug mode
+    "error".  Prints ms/tick and busy ms beside 15a's and the
+    collective's device ms.  Returns the launches of the rank path."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.event import tree_map
+
+    t_phase = time.perf_counter()
+    if not tdist.is_initialized() or tdist.get_world_size() != 1:
+        raise AssertionError("phase 19 needs phase 18's world of one")
+    if "state" not in SHARDED_AT:
+        raise AssertionError("phase 19 needs phase 15a's state")
+    group = tdist.group.WORLD
+    ticks = SHARDED_AT["at"]
+    marks = [("start", time.perf_counter())]
+    check_sharded_no_host_sync(dev, seed, group=group)
+    marks.append(("sync check", time.perf_counter()))
+
+    uk, lk, _, _ = sharded_launch_counts()
+    eng = sharded_engine(dev, group=group)
+    if eng.world != 1 or eng.group is None:
+        raise AssertionError("phase 19: the engine is not on the group")
+    n_ops = len(list(eng.wf.updaters())) + len(eng.wf.operators)
+    source_fn, _ = make_source(zipf_cdf(dev), B, seed)
+    src = sharded_source(source_fn)
+    read_keys = read_set(seed)
+    singles = [int(k) for k in read_keys[[0, 1, 7, Q // 2, -1]]]
+    state = eng.init_state()
+    torch.cuda.synchronize()
+    reset_launches()
+    c0 = dict(dist.COLLECTIVES)
+    calls = lambda: {k: dist.COLLECTIVES[k] - c0[k] for k in c0}
+    with torch_probe_calls() as torch_calls:
+        t0 = time.perf_counter()
+        state, _ = eng.run(state, src, ticks)
+        torch.cuda.synchronize()
+        tick_s = (time.perf_counter() - t0) / ticks
+        at_run = {"slate_update": uk.slate_update.launches,
+                  **lk.slate_lookup.launches_by_route}
+        c_run = calls()
+        same_tree(SHARDED_AT["state"], state,
+                  f"19 state after {ticks} ticks against 15a's")
+        backlog = sum(int(q.size.sum()) for q in state["queues"].values())
+        state, reps = reconfigure(eng, state)
+        c_scale = calls()
+        scaled = tree_map(torch.clone, state)
+        state, drained = eng.drain(state)
+        c_drain = calls()
+        reads, single = read_all(eng, state, read_keys, singles)
+    launches = {"slate_update": uk.slate_update.launches,
+                "slate_lookup": lk.slate_lookup.launches}
+    launches["slate_lookup routes"] = check_lookup_routes("ranks",
+                                                          torch_calls)
+    marks.append(("rank run", time.perf_counter()))
+
+    # the reference: 15a's engine (no group) from its state at this tick
+    ref_eng = SHARDED_AT.pop("eng")
+    ref_state = SHARDED_AT.pop("state")
+    ref_state, ref_reps = reconfigure(ref_eng, ref_state)
+    same_tree(ref_state, scaled, "19 state after scale 8 -> 4 -> 8")
+    del scaled
+    ref_state, ref_drained = ref_eng.drain(ref_state)
+    same_tree(ref_state, state, "19 state after the drain")
+    ref_reads, ref_single = read_all(ref_eng, ref_state, read_keys, singles)
+    for u in ("U1", "U2"):
+        same_reads(ref_reads[u], reads[u], f"19 read_slates {u}")
+    for k in singles:
+        same_reads(ref_single[k], single[k], f"19 read_slate {k}")
+    ref_stats = sharded_stats(ref_eng, ref_state)
+    stats = sharded_stats(eng, state)
+    moved = [(r.moved_rows, r.moved_events) for r in reps]
+    if stats != ref_stats or drained != ref_drained or \
+            moved != [(r.moved_rows, r.moved_events) for r in ref_reps] or \
+            list(eng.ring.weights) != list(ref_eng.ring.weights):
+        raise AssertionError(f"phase 19: stats, drain, moves or ring "
+                             f"differ: {stats} {ref_stats} {moved}")
+    del ref_eng, ref_state, ref_reads, ref_single
+    torch.cuda.empty_cache()
+    if at_run != SHARDED_AT["launches_at"]:
+        raise AssertionError(f"phase 19: launches over {ticks} ticks "
+                             f"{at_run}, 15a's {SHARDED_AT['launches_at']}")
+    check_sharded_launches(f"ranks path, {ticks} ticks", {
+        "slate_update": at_run["slate_update"], "slate_lookup routes": {
+            r: at_run[r] for r in ("cand", "keys", "find")}}, ticks, 0)
+    # a fed tick's hops: S1 -> M1, S2 -> U1, S2 -> U2; a drain tick has
+    # no source, so the last two; a device-tier reconfigure one for each
+    # updater's rows and each operator's queue
+    hops = (c_run["all_to_all_single"],
+            c_scale["all_to_all_single"] - c_run["all_to_all_single"],
+            c_drain["all_to_all_single"] - c_scale["all_to_all_single"])
+    want = (3 * ticks, len(RANK_SCALE) * n_ops, 2 * drained)
+    if hops != want:
+        raise AssertionError(f"phase 19: all_to_all_single calls (run, "
+                             f"reconfigures, drain) {hops}, expected {want}")
+    if calls()["all_gather"] - c_drain["all_gather"] < 2 + 2 * len(singles):
+        raise AssertionError(f"phase 19: reads gathered {calls()}")
+    for rep in reps:
+        if rep.path != "device" or rep.recompiled:
+            raise AssertionError(f"phase 19: scale took {rep.path}")
+    ev = [sum(r.moved_events.values()) for r in reps]
+    rows = [sum(r.moved_rows.values()) for r in reps]
+    if not (backlog and rows[0] and ev[0] and drained):
+        raise AssertionError(f"phase 19: the leave moved rows {rows} and "
+                             f"events {ev} of a backlog of {backlog}, "
+                             f"drain {drained} ticks")
+    if stats["exchange_dropped"]:
+        raise AssertionError(f"phase 19: the exchange dropped "
+                             f"{stats['exchange_dropped']} events")
+    _, gen_tick = make_source(zipf_cdf(dev), B, seed)
+    check_elastic_slates(eng, state, reference(gen_tick, ticks), read_keys,
+                         reads, "ranks", ticks * B)
+    marks.append(("reference and comparisons", time.perf_counter()))
+    log(f"19 ranks: {ticks} ticks bitwise equal to 15a's state after its "
+        f"first {ticks}, launches exactly 15a's {at_run}; all_to_all_single "
+        f"calls (run, reconfigures, drain) {hops} (one a hop), the path's "
+        f"collectives {calls()}; with a backlog of {backlog} queued events, "
+        f"scale 8 -> 4 -> 8 on the device tier, then a drain of {drained} "
+        f"ticks and the reads, each bitwise what 15a's engine gives from "
+        f"its own state (moved rows {rows}, events {ev}, pauses "
+        f"{[round(r.pause_s, 4) for r in reps]} s); the path's launches "
+        f"{launches}")
+    log(f"19 ranks: {tick_s * 1e3:.3f} ms/tick on the group of one over "
+        f"{ticks} ticks, 15a's {SHARDED_AT['tick_s_at'] * 1e3:.3f} over the "
+        f"same {ticks} (and {SHARDED_AT['tick_s'] * 1e3:.3f} over all its "
+        f"ticks); {card}")
+
+    # where the time goes: one profiled chunk of the rank path, the
+    # exchange (the collective inside it) as a range
+    ranges = {"exchange": 0.0}
+    real = dist.exchange
+
+    def annotated(*a, **kw):
+        with torch.profiler.record_function("exchange"):
+            return real(*a, **kw)
+
+    dist.exchange = annotated
+    try:
+        prof = profile_ticks(eng, state, src, ticks, tick_s, n=2,
+                             start_kw="start_tick", ranges=ranges)
+    finally:
+        dist.exchange = real
+    marks.append(("profile", time.perf_counter()))
+    p15 = SHARDED_AT.get("prof")
+    if prof:
+        log(f"19 ranks, profiled: {prof[1]:.1f} device operations and "
+            f"{prof[0]:.4f} busy ms a tick, the exchange "
+            f"{ranges['exchange']:.4f} ms; 15a's "
+            + (f"{p15[1]:.1f} and {p15[0]:.4f}" if p15 else "not measured")
+            + f"; {card}")
+    # the collective alone at the widest hop's size (M1's emitted
+    # [8, 32,768] batches to U1: [8, 8 * cap] cells of 45 bytes, each
+    # row padded to 48)
+    cells = SHARDS * eng.cap_per_dest
+    row = cells * (4 + 4 + 4 + 4 * D + 1)
+    buf = torch.zeros((SHARDS, row + -row % 4), dtype=torch.uint8,
+                      device=dev)
+    out = torch.empty_like(buf)
+    a2a_ms = device_ms(lambda: tdist.all_to_all_single(out, buf,
+                                                       group=group))
+    log(f"19 all_to_all_single alone, {buf.numel() / 2**20:.1f} MiB at the "
+        f"widest hop: {a2a_ms:.5f} ms device time (a world of one: a "
+        f"local copy on the card, nothing of a network); {card}")
+    marks.append(("collective alone", time.perf_counter()))
+    log(f"ranks: the phase took {time.perf_counter() - t_phase:.1f} s "
+        f"wall (" + ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
+                              in zip(marks, marks[1:])) + f"); {card}")
+    del eng, state
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -6883,6 +7183,11 @@ def main(argv=None):
     by_path["train"] = train_path(dev, args.seed, card)
     torch.cuda.empty_cache()
     by_path["mesh"] = mesh_path(dev, args.seed, card)
+    from repro_torch.launch import mesh as tmesh
+    try:
+        by_path["ranks"] = ranks_path(dev, args.seed, card)
+    finally:
+        tmesh.close_world()
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}

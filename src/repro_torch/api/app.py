@@ -273,8 +273,9 @@ class App:
         """Instantiate the engine on ``device`` (default ``cuda``) and
         its initial — or recovered — state.  Idempotent; returns the
         live :class:`StateHandle`.  A distributed runtime (``shards >
-        1`` or a mesh) starts ``DistributedEngine``, every shard on
-        ``device``."""
+        1``, a mesh or a process group) starts ``DistributedEngine``:
+        every shard on ``device``, or over a group each rank's block on
+        its own ``device``."""
         if self.handle is not None:
             if runtime is not None:
                 raise RuntimeError(

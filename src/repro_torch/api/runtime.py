@@ -8,9 +8,13 @@ the engine and the chunked vs durable drive paths internally.  The
 underlying configs stay the source of truth — this is a declarative
 veneer that compiles down to them.
 
-``shards > 1`` (or a mesh) selects ``DistributedEngine`` with every
-shard on the engine's one device, so ``shards`` may exceed the device
-count (the JAX package raises there: it places a shard a device).
+``shards > 1`` (or a mesh) selects ``DistributedEngine``.  Without a
+process group every shard lives on the engine's one device, so
+``shards`` may exceed the device count (the JAX package raises there:
+it places a shard a device).  With ``group`` (a ``torch.distributed``
+process group) the shards spread over its ranks in contiguous blocks,
+and a count the ranks cannot split evenly raises, as the JAX package's
+device check does.
 """
 from __future__ import annotations
 
@@ -37,6 +41,8 @@ class RuntimeConfig:
     # core.distributed.make_mesh) selects the multi-shard engine
     shards: int = 1
     mesh: Optional[object] = None
+    # the process group whose ranks hold the shards (None: one device)
+    group: Optional[object] = None
     exchange_slack: float = 2.0
     two_choice_threshold: int = 0
     # migration tiering (DESIGN.md section 14): "auto" moves slate rows
@@ -63,7 +69,8 @@ class RuntimeConfig:
 
     @property
     def distributed(self) -> bool:
-        return self.shards > 1 or self.mesh is not None
+        return self.shards > 1 or self.mesh is not None \
+            or self.group is not None
 
     def _queue_capacity(self) -> int:
         return self.queue_capacity or 4 * self.batch_size
@@ -135,9 +142,11 @@ class RuntimeConfig:
 
     def make_mesh(self):
         """The shard grid: ``mesh`` if given, else ``shards`` along one
-        ``"data"`` axis.  Every shard lives on the engine's device, so
-        no device count bounds ``shards``."""
+        ``"data"`` axis over ``group``'s ranks.  Without a group every
+        shard lives on the engine's device, so no device count bounds
+        ``shards``; with one, ``shards`` must split evenly over its
+        ranks."""
         if self.mesh is not None:
             return self.mesh
         from repro_torch.core.distributed import make_mesh
-        return make_mesh((self.shards,), ("data",))
+        return make_mesh((self.shards,), ("data",), group=self.group)

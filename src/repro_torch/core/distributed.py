@@ -1,4 +1,5 @@
-"""Multi-shard MapUpdate engine with every shard on one card (port of
+"""Multi-shard MapUpdate engine, its shards on one card or over the ranks
+of a ``torch.distributed`` process group (port of
 ``repro.core.distributed``).
 
 Muppet's data path — workers hash events to peers and write directly into
@@ -6,8 +7,9 @@ their queues — is one *exchange* per workflow hop: events are routed by
 key through the hash ring (``core/hashing.py``) to the shard that owns
 the key's slate, bucketed by destination, and delivered.  The JAX
 package runs the tick under ``shard_map``, one device a shard, with an
-``all_to_all`` in the middle of it.  Here every shard lives on one
-device and the tick runs stage by stage over all of them:
+``all_to_all`` in the middle of it.  Here a device holds a block of
+shards (all of them on one card) and the tick runs stage by stage over
+its block:
 
 - **State layout** is the JAX package's: every per-shard leaf has a
   leading ``n_shards`` dimension (queue buffers ``[S, Q+1]``, tables
@@ -17,17 +19,29 @@ device and the tick runs stage by stage over all of them:
   ``telemetry/{sketch,latency}.py``) on views ``x[s]`` of the stacked
   state, so the in-place slate writes land in the stacked tables; the
   small leaves a stage replaces are stacked back once per tick.
-- **The exchange** works on the stacked ``[S, B]`` batches of all
-  shards at once (:func:`exchange`): route, rank each event among its
-  row's events for the same destination, scatter into the received
-  ``[S_dst, S_src * cap]`` layout.  That scatter is the local
-  permutation that stands in for ``all_to_all``: shard d receives
-  source shard major, then bucket position, as the collective delivers
-  it, and ``exchange_dropped`` counts the same overflow.
+- **The exchange** works on the stacked ``[S, B]`` batches of the
+  block's shards at once (:func:`exchange`): route, rank each event
+  among its row's events for the same destination, scatter into the
+  ``[S_dst, S_src * cap]`` bucket layout.  On one card that scatter is
+  the whole permutation: shard d receives source shard major, then
+  bucket position, as ``all_to_all`` delivers it, and
+  ``exchange_dropped`` counts the same overflow.
 - **The mesh** has no devices: :func:`make_mesh` gives the axis sizes,
   all the engine reads of one (the shard count and the linear shard
-  index, trailing axis fastest).  ``read_slates`` stacks the per-shard
-  partials where the JAX package ``all_gather``\\ s them.
+  index, trailing axis fastest), and optionally a process group.
+- **Ranks.**  With a group, each rank holds one contiguous block of the
+  linear shard index: rank r holds shards ``[r*L, (r+1)*L)``, ``L =
+  n_shards / world``, every stacked leaf ``[L, ...]`` on the rank's
+  device (the counterpart of the JAX package's one device a shard).
+  Each hop's buckets then go through one
+  ``torch.distributed.all_to_all_single`` of equal splits (the fields
+  packed into one byte buffer), and the received block is reordered to
+  the source-shard-major layout above.  Reads, stats, load signals, the
+  migration plan and the host tier ``all_gather`` what they need, so
+  every rank returns the same answer and takes the same decision.  A
+  group is never bypassed, even a group of one (``COLLECTIVES`` counts
+  the calls); without a group the engine is a world of one and every
+  shard lives on its one device, as before.
 
 A tick issues about S times the single-shard operations plus one
 exchange a (stream, subscriber) pair; ``run_chunk`` never reads the
@@ -51,12 +65,14 @@ tier (shapes kept) runs :func:`exchange_rows` and :func:`exchange_queue`
 over all shards at once and rebuilds each shard's table with
 ``insert_or_find``; the host tier (a physical grow or a compaction)
 remaps through numpy and rebuilds each table on the engine's device.
-Growing needs no devices: it widens the leading dimension.  ``run``
+Growing needs no devices on a world of one: it widens the leading
+dimension; over ranks the new count must split evenly.  ``run``
 takes an ``AutoscalePolicy`` (scale and rebalance at declared ticks) or
 a closed-loop ``LoadAutoscaler`` (``telemetry/controller.py``).
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -65,6 +81,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from repro_torch._device import resolve_device, torch_dtype
@@ -95,26 +112,49 @@ from repro_torch.telemetry.trace import ControlLog, Tracer, null_span
 @dataclass(frozen=True)
 class Mesh:
     """The part of a device mesh the engine reads: ordered axis names
-    and their sizes.  Every shard lives on the engine's one device."""
+    and their sizes, and the process group whose ranks hold the shards
+    (``None``: every shard on the engine's one device)."""
 
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
+    group: Any = field(default=None, compare=False)
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.sizes))
 
+    @property
+    def world(self) -> int:
+        return 1 if self.group is None else dist.get_world_size(self.group)
 
-def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else dist.get_rank(self.group)
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              group=None) -> Mesh:
     """``make_mesh((8,), ("data",))``, ``make_mesh((2, 4), ("pod",
-    "data"))``: the shard grid, with no devices behind it."""
+    "data"))``: the shard grid.  ``group`` (a ``torch.distributed``
+    process group, e.g. ``dist.group.WORLD``) spreads the shards over its
+    ranks in contiguous blocks; the shard count must split evenly over
+    them, as the JAX package needs a device a shard."""
     shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
     if len(shape) != len(axis_names) or len(set(axis_names)) != len(shape):
         raise ValueError(f"mesh shape {shape} and axis names {axis_names} "
                          "must pair up one to one")
     if any(n < 1 for n in shape):
         raise ValueError(f"mesh axes need at least one shard: {shape}")
-    return Mesh(axis_names, shape)
+    mesh = Mesh(axis_names, shape, group)
+    _check_split(int(np.prod(shape)), mesh.world)
+    return mesh
+
+
+def _check_split(n_shards: int, world: int):
+    if n_shards % world:
+        raise ValueError(f"{n_shards} shards do not split evenly over "
+                         f"{world} ranks: each rank holds n_shards / world "
+                         f"of them")
 
 
 def linear_shard_index(coords: Dict[str, int], mesh: Mesh,
@@ -135,19 +175,156 @@ def _salt(name: str) -> int:
     return h
 
 
+# ---- collectives --------------------------------------------------------
+
+# calls of each collective the engine made, by name: tests and the card
+# check read them (one ``all_to_all_single`` a hop, one ``all_gather`` a
+# read); never reset here
+COLLECTIVES: Dict[str, int] = {"all_to_all_single": 0, "all_gather": 0,
+                               "all_gather_object": 0, "gather_object": 0,
+                               "broadcast": 0}
+
+
+def _layout(xs: Sequence[torch.Tensor]) -> List[int]:
+    """The order of ``xs`` in a packed row: widest element first, so each
+    field starts at a multiple of its own element size."""
+    return sorted(range(len(xs)), key=lambda i: -xs[i].element_size())
+
+
+def _pack(xs: Sequence[torch.Tensor], rows: int) -> torch.Tensor:
+    """Tensors with a leading dim ``rows`` as one ``[rows, bytes]`` uint8
+    buffer (any dtype, bool and bf16 included), in :func:`_layout` order,
+    each row padded to a multiple of the widest element size so that
+    :func:`_unpack` returns aligned views."""
+    parts = [xs[i].contiguous().reshape(rows, -1).view(torch.uint8)
+             for i in _layout(xs)]
+    pad = -sum(p.shape[1] for p in parts) % max(x.element_size()
+                                                 for x in xs)
+    if pad:
+        parts.append(parts[0].new_zeros((rows, pad)))
+    return torch.cat(parts, dim=1)
+
+
+def _unpack(buf: torch.Tensor, xs: Sequence[torch.Tensor]):
+    """Split a packed ``[rows, bytes]`` buffer (offset 0 in its storage)
+    back into tensors of the dtypes of ``xs``, each ``[rows, -1]``: views
+    of ``buf``, no copy."""
+    out, off = [None] * len(xs), 0
+    for i in _layout(xs):
+        x = xs[i]
+        n = x[0].numel() * x.element_size() if x.shape[0] else 0
+        out[i] = buf[:, off:off + n].view(x.dtype)
+        off += n
+    return out
+
+
+def all_to_all_rows(xs: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """The bucket exchange of :func:`exchange`, :func:`exchange_rows` and
+    :func:`exchange_queue`: every ``x`` is ``[n, L_src * cap, ...]`` (row
+    d: this rank's buckets for shard d).  One ``all_to_all_single`` of
+    equal splits sends rows ``[r*L, (r+1)*L)`` to rank r; what arrives is
+    ``[world_src, L_dst, L_src * cap, ...]``, reordered here to ``[L_dst,
+    n * cap, ...]`` source-shard major (source 0's bucket first), the
+    order of the JAX package's ``all_to_all``.  Without a group the
+    input is already that layout."""
+    if group is None:
+        return list(xs)
+    world = dist.get_world_size(group)
+    n = xs[0].shape[0]
+    buf = _pack(xs, n)
+    out = torch.empty_like(buf)
+    COLLECTIVES["all_to_all_single"] += 1
+    dist.all_to_all_single(out, buf, group=group)
+    res = []
+    for x, part in zip(xs, _unpack(out, xs)):
+        tail = tuple(x.shape[1:])
+        part = part.reshape((world, n // world) + tail).transpose(0, 1)
+        res.append(part.reshape((n // world, world * tail[0]) + tail[1:]))
+    return res
+
+
+def all_gather_rows(xs: Sequence[torch.Tensor], group
+                    ) -> List[torch.Tensor]:
+    """Each ``x`` ``[k, ...]`` on every rank -> ``[world * k, ...]``, rank
+    order, in one ``all_gather`` of a packed buffer.  Identity without a
+    group."""
+    if group is None or not xs:
+        return list(xs)
+    world = dist.get_world_size(group)
+    k = xs[0].shape[0]
+    buf = _pack(xs, k)
+    parts = [torch.empty_like(buf) for _ in range(world)]
+    COLLECTIVES["all_gather"] += 1
+    dist.all_gather(parts, buf, group=group)
+    full = torch.cat(parts, dim=0)
+    return [p.reshape((world * k,) + tuple(x.shape[1:]))
+            for x, p in zip(xs, _unpack(full, xs))]
+
+
+def all_gather_tree(tree, group):
+    """A tree of ``[k, ...]`` tensors gathered to ``[world * k, ...]``
+    leaves in one collective."""
+    if group is None:
+        return tree
+    leaves, spec = pytree.tree_flatten(tree)
+    return pytree.tree_unflatten(all_gather_rows(leaves, group), spec)
+
+
+def gather_objects(obj, group) -> Optional[List[Any]]:
+    """Every rank's ``obj`` (picklable host data) on rank 0 of ``group``,
+    rank order; ``None`` on the other ranks."""
+    if group is None:
+        return [obj]
+    root = dist.get_rank(group) == 0
+    out = [None] * dist.get_world_size(group) if root else None
+    COLLECTIVES["gather_object"] += 1
+    dist.gather_object(obj, out, dst=dist.get_global_rank(group, 0),
+                       group=group)
+    return out
+
+
+def all_gather_objects(obj, group) -> List[Any]:
+    """Every rank's ``obj`` (picklable host data), rank order."""
+    if group is None:
+        return [obj]
+    out = [None] * dist.get_world_size(group)
+    COLLECTIVES["all_gather_object"] += 1
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def broadcast_object(obj, group):
+    """Rank 0's ``obj`` on every rank."""
+    if group is None:
+        return obj
+    box = [obj]
+    COLLECTIVES["broadcast"] += 1
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                               group=group)
+    return box[0]
+
+
+def _group_block(group, rows: int) -> int:
+    """The first global shard index of this rank's block of ``rows``."""
+    return 0 if group is None else dist.get_rank(group) * rows
+
+
 # ---- the exchange ------------------------------------------------------
 
 def exchange(batch: EventBatch, dest: torch.Tensor, n_shards: int,
-             cap_per_dest: int) -> Tuple[EventBatch, torch.Tensor]:
+             cap_per_dest: int, group=None) -> Tuple[EventBatch, torch.Tensor]:
     """Route events to their destination shards.
 
-    ``batch`` holds the ``[S, B]`` batches of the S source shards and
-    ``dest`` ``[S, B]`` their destinations.  Per (source, destination)
-    bucket at most ``cap_per_dest`` events pass, in their batch order;
-    the rest are dropped and counted (bounded queues, paper section
-    4.3).  Returns the received batches ``[S, S * cap_per_dest]`` — row
-    d holds source 0's bucket for d, then source 1's, ..., the order
-    ``all_to_all`` delivers — and the drops per source shard ``[S]``.
+    ``batch`` holds the ``[L, B]`` batches of this rank's L source shards
+    (all ``n_shards`` without a group) and ``dest`` ``[L, B]`` their
+    destinations.  Per (source, destination) bucket at most
+    ``cap_per_dest`` events pass, in their batch order; the rest are
+    dropped and counted (bounded queues, paper section 4.3).  Returns
+    the batches this rank's shards receive, ``[L, n_shards *
+    cap_per_dest]`` — row d holds source 0's bucket for d, then source
+    1's, ..., the order ``all_to_all`` delivers — and the drops per
+    source shard ``[L]``.  With ``group``, one ``all_to_all_single``
+    moves the buckets.
     """
     S, B = batch.key.shape
     n, cap = n_shards, cap_per_dest
@@ -164,15 +341,19 @@ def exchange(batch: EventBatch, dest: torch.Tensor, n_shards: int,
     src = torch.arange(S, dtype=torch.int64, device=dev)[:, None]
     flat = torch.where(ok, (d * S + src) * cap + pos, n * S * cap)
     put = lambda a, fill=0: _deliver(a, flat.reshape(-1), n, cap, fill)
+    leaves, spec = pytree.tree_flatten(batch.value)
+    got = all_to_all_rows([put(batch.sid), put(batch.ts), put(batch.key),
+                           *[put(v) for v in leaves], put(ok, False)], group)
     received = EventBatch(
-        sid=put(batch.sid), ts=put(batch.ts), key=put(batch.key),
-        value=tree_map(put, batch.value), valid=put(ok, False))
+        sid=got[0], ts=got[1], key=got[2],
+        value=pytree.tree_unflatten(got[3:-1], spec), valid=got[-1])
     return received, dropped
 
 
 def _buckets(dest: torch.Tensor, n_shards: int, cap: int):
     """The ``all_to_all`` bucket layout of stacked ``[S, L]`` destinations
-    (``n_shards`` = no destination): each row stably ordered by
+    of S local source rows (``n_shards`` = no destination): each row
+    stably ordered by
     destination, each entry ranked among its row's entries for the same
     destination (the JAX package's ``argsort`` + ``searchsorted``).
     Returns ``(order, flat, ok, lost)``: the order, each sorted entry's
@@ -199,8 +380,8 @@ def _deliver(x: torch.Tensor, flat, n_shards: int, cap: int, fill
              ) -> torch.Tensor:
     """Scatter stacked ``[S, L, ...]`` entries to their cells ``flat``
     (``[S * L]``, in the entries' order; the sink ``n_shards * S * cap``
-    takes the rest): the stand-in for ``all_to_all``.  Returns the
-    received ``[n_shards, S * cap, ...]``, row d holding source 0's
+    takes the rest): the bucket layout :func:`all_to_all_rows` sends.
+    Returns ``[n_shards, S * cap, ...]``, row d holding local source 0's
     bucket for d, then source 1's, ...; cells no entry reached keep
     ``fill``."""
     S = x.shape[0]
@@ -243,11 +424,12 @@ def associative_scan(fn, elems: List[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def exchange_rows(t: tbl.SlateTable, dest_salt: int, ring_hashes,
-                  ring_shards, n_shards: int, cap_per_dest: int, combine
-                  ) -> Tuple[tbl.SlateTable, torch.Tensor]:
+                  ring_shards, n_shards: int, cap_per_dest: int, combine,
+                  group=None) -> Tuple[tbl.SlateTable, torch.Tensor]:
     """Slate-row migration as one exchange (DESIGN.md section 14.1): the
     table-row counterpart of :func:`exchange`, over the stacked
-    ``[S, C+1]`` tables of every shard at once.
+    ``[L, C+1]`` tables of this rank's shards at once (every shard
+    without a group).
 
     Each shard routes its rows through the *new* ring, packs movers
     ``(key, value, ts, dirty)`` into per-destination buckets of
@@ -259,9 +441,9 @@ def exchange_rows(t: tbl.SlateTable, dest_salt: int, ring_hashes,
     dirty with the largest ts; rows that do not fit (bucket overflow,
     full table) are dropped and counted.  The JAX package runs this a
     shard under ``shard_map`` with an ``all_to_all``; here the buckets
-    are one scatter and the rebuild one ``insert_or_find`` a shard (on
-    the card, the lookup kernel's ``find`` route).  Returns
-    ``(new_table, moved_out [S])``."""
+    are one scatter (and, with ``group``, one ``all_to_all_single``) and
+    the rebuild one ``insert_or_find`` a shard (on the card, the lookup
+    kernel's ``find`` route).  Returns ``(new_table, moved_out [L])``."""
     S, n, cap = t.keys.shape[0], n_shards, cap_per_dest
     C = t.capacity
     dev = t.keys.device
@@ -269,20 +451,23 @@ def exchange_rows(t: tbl.SlateTable, dest_salt: int, ring_hashes,
     valid = keys != tbl.EMPTY
     owner = route(keys, dest_salt, ring_hashes, ring_shards).long()
     me = torch.arange(S, device=dev)[:, None]
-    mover = valid & (owner != me)
+    mover = valid & (owner != me + _group_block(group, S))
     moved_out = mover.sum(dim=1, dtype=torch.int32)
 
     # pack movers into per-destination buckets (the exchange() layout)
     order, flat, ok, lost = _buckets(torch.where(mover, owner, n), n, cap)
     put = lambda x, fill: _deliver(x[me, order], flat, n, cap, fill)
-    rvalid = _deliver(ok, flat, n, cap, False)
-    rkeys = put(keys, tbl.EMPTY)
-    rts, rdirty = put(t.ts[:, :C], 0), put(t.dirty[:, :C], False)
-    rvals = tree_map(lambda v: put(v[:, :C], 0), t.vals)
+    vleaves, vspec = pytree.tree_flatten(t.vals)
+    got = all_to_all_rows(
+        [_deliver(ok, flat, n, cap, False), put(keys, tbl.EMPTY),
+         put(t.ts[:, :C], 0), put(t.dirty[:, :C], False),
+         *[put(v[:, :C], 0) for v in vleaves]], group)
+    rvalid, rkeys, rts, rdirty = got[:4]
+    rvals = pytree.tree_unflatten(got[4:], vspec)
 
     # candidates = stayers and arrivals; sorted valid first, by key (two
     # stable passes), so a key's rows are adjacent and one scan folds them
-    stay = valid & (owner == me)
+    stay = valid & ~mover
     cat = lambda a, b: torch.cat([a, b], dim=1)
     ckeys, cvalid = cat(keys, rkeys), cat(stay, rvalid)
     o1 = torch.argsort(ckeys, dim=1, stable=True)
@@ -343,10 +528,10 @@ def exchange_rows(t: tbl.SlateTable, dest_salt: int, ring_hashes,
 
 
 def exchange_queue(q: q_mod.QueueState, dest_salt: int, ring_hashes,
-                   ring_shards, n_shards: int, cap_per_dest: int
-                   ) -> Tuple[q_mod.QueueState, torch.Tensor]:
+                   ring_shards, n_shards: int, cap_per_dest: int,
+                   group=None) -> Tuple[q_mod.QueueState, torch.Tensor]:
     """Queued-event re-homing as one exchange: the queue counterpart of
-    :func:`exchange_rows`, over the stacked ``[S, Q+1]`` queues, so a
+    :func:`exchange_rows`, over the stacked ``[L, Q+1]`` queues, so a
     planned leave with backlog (``drain_max=0``, or a drain barrier that
     could not retire the queues) stays on the device tier.
 
@@ -357,8 +542,9 @@ def exchange_queue(q: q_mod.QueueState, dest_salt: int, ring_hashes,
     (source shard ascending, dequeue order), the host migrator's order.
     ``dropped`` carries plus any overflow (bucket or destination
     capacity); ``peak`` restarts at the new backlog, a tensor of its own
-    (the tick updates state in place).  Returns
-    ``(new_queue, moved_out [S])``."""
+    (the tick updates state in place).  With ``group``, one
+    ``all_to_all_single`` moves the buckets.  Returns
+    ``(new_queue, moved_out [L])``."""
     S, n, cap = q.size.shape[0], n_shards, cap_per_dest
     buf = q.buf
     Q = buf.key.shape[1] - 1           # the sink row aside
@@ -370,16 +556,20 @@ def exchange_queue(q: q_mod.QueueState, dest_salt: int, ring_hashes,
     at = lambda x: x[rows, pos]
     key = at(buf.key)
     owner = route(key, dest_salt, ring_hashes, ring_shards).long()
-    moved_out = (live & (owner != rows)).sum(dim=1, dtype=torch.int32)
+    moved_out = (live & (owner != rows + _group_block(group, S))).sum(
+        dim=1, dtype=torch.int32)
 
     # every live event goes through the buckets, so arrival order is
     # (source, dequeue order) alone: the host rebuild's order
     order, flat, ok, lost = _buckets(torch.where(live, owner, n), n, cap)
     put = lambda x, fill: _deliver(at(x)[rows, order], flat, n, cap, fill)
-    rlive = _deliver(ok, flat, n, cap, False)
-    rsid, rts, rkey = put(buf.sid, 0), put(buf.ts, 0), put(buf.key, 0)
-    rvflag = put(buf.valid, False)
-    rvals = tree_map(lambda v: put(v, 0), buf.value)
+    vleaves, vspec = pytree.tree_flatten(buf.value)
+    got = all_to_all_rows(
+        [_deliver(ok, flat, n, cap, False), put(buf.sid, 0), put(buf.ts, 0),
+         put(buf.key, 0), put(buf.valid, False),
+         *[put(v, 0) for v in vleaves]], group)
+    rlive, rsid, rts, rkey, rvflag = got[:5]
+    rvals = pytree.tree_unflatten(got[5:], vspec)
 
     # compact arrivals at head 0 (the sink row Q takes what does not fit)
     rank = torch.cumsum(rlive.to(torch.int32), dim=1, dtype=torch.int32) - 1
@@ -525,9 +715,13 @@ class DistConfig(EngineConfig):
 # ---- the engine --------------------------------------------------------
 
 class DistributedEngine:
-    """Global state lives stacked on dim 0 (the shard axis) of every
-    leaf, all on ``device`` (default ``cuda``; ``device="cpu"`` runs on
-    the CPU)."""
+    """State lives stacked on dim 0 (the shard axis) of every leaf, on
+    ``device`` (default ``cuda``; ``device="cpu"`` runs on the CPU).  On
+    a mesh with a process group each rank holds its block of ``n_local``
+    shards from ``shard_lo`` on (pass the rank's own device:
+    ``cuda:LOCAL_RANK`` under NCCL, ``cpu`` under gloo), and every rank
+    calls every method in the same order: the exchanges, reads, stats
+    and reconfigures are collectives."""
 
     def __init__(self, workflow: Workflow, mesh: Mesh,
                  config: Optional[DistConfig] = None, device=None):
@@ -538,6 +732,9 @@ class DistributedEngine:
         self.key_dtype = resolve_key_dtype(self.cfg.key_dtype)
         self.axes = tuple(self.cfg.axis_names)
         self.n_shards = int(np.prod([mesh.shape[a] for a in self.axes]))
+        self.group = mesh.group
+        self.world, self.rank = mesh.world, mesh.rank
+        self._set_block()
         self.ring = HashRing(self.n_shards)
         self._upload_ring()
         cap = int(self.cfg.batch_size * self.cfg.exchange_slack
@@ -583,6 +780,23 @@ class DistributedEngine:
         self._hot_dev = None
         self._hot_table()
 
+    def _set_block(self):
+        """This rank's block of the shard index: ``n_local`` shards from
+        ``shard_lo`` (all of them without a group)."""
+        _check_split(self.n_shards, self.world)
+        self.n_local = self.n_shards // self.world
+        self.shard_lo = self.rank * self.n_local
+
+    def _local(self, batch: EventBatch) -> EventBatch:
+        """This rank's rows of a global ``[n_shards, B]`` source batch (a
+        view; a batch of ``n_local`` rows is taken as this rank's
+        already).  Every rank makes the same global feed from the seed,
+        so taking the block moves nothing."""
+        if self.world == 1 or batch.key.shape[0] != self.n_shards:
+            return batch
+        lo, hi = self.shard_lo, self.shard_lo + self.n_local
+        return tree_map(lambda a: a[lo:hi], batch)
+
     def _upload_ring(self):
         """Copy the ring to the device now, on the host's schedule: the
         tick reads the cached copy and never copies (a copy from
@@ -600,7 +814,7 @@ class DistributedEngine:
 
     # ---- state ----
     def init_state(self) -> Dict[str, Any]:
-        S, kd, dev = self.n_shards, self.key_dtype, self.device
+        S, kd, dev = self.n_local, self.key_dtype, self.device
 
         def per_shard(one):
             return tree_map(
@@ -633,9 +847,10 @@ class DistributedEngine:
 
     # ---- the tick, stage by stage over the shards ----
     def _tick(self, state, sources: Dict[str, EventBatch]):
-        cfg, wf, S = self.cfg, self.wf, self.n_shards
+        cfg, wf, S = self.cfg, self.wf, self.n_local
         rh, rs = self.ring.table(self.device)
         hot_keys, hot_valid = self._hot_table()
+        sources = {s: self._local(b) for s, b in sources.items()}
         for s, b in sources.items():
             if b.device != self.device:
                 raise ValueError(f"source {s!r} is on {b.device}, the "
@@ -683,8 +898,8 @@ class DistributedEngine:
                         dshard = self._hot_split(batch, dshard, dest_op,
                                                  rh, rs, hot_keys,
                                                  hot_valid, tick)
-                    recv, dropped = exchange(batch, dshard, S,
-                                             self.cap_per_dest)
+                    recv, dropped = exchange(batch, dshard, self.n_shards,
+                                             self.cap_per_dest, self.group)
                     exchange_dropped = exchange_dropped + dropped
                     pol = cfg.policy_for(dest_op)
                     ovfs, hits = [], []
@@ -845,9 +1060,11 @@ class DistributedEngine:
 
     # ---- host API ----
     def step(self, state, sources: Dict[str, EventBatch]):
-        """One tick.  ``sources``: ``[n_shards, B]``-leading batches.
-        Updates ``state`` in place (use the returned one); returns
-        ``(state, outputs)`` with ``[n_shards, ...]`` output batches."""
+        """One tick.  ``sources``: ``[n_shards, B]``-leading batches (each
+        rank takes its block's rows; ``[n_local, B]`` is taken as the
+        block).  Updates ``state`` in place (use the returned one);
+        returns ``(state, outputs)`` with ``[n_local, ...]`` output
+        batches."""
         return self._tick(state, sources)
 
     def run_chunk(self, state, stacked_sources: Dict[str, EventBatch],
@@ -856,8 +1073,8 @@ class DistributedEngine:
 
         ``stacked_sources`` leaves are ``[T, n_shards, B, ...]``.
         Returns ``(state, stacked_outputs, info)``; output leaves are
-        ``[T, n_shards, ...]`` and ``info['throttle_hits']`` is the
-        ``[T, n_shards]`` on-device per-tick trace.  Bitwise equal to T
+        ``[T, n_local, ...]`` and ``info['throttle_hits']`` is the
+        ``[T, n_local]`` on-device per-tick trace.  Bitwise equal to T
         ``step`` calls.  An empty ``stacked_sources`` runs ``n_ticks``
         source-less ticks."""
         lead = {s: b.key.shape[0] for s, b in stacked_sources.items()}
@@ -886,11 +1103,14 @@ class DistributedEngine:
 
     def _drain_queues(self, state, max_ticks: int):
         """Source-less ticks until every shard's queues are empty (one
-        host read a probe).  Returns ``(state, ticks_run)``."""
+        host read a probe, of every rank's backlog).  Returns ``(state,
+        ticks_run)``."""
         d = 0
         while d < max_ticks:
             sizes = torch.stack([q.size for q in state["queues"].values()])
-            if int(sizes.sum().item()) == 0:
+            total, = all_gather_rows([sizes.sum(dtype=torch.int64)[None]],
+                                     self.group)
+            if int(total.sum().item()) == 0:
                 break
             state = self._step_empty(state)
             d += 1
@@ -906,13 +1126,51 @@ class DistributedEngine:
         """One WAL per shard, one shared slate store, one barrier
         frontier.  Incompatible with two-choice dispatch: partial
         aggregates of one key on two shards would clobber each other in
-        the store."""
+        the store.  Over ranks, a rank opens and writes only its own
+        shards' WALs; rank 0 writes the store and the frontier."""
         if self.cfg.two_choice_threshold:
             raise ValueError("durability requires two_choice_threshold=0 "
                              "(per-key partials are not store-mergeable)")
+        fresh = not os.path.exists(cfg.frontier_path())
         self.dur = EngineDurability(cfg, self.wf, self.cfg.queue_capacity,
                                     self.cfg.batch_size,
-                                    n_shards=self.n_shards)
+                                    n_shards=self.n_local,
+                                    first=self.shard_lo)
+        if self.group is not None and fresh:
+            # no frontier file yet: start from every shard's log end
+            self.dur.frontier.wal_offset = self._all_offsets()
+
+    def _all_offsets(self) -> List[int]:
+        """Every shard's current WAL end offset, gathered from the ranks
+        that own them (rank order = shard order)."""
+        return [o for offs in all_gather_objects(self.dur._offsets(),
+                                                 self.group) for o in offs]
+
+    def _record_frontier(self, tick: int, meta=None):
+        """``dur.record_frontier`` over ranks: each rank fences its own
+        WALs and captures their offsets, the ranks' lists are gathered
+        (so every append the frontier covers is on disk on every rank
+        first), rank 0 alone saves the file, after its flusher drained
+        the store writes, and no rank goes on before it is saved."""
+        f_tick, offs = self.dur.begin_frontier(tick)
+        every = [o for part in all_gather_objects(offs, self.group)
+                 for o in part]
+        self.dur.commit_frontier((f_tick, every), meta=meta,
+                                 save=self.rank == 0)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def _resize_durability(self):
+        """Match the WAL set to the new shard count (after a reconfigure's
+        flush barrier).  Over ranks the block may have moved: each rank
+        reopens its block's WALs, the frontier keeps the old shards'
+        offsets and takes the new shards' current ends from every rank,
+        and rank 0 saves it."""
+        self.dur.resize(self.n_shards, first=self.shard_lo,
+                        n_local=self.n_local, offsets=self._all_offsets,
+                        save=self.rank == 0)
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def append_sources(self, tick: int, sources: Dict[str, EventBatch]):
         """Write-ahead: log each shard's row of the ``[n_shards, B]``
@@ -922,9 +1180,10 @@ class DistributedEngine:
         card); the per-shard slicing and the appends run on the
         durability writer thread, so the dispatch path pays only the
         enqueue.  A stream with no valid event on a shard is not logged
-        for that shard."""
-        staged, event = stage_sources(sources)
-        n_shards, dur = self.n_shards, self.dur
+        for that shard.  A rank logs its own block's rows."""
+        staged, event = stage_sources(
+            {s: self._local(b) for s, b in sources.items()})
+        n_shards, dur = self.n_local, self.dur
 
         def _log():
             if event is not None:
@@ -948,7 +1207,16 @@ class DistributedEngine:
 
     def _shard_tables(self, state):
         return {f"{k}/{s}": _row(t, s) for k, t in state["tables"].items()
-                for s in range(self.n_shards)}
+                for s in range(self.n_local)}
+
+    def _flush_due(self, eng_tick: int, state) -> bool:
+        """``dur.due`` at a chunk boundary.  The occupancy policy reads
+        each rank's tables, so the ranks' answers are or-ed."""
+        due = self.dur.due(eng_tick, self._shard_tables(state))
+        if self.group is not None and self.dur.cfg.flush.policy not in (
+                FlushPolicy.IMMEDIATE, FlushPolicy.EVERY_K):
+            due = any(all_gather_objects(due, self.group))
+        return due
 
     def _flush_boundary(self, state, tick: int, meta=None):
         """Barrier-drain, flush every shard's dirty slates, record the
@@ -965,15 +1233,20 @@ class DistributedEngine:
             tick += d
         tokens = [(up, [flush_mod.begin_dirty_snapshot(
             _row(state["tables"][up.name], sh))
-            for sh in range(self.n_shards)]) for up in self.wf.updaters()]
+            for sh in range(self.n_local)]) for up in self.wf.updaters()]
         for up, toks in tokens:
             rows = [flush_mod.finish_dirty_snapshot(t) for t in toks]
+            # over ranks, rank 0 writes every rank's rows, in shard order
+            parts = gather_objects(rows, self.group)
+            if parts is None:
+                continue
+            rows = [r for part in parts for r in part]
             keys, ts, vals = (np.concatenate([r[0] for r in rows]),
                               np.concatenate([r[1] for r in rows]),
                               tree_map(lambda *v: np.concatenate(v),
                                        *[r[2] for r in rows]))
             dur.flusher.flush_rows(up.name, keys, ts, vals, up.ttl)
-        dur.record_frontier(tick, meta=meta)
+        self._record_frontier(tick, meta=meta)
         return state, tick
 
     def run(self, state, source_fn, n_ticks: int, *, start_tick: int = 0,
@@ -1080,6 +1353,9 @@ class DistributedEngine:
                 report, n_active=len(self.active_shards), limit=limit,
                 can_split=(self.dur is None and self._hot_capacity > 0),
                 already_split=tuple(self.split_key_set()))
+            # the report is the same on every rank, but the cooldown may
+            # read wall-clock pauses: every rank takes rank 0's action
+            action = broadcast_object(action, self.group)
             rep = None
             if action is not None and t < end:
                 t0 = time.perf_counter()
@@ -1154,8 +1430,8 @@ class DistributedEngine:
                     outputs.append({s: _row(b, i) for s, b in outs.items()})
                 src_t += n
                 eng_tick += n
-                if self.dur is not None and self.dur.due(
-                        eng_tick, self._shard_tables(state)):
+                if self.dur is not None and self._flush_due(eng_tick,
+                                                            state):
                     with self._span("flush_boundary", tick=eng_tick,
                                     source_tick=src_t):
                         state, eng_tick = self._flush_boundary(
@@ -1195,7 +1471,12 @@ class DistributedEngine:
         ring routes them to (so a dead shard's keys land on survivors),
         then each shard's WAL suffix replays through the tick, which
         re-routes every replayed event with the current ring.  The log's
-        batches come back on the CPU and move to the engine's device."""
+        batches come back on the CPU and move to the engine's device.
+
+        Over ranks every rank reads every shard's WAL (the other ranks'
+        read-only) and the store, and keeps its own block: the WALs and
+        store of any world size recover on any other."""
+        from repro_torch.slates.wal import WriteAheadLog
         dur = self.dur
         assert dur is not None, "attach_durability first"
         t_recover = time.perf_counter()
@@ -1206,14 +1487,15 @@ class DistributedEngine:
             else [frontier.wal_offset] * self.n_shards
         if len(offs) < self.n_shards:   # replay newer WALs from the start
             offs += [0] * (self.n_shards - len(offs))
-        # a frontier from a larger shard set: the extra shards' WAL
+        # every shard's log: this rank's own, the others' read-only; a
+        # frontier from a larger shard set: the extra shards' WAL
         # suffixes replay too, re-routed by the current ring
-        extra_wals = []
-        if len(offs) > len(dur.wals):
-            from repro_torch.slates.wal import WriteAheadLog
-            extra_wals = [WriteAheadLog(dur.cfg.wal_path(s),
-                                        sync=dur.cfg.sync_wal)
-                          for s in range(len(dur.wals), len(offs))]
+        lo, hi = self.shard_lo, self.shard_lo + self.n_local
+        extra_wals = [WriteAheadLog(dur.cfg.wal_path(s), read_only=True)
+                      for s in range(len(offs)) if not lo <= s < hi]
+        readers = iter(extra_wals)
+        wals = [dur.wals[s - lo] if lo <= s < hi else next(readers)
+                for s in range(len(offs))]
 
         state = self.init_state()
         state["tick"].fill_(f_tick)
@@ -1227,10 +1509,10 @@ class DistributedEngine:
                 ks, ts, slates = rows
                 ks = ks.astype(np.int64 if self.key_bits == 64
                                else np.int32)
-                shard_of = self.ring.owners(ks, _salt(up.name))
+                shard_of = self.ring.owners(ks, _salt(up.name)) - lo
                 t = state["tables"][up.name]
-                local = [_row(t, sh) for sh in range(self.n_shards)]
-                for sh in range(self.n_shards):
+                local = [_row(t, sh) for sh in range(self.n_local)]
+                for sh in range(self.n_local):
                     sel = np.nonzero(shard_of == sh)[0]
                     if len(sel):
                         local[sh] = flush_mod.restore_into(
@@ -1257,8 +1539,7 @@ class DistributedEngine:
         with self._span("recover_replay", frontier=f_tick) as sp:
             cur = f_tick
             try:
-                for tk, by_shard in merge_replay_ticks(
-                        list(dur.wals) + extra_wals, offs):
+                for tk, by_shard in merge_replay_ticks(wals, offs):
                     if tk < f_tick:
                         continue
                     if len(offs) > self.n_shards:
@@ -1275,6 +1556,9 @@ class DistributedEngine:
                 for w in extra_wals:
                     w.close()
             sp["replayed_ticks"] = replayed
+        if self.group is not None:
+            # no rank appends to its log before every rank has read it
+            dist.barrier(group=self.group)
         if self.telemetry is not None:
             self.telemetry.note_recovery(time.perf_counter() - t_recover)
         return state
@@ -1325,15 +1609,19 @@ class DistributedEngine:
         """Machine crash: re-route the ring; the dead shard's unflushed
         slates and queued events are lost (paper semantics).  The ring
         keeps its shape, so nothing else changes.  Updates ``state`` in
-        place and returns it."""
+        place and returns it.  Over ranks every rank re-routes (the ring
+        is replicated) and the rank that holds the shard clears it."""
         self.ring.fail(shard)
         self._upload_ring()
+        s = shard - self.shard_lo
+        if not 0 <= s < self.n_local:
+            return state
         for q in state["queues"].values():
             for leaf in pytree.tree_leaves(q):
-                leaf[shard].zero_()
+                leaf[s].zero_()
         for t in state["tables"].values():
-            t.keys[shard].fill_(tbl.EMPTY)
-            t.dirty[shard].zero_()
+            t.keys[s].fill_(tbl.EMPTY)
+            t.dirty[s].zero_()
         return state
 
     @property
@@ -1342,11 +1630,14 @@ class DistributedEngine:
 
     def shard_load(self, state) -> np.ndarray:
         """Per-shard pressure signal from the queue stats: high-water
-        marks + backlog, drops weighted heavier."""
+        marks + backlog, drops weighted heavier.  ``[n_shards]``, every
+        rank's shards gathered."""
         load = np.zeros(self.n_shards)
-        for q in state["queues"].values():
+        qs = all_gather_tree([(q.peak, q.size, q.dropped)
+                              for q in state["queues"].values()], self.group)
+        for peak, size, dropped in qs:
             g = lambda x: x.cpu().numpy().astype(np.float64)
-            load += g(q.peak) + g(q.size) + 4.0 * g(q.dropped)
+            load += g(peak) + g(size) + 4.0 * g(dropped)
         return load
 
     # ---- live elasticity (DESIGN.md section 12) ----
@@ -1370,6 +1661,8 @@ class DistributedEngine:
         activate = dead[:new_n_shards - len(active)]
         grow_to = new_n_shards if len(active) + len(activate) \
             < new_n_shards else None
+        if grow_to is not None:
+            _check_split(grow_to, self.world)
         return self._reconfigure(state, grow_to=grow_to,
                                  activate=activate, drain_max=drain_max)
 
@@ -1536,13 +1829,15 @@ class DistributedEngine:
                 and dead_frac >= self.cfg.compact_threshold)
             if want and n_active < self.n_shards:
                 lead = self._lead_axis_size()
-                if n_active % lead == 0:
+                if n_active % lead == 0 and n_active % self.world == 0:
                     compacting = True
-                elif force_compact:
+                elif force_compact and n_active % lead:
                     raise ValueError(
                         f"cannot compact to {n_active} shards on a "
                         f"multi-axis mesh: the active count must be a "
                         f"multiple of the leading axes' product {lead}")
+                elif force_compact:
+                    _check_split(n_active, self.world)
 
         if not grew and not compacting \
                 and self.cfg.device_migration != "off":
@@ -1550,7 +1845,10 @@ class DistributedEngine:
                 self._migrate_device(state)
             path = "device"
         else:
-            host = tree_map(lambda x: x.cpu().numpy().copy(), state)
+            # every rank remaps the whole state (gathered) with the same
+            # numpy fold and keeps its new block
+            host = tree_map(lambda x: x.cpu().numpy().copy(),
+                            all_gather_tree(state, self.group))
             slot_map = None
             if grew:
                 host = self._host_grow(host, old_n)
@@ -1561,12 +1859,14 @@ class DistributedEngine:
             moved_events = self._migrate_queues_host(host["queues"],
                                                      slot_map=slot_map)
             bytes_moved = self._bytes_of(moved_rows, moved_events)
+            lo, hi = self.shard_lo, self.shard_lo + self.n_local
             state = tree_map(
-                lambda a: torch.from_numpy(a).to(self.device)
+                lambda a: torch.from_numpy(np.ascontiguousarray(
+                    a[lo:hi])).to(self.device)
                 if isinstance(a, np.ndarray) else a, host)
             path = "host"
         if self.dur is not None:
-            self.dur.resize(self.n_shards)
+            self._resize_durability()
         # the ring and the split set changed: copy them to the device now,
         # so the next tick finds them there and never syncs the host
         self._upload_ring()
@@ -1633,8 +1933,9 @@ class DistributedEngine:
         updaters, operators = list(self.wf.updaters()), list(self.wf.operators)
         rh, rs = self.ring.table(self.device)
         tables, queues = state["tables"], state["queues"]
-        n = self.n_shards
-        me = torch.arange(n, device=self.device)[:, None]
+        n, L = self.n_shards, self.n_local
+        rows = torch.arange(L, device=self.device)[:, None]
+        me = rows + self.shard_lo          # the block's global shard ids
 
         def per_pair(dest, mask):
             pair = torch.where(mask, me * n + dest, n * n).reshape(-1)
@@ -1654,11 +1955,15 @@ class DistributedEngine:
             Q = q.buf.key.shape[1] - 1
             ar = torch.arange(Q, dtype=torch.int32, device=self.device)
             pos = ((q.head[:, None] + ar) % Q).long()
-            owner = route(q.buf.key[me, pos], _salt(op.name), rh, rs).long()
+            owner = route(q.buf.key[rows, pos], _salt(op.name), rh,
+                          rs).long()
             # every live event, stayers too: exchange_queue routes them
             # all through the buckets, so the cap must cover them
             counts.append(per_pair(owner, ar < q.size[:, None]))
-        plan = torch.stack(counts).cpu().numpy().reshape(-1, n, n)
+        # a rank counts its own source rows: the ranks' plans add up to
+        # the whole one, the same on every rank
+        plan, = all_gather_rows([torch.stack(counts)[None]], self.group)
+        plan = plan.sum(dim=0).cpu().numpy().reshape(-1, n, n)
         row_plan = dict(zip([u.name for u in updaters], plan))
         ev_plan = dict(zip([o.name for o in operators],
                            plan[len(updaters):]))
@@ -1685,23 +1990,27 @@ class DistributedEngine:
             state["tables"] = {
                 up.name: exchange_rows(tables[up.name], _salt(up.name), rh,
                                        rs, n, cap_rows,
-                                       getattr(up, "combine", None))[0]
+                                       getattr(up, "combine", None),
+                                       self.group)[0]
                 for up in updaters}
         if cap_ev:
             state["queues"] = {
                 op.name: exchange_queue(queues[op.name], _salt(op.name), rh,
-                                        rs, n, cap_ev)[0]
+                                        rs, n, cap_ev, self.group)[0]
                 for op in operators}
         else:       # no backlog anywhere: rebase the peaks
             state = self._reset_queue_peaks(state)
         return state, moved, moved_ev, bytes_moved
 
     def _grow_physical(self, new_n: int):
-        """More shard slots: the leading dimension widens (every slot is
-        on the engine's one device, so no device count bounds it).
-        Multi-axis meshes grow along their trailing axis (``('pod',
-        'data')`` keeps the pod count and widens each pod), so ``new_n``
-        must be a multiple of the leading axes' product."""
+        """More shard slots: the leading dimension widens (on a world of
+        one every slot is on the engine's one device, so no device count
+        bounds it; over ranks ``new_n`` must split evenly over them, as
+        the JAX package needs a device a shard).  Multi-axis meshes grow
+        along their trailing axis (``('pod', 'data')`` keeps the pod
+        count and widens each pod), so ``new_n`` must be a multiple of
+        the leading axes' product."""
+        _check_split(new_n, self.world)
         lead = self._lead_axis_size()
         if new_n % lead:
             raise ValueError(
@@ -1709,7 +2018,8 @@ class DistributedEngine:
                 f"trailing axis {self.axes[-1]!r}: target {new_n} must be "
                 f"a multiple of {lead}")
         self.mesh = Mesh(self.axes, tuple(
-            self.mesh.shape[a] for a in self.axes[:-1]) + (new_n // lead,))
+            self.mesh.shape[a] for a in self.axes[:-1]) + (new_n // lead,),
+            self.group)
         self.n_shards = new_n
         self.ring.grow(new_n)
         self._reset_for_new_shape()
@@ -1723,6 +2033,7 @@ class DistributedEngine:
                   / self.n_shards)
         self.cap_per_dest = max(8, cap)
         self._hot_dev = None
+        self._set_block()
 
     def _compact_physical(self, host):
         """Physical slot compaction (DESIGN.md 14.2): renumber the active
@@ -1743,7 +2054,8 @@ class DistributedEngine:
         k, old_n = len(actives), self.n_shards
         lead = self._lead_axis_size()
         self.mesh = Mesh(self.axes, tuple(
-            self.mesh.shape[a] for a in self.axes[:-1]) + (k // lead,))
+            self.mesh.shape[a] for a in self.axes[:-1]) + (k // lead,),
+            self.group)
         self.n_shards = k
         self.ring = HashRing(k, vnodes=self.ring.vnodes,
                              weights=self.ring.weights[actives],
@@ -1817,9 +2129,11 @@ class DistributedEngine:
         are dropped and counted.  The input may have more slices than
         ``self.n_shards`` (compaction): every old slice is scanned and
         ``slot_map[d]`` names the old slot whose ``dropped`` tally new
-        slot ``d`` inherits."""
+        slot ``d`` inherits.  A rank builds its own block's tables only
+        (``[n_local, ...]`` on its device); the counts are global."""
         moved: Dict[str, int] = {}
         n = self.n_shards
+        block = range(self.shard_lo, self.shard_lo + self.n_local)
         smap = np.asarray(slot_map if slot_map is not None else range(n),
                           np.int64)
         for up in self.wf.updaters():
@@ -1835,7 +2149,7 @@ class DistributedEngine:
                         up, int(t.dropped[smap[d]]), keys[0, :0],
                         t.ts[0, :0], t.dirty[0, :0],
                         tree_map(lambda v: v[0, :0], t.vals))
-                        for d in range(n)])
+                        for d in block])
                 continue
             ts, dirty = t.ts[sh, slot], t.dirty[sh, slot]
             vals = tree_map(lambda v: v[sh, slot], t.vals)
@@ -1843,7 +2157,7 @@ class DistributedEngine:
             owner = self.ring.owners(rkeys, _salt(up.name))
             moved[up.name] = int((owner != old2new[sh]).sum())
             out = []
-            for d in range(n):
+            for d in block:
                 pick = np.nonzero(owner == d)[0]
                 out.append(self._build_local_table(
                     up, int(t.dropped[smap[d]]), rkeys[pick], ts[pick],
@@ -2012,19 +2326,40 @@ class DistributedEngine:
 
     # ---- introspection ----
     def stats(self, state) -> Dict[str, Any]:
+        """Whole-engine counters; over ranks every rank's ``[n_local]``
+        counters are gathered (one collective), so every rank returns
+        the same dict."""
+        tree = all_gather_tree({
+            "tick": state["tick"],
+            "exchange_dropped": state["exchange_dropped"],
+            "throttle_hits": state["throttle_hits"],
+            "deferred": state["deferred"],
+            "processed": dict(state["processed"]),
+            "queue_dropped": {k: q.dropped
+                              for k, q in state["queues"].items()},
+            "table_occupancy": {k: t.occupancy()
+                                for k, t in state["tables"].items()},
+        }, self.group)
         g = lambda x: x.cpu().numpy()
         return {
-            "tick": int(g(state["tick"]).max()),
-            "exchange_dropped": int(g(state["exchange_dropped"]).sum()),
-            "throttle_hits": int(g(state["throttle_hits"]).sum()),
-            "deferred": int(g(state["deferred"]).sum()),
+            "tick": int(g(tree["tick"]).max()),
+            "exchange_dropped": int(g(tree["exchange_dropped"]).sum()),
+            "throttle_hits": int(g(tree["throttle_hits"]).sum()),
+            "deferred": int(g(tree["deferred"]).sum()),
             "processed": {k: int(g(v).sum())
-                          for k, v in state["processed"].items()},
-            "queue_dropped": {k: int(g(q.dropped).sum())
-                              for k, q in state["queues"].items()},
-            "table_occupancy": {k: int(g(t.occupancy()).sum())
-                                for k, t in state["tables"].items()},
+                          for k, v in tree["processed"].items()},
+            "queue_dropped": {k: int(g(v).sum())
+                              for k, v in tree["queue_dropped"].items()},
+            "table_occupancy": {k: int(g(v).sum())
+                                for k, v in tree["table_occupancy"].items()},
         }
+
+    def gather_tree(self, tree):
+        """A tree of ``[n_local, ...]`` leaves as ``[n_shards, ...]``, every
+        rank's block gathered (one collective; the tree itself without a
+        group).  The telemetry registry reads its boundary signals
+        through this."""
+        return all_gather_tree(tree, self.group)
 
     def _query(self, keys) -> np.ndarray:
         return np.asarray(keys, np.int64 if self.key_bits == 64
@@ -2043,17 +2378,9 @@ class DistributedEngine:
             is_hot = bool(np.any(self._hot_valid & (self._hot_keys == key)))
             if self.cfg.two_choice_threshold or is_hot:
                 shards.append(int(route_secondary(karr, salt, rh, rs)[0]))
-            vals = []
-            t = state["tables"][updater]
-            q = karr.to(self.device)
-            for s in dict.fromkeys(shards):
-                local = _row(t, s)
-                slot, found = lk_ops.lookup_slots(local.keys, q,
-                                                  local.capacity)
-                if bool(found[0].item()):
-                    i = int(slot[0].item())
-                    vals.append(tree_map(
-                        lambda v: v[i].to("cpu", copy=True), local.vals))
+            vals = self._read_rows(state["tables"][updater],
+                                   karr.to(self.device),
+                                   list(dict.fromkeys(shards)))
         if not vals:
             return None
         out = vals[0]
@@ -2061,6 +2388,37 @@ class DistributedEngine:
             combine = merge or self.wf.by_name[updater].combine
             for v in vals[1:]:
                 out = combine(out, v)
+        return out
+
+    def _read_rows(self, t: tbl.SlateTable, q: torch.Tensor,
+                   shards: List[int]):
+        """``read_slate``'s lookups: the rank holding each of ``shards``
+        looks the key up (one ``lookup_slots`` a shard), one
+        ``all_gather`` over a group brings every rank the hit flags and
+        rows, and the holder's are taken.  Returns the found rows in
+        ``shards``' order, on the host."""
+        k = len(shards)
+        found = torch.zeros(k, dtype=torch.bool, device=self.device)
+        leaves, spec = pytree.tree_flatten(t.vals)
+        rows = [torch.zeros((k,) + tuple(v.shape[2:]), dtype=v.dtype,
+                            device=self.device) for v in leaves]
+        for j, s in enumerate(shards):
+            i = s - self.shard_lo
+            if not 0 <= i < self.n_local:
+                continue
+            local = _row(t, i)
+            slot, hit = lk_ops.lookup_slots(local.keys, q, local.capacity)
+            at = torch.where(hit[0], slot[0], local.capacity).long()
+            found[j] = hit[0]
+            for r, v in zip(rows, leaves):
+                r[j] = v[i, at]
+        found, *rows = all_gather_rows([found, *rows], self.group)
+        out = []
+        for j, s in enumerate(shards):
+            g = (s // self.n_local) * k + j
+            if bool(found[g].item()):
+                out.append(pytree.tree_unflatten(
+                    [r[g].to("cpu", copy=True) for r in rows], spec))
         return out
 
     def read_slates(self, state, updater: str, keys, *,
@@ -2092,8 +2450,9 @@ class DistributedEngine:
                 sec_eff = torch.where(use_sec, sec, -1)
             t = state["tables"][updater]
             masks, rows = [], []
-            for s in range(self.n_shards):
-                local = _row(t, s)
+            for i in range(self.n_local):
+                s = self.shard_lo + i
+                local = _row(t, i)
                 found, r = lk_ops.lookup_tree(local.keys, local.vals, q,
                                               impl=impl,
                                               capacity=local.capacity)
@@ -2102,8 +2461,13 @@ class DistributedEngine:
                     m = m | ((found & (sec_eff == s)).to(torch.int32) << 1)
                 masks.append(m)
                 rows.append(r)
-            mask = torch.stack(masks).cpu().numpy()
-            rows = tree_map(lambda *xs: torch.stack(xs).cpu(), *rows)
+            # every rank's partials, gathered once (the JAX package's
+            # all_gather); stacked as they are on one card
+            mask, rows = all_gather_tree(
+                (torch.stack(masks), tree_map(lambda *xs: torch.stack(xs),
+                                              *rows)), self.group)
+            mask = mask.cpu().numpy()
+            rows = tree_map(lambda x: x.cpu(), rows)
         qi = np.arange(keys_np.size)
         pm = (mask & 1).astype(bool)                    # [n_shards, Q]
         pf, psh = pm.any(axis=0), pm.argmax(axis=0)

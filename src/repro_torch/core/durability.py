@@ -120,15 +120,19 @@ class EngineDurability:
     Owns the WAL(s), the KV store + background flusher, and the frontier
     file.  ``n_shards=None`` is the single-shard engine (one WAL);
     an int opens one WAL per shard sharing a single store + frontier
-    barrier (each shard's offset tracked independently).
+    barrier (each shard's offset tracked independently).  ``first``:
+    the global index of the first of those shards — a rank of a
+    multi-rank engine opens only its own block's WALs, ``wals[i]`` being
+    shard ``first + i``'s.
     """
 
     def __init__(self, cfg: DurabilityConfig, workflow,
                  queue_capacity: int, batch_size: int,
-                 n_shards: Optional[int] = None):
+                 n_shards: Optional[int] = None, first: int = 0):
         self.cfg = cfg
         self.wf = workflow
         self.n_shards = n_shards
+        self.first = first
         os.makedirs(cfg.dir, exist_ok=True)
         self.store = cfg.make_store()
         self.flusher = Flusher(self.store, cfg.flush,
@@ -136,7 +140,8 @@ class EngineDurability:
         if n_shards is None:
             self.wals = [WriteAheadLog(cfg.wal_path(), sync=cfg.sync_wal)]
         else:
-            self.wals = [WriteAheadLog(cfg.wal_path(s), sync=cfg.sync_wal)
+            self.wals = [WriteAheadLog(cfg.wal_path(first + s),
+                                       sync=cfg.sync_wal)
                          for s in range(n_shards)]
         self.frontier = FlushFrontier.load(cfg.frontier_path()) or \
             FlushFrontier(tick=0, wal_offset=self._offsets())
@@ -270,22 +275,25 @@ class EngineDurability:
                               if t >= f_tick}
         return (f_tick, f_offs)
 
-    def commit_frontier(self, token, meta: Optional[dict] = None):
+    def commit_frontier(self, token, meta: Optional[dict] = None, *,
+                        save: bool = True):
         """Phase two: drain the flusher (re-raises on store failure),
         then persist the frontier captured by :meth:`begin_frontier`.
         Blocking — the driver calls this after dispatching the next
         chunk so the drain overlaps device compute.  ``meta`` is an
         opaque driver cursor stored alongside (None keeps the previous
-        one)."""
+        one).  A multi-rank engine passes every shard's offsets (its
+        ranks' tokens gathered) and ``save`` on one rank only."""
         f_tick, f_offs = token
         self.flusher.drain()
         self.frontier = FlushFrontier(
             tick=f_tick,
-            wal_offset=f_offs[0] if self.n_shards is None else f_offs,
+            wal_offset=f_offs[0] if self.n_shards is None else list(f_offs),
             meta=meta if meta is not None else self.frontier.meta)
-        self.frontier.save(self.cfg.frontier_path())
+        if save:
+            self.frontier.save(self.cfg.frontier_path())
         if self.cfg.truncate_wal:
-            for w, off in zip(self.wals, f_offs):
+            for w, off in zip(self.wals, f_offs[self.first:]):
                 w.truncate_before(off)
 
     def record_frontier(self, tick: int, meta: Optional[dict] = None):
@@ -300,37 +308,46 @@ class EngineDurability:
         off = self.frontier.wal_offset
         return list(off) if isinstance(off, (list, tuple)) else [off]
 
-    def resize(self, n_shards: int):
+    def resize(self, n_shards: int, *, first: int = 0,
+               n_local: Optional[int] = None,
+               offsets: Optional[Callable[[], List[int]]] = None,
+               save: bool = True):
         """Live elasticity (DESIGN.md sections 12/14): match the
         per-shard WAL set to the new physical shard count and re-record
         the frontier with the adjusted offset list.  Called at a scale
         boundary right after a flush barrier, so every shard's frontier
-        offset is current: growth appends WALs starting at their
-        (empty) head; a compaction shrink closes the WALs of the
+        offset is current: growth takes the new WALs' ends (their
+        empty heads); a compaction shrink drops the offsets of the
         dropped slots — sound only behind the barrier, which
         guarantees those files hold no records past the frontier
         (replay re-routes every event by key, so WAL-slot identity
         never matters).  Deactivated-but-not-compacted shards keep
         their WAL — it simply receives nothing until the slot
-        rejoins."""
+        rejoins.
+
+        One rank of a multi-rank engine holds shards ``first .. first +
+        n_local - 1`` (by default all ``n_shards``): it reopens those
+        WALs, ``offsets`` gives every shard's current end (gathered from
+        the ranks; by default this object's own), and only the rank
+        with ``save`` writes the frontier file."""
         if self.n_shards is None:
             raise ValueError("resize() is for per-shard durability")
-        self.fence()   # the writer must not touch WALs we close/append
-        offs = self.frontier_offsets()
-        if n_shards < len(self.wals):
-            for w in self.wals[n_shards:]:
-                w.close()
-            del self.wals[n_shards:]
-            offs = offs[:n_shards]
-        for s in range(len(self.wals), n_shards):
-            self.wals.append(WriteAheadLog(self.cfg.wal_path(s),
-                                           sync=self.cfg.sync_wal))
-            offs.append(self.wals[s].offset)
-        self.n_shards = n_shards
-        self.frontier = FlushFrontier(tick=self.frontier.tick,
-                                      wal_offset=offs,
-                                      meta=self.frontier.meta)
-        self.frontier.save(self.cfg.frontier_path())
+        self.fence()   # the writer must not touch WALs we close/open
+        old = self.frontier_offsets()
+        for w in self.wals:
+            w.close()
+        self.first = first
+        self.n_shards = n_shards if n_local is None else n_local
+        self.wals = [WriteAheadLog(self.cfg.wal_path(first + s),
+                                   sync=self.cfg.sync_wal)
+                     for s in range(self.n_shards)]
+        cur = (offsets or self._offsets)()
+        self.frontier = FlushFrontier(
+            tick=self.frontier.tick,
+            wal_offset=old[:n_shards] + cur[len(old):n_shards],
+            meta=self.frontier.meta)
+        if save:
+            self.frontier.save(self.cfg.frontier_path())
 
     def close(self):
         try:

@@ -205,7 +205,16 @@ class StateHandle:
 
     def serve(self, port: int = 0):
         """Start an HTTP slate server bound to this handle (127.0.0.1;
-        ``port=0`` picks a free port)."""
+        ``port=0`` picks a free port).  Refused on an engine over more
+        than one rank: a read there is a collective every rank must
+        enter in the same order, which one rank's server thread cannot
+        (ROADMAP queue 1 item 15e)."""
+        world = getattr(self.engine, "world", 1)
+        if world > 1:
+            raise RuntimeError(
+                f"the HTTP slate server cannot serve an engine over "
+                f"{world} ranks: its reads are collectives every rank "
+                f"must enter together (ROADMAP item 15e)")
         from repro_torch.slates.http import SlateServer
         return SlateServer(read_fn=self.read_slate, stats_fn=self.stats,
                            read_many_fn=self.read_slates,

@@ -8,7 +8,7 @@ independent local pieces -- shards of the dims every input shares
 the local shards, and wrap its output back into a DTensor.  Where the
 placements shard a dim the kernel reduces over, the local pieces would
 need a reduction across ranks inside the kernel: the route raises (the
-cross-rank kernels are ROADMAP queue 1 item 15c) and never falls back to
+cross-rank kernels are ROADMAP queue 1 item 15d) and never falls back to
 the plain version on the card.
 """
 from __future__ import annotations
@@ -40,7 +40,7 @@ def refuse_split(name: str, t, dim: int, what: str) -> None:
         raise NotImplementedError(
             f"{name} kernel on a DTensor whose {what} (dim {d}) is sharded "
             f"({tuple(t.placements)}): the kernel would need a reduction "
-            f"across ranks, which waits for ROADMAP queue 1 item 15c")
+            f"across ranks, which waits for ROADMAP queue 1 item 15d")
 
 
 def common_placements(tensors: Sequence, dims: Sequence[Tuple[int, ...]]):

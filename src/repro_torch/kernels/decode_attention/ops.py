@@ -12,7 +12,7 @@ On DTensors (a mesh) either route runs on each rank's local shards
 share are kept.  A cache whose sequence is split across ranks is
 gathered first for the plain version and raises for the kernel: its
 softmax partials would need a combine across ranks (ROADMAP queue 1
-item 15c).
+item 15d).
 """
 from __future__ import annotations
 

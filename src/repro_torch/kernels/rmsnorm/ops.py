@@ -16,7 +16,7 @@ On DTensors (a mesh) either route runs on each rank's rows
 ``w`` is whole on every rank (its gradient a partial sum over the ranks
 that split the rows).  A last dim split across ranks is gathered first
 for the plain version and raises for the kernel: its row reduction
-would cross ranks (ROADMAP queue 1 item 15c).
+would cross ranks (ROADMAP queue 1 item 15d).
 """
 from __future__ import annotations
 

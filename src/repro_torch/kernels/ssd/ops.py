@@ -15,7 +15,7 @@ On DTensors (a mesh) either route runs on each rank's local shards
 (``kernels/_local.py``): the batch and head shards the four inputs
 share are kept.  A sequence split across ranks is gathered first for
 the plain version and raises where the kernel would run: the scan's
-carried state would cross ranks (ROADMAP queue 1 item 15c).
+carried state would cross ranks (ROADMAP queue 1 item 15d).
 
 The kernel has no backward yet (ROADMAP queue 1 item 22): where the
 kernel would run and an input needs a gradient (training zamba2 on the

@@ -27,6 +27,16 @@ one device (a WAL a shard), fed the same global events each tick
 
     python -m repro_torch.launch.stream --dir /tmp/m --ticks 64 --shards 8
 
+Started by ``torch.distributed.run`` (``WORLD_SIZE`` above 1), each rank
+joins the launcher's process group (NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``) and holds its block of the shards; every rank
+makes the same global feed from the seed and keeps its block's rows.
+Rank 0 prints what the one-process run prints; the others print
+nothing.  ``--serve`` is refused there (a read is a collective)::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.stream --device cpu --dir /tmp/r --shards 8
+
 Live elasticity (DESIGN.md section 12) on the same shards::
 
     python -m repro_torch.launch.stream --dir /tmp/m --ticks 64 \
@@ -55,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
@@ -63,7 +74,29 @@ from repro_torch import (App, AutoscalePolicy, EventBatch, LoadAutoscaler,
                          RuntimeConfig)
 
 
-def make_app(args) -> App:
+def start_ranks(device: str):
+    """Join the process group ``torch.distributed.run`` set up when
+    ``WORLD_SIZE`` is above 1: NCCL on this rank's card
+    (``cuda:LOCAL_RANK``), gloo on the CPU.  A rank with no card raises
+    unless ``--device cpu`` asked for the CPU.  Returns ``(group,
+    device)``; ``(None, device)`` in a world of one."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None, device
+    import torch.distributed as dist
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "this rank found no CUDA device; pass --device cpu to run "
+                "the ranks on the CPU (gloo)")
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl")
+        return dist.group.WORLD, str(dev)
+    dist.init_process_group("gloo")
+    return dist.group.WORLD, device
+
+
+def make_app(args, group=None) -> App:
     app = App("stream")
     s1 = app.source("S1", {"x": ((), torch.float32)})
 
@@ -81,7 +114,7 @@ def make_app(args) -> App:
                 "sum": batch.value["x"]}
 
     def on_change(rep):
-        print(f"reconfigured: active={len(rep.active)} shards, moved "
+        say(f"reconfigured: active={len(rep.active)} shards, moved "
               f"{sum(rep.moved_rows.values())} rows + "
               f"{sum(rep.moved_events.values())} queued events "
               f"({'recompiled' if rep.recompiled else 'ring swap only'})")
@@ -104,6 +137,7 @@ def make_app(args) -> App:
                             queue_capacity=args.batch * 4,
                             chunk_size=args.chunk,
                             shards=args.shards,
+                            group=group,
                             autoscale=autoscale,
                             telemetry=telemetry,
                             durable_dir=args.dir,
@@ -198,6 +232,12 @@ def main(argv=None):
                          "Chrome trace JSON (open in Perfetto) after "
                          "the run")
     args = ap.parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and args.serve:
+        raise SystemExit(
+            f"--serve cannot run over {world} ranks: a slate read is a "
+            f"collective every rank must enter together (ROADMAP item "
+            f"15e)")
     if args.autoscale is not None and args.shards < 2:
         ap.error("--autoscale needs --shards >= 2 (a distributed "
                  "runtime to scale)")
@@ -207,7 +247,24 @@ def main(argv=None):
                  "--rebalance-every (declared schedule) are mutually "
                  "exclusive")
 
-    app = make_app(args)
+    group, args.device = start_ranks(args.device)
+    try:
+        run(args, group)
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def say(*a, **kw):
+    """Print on rank 0 only (every rank of a world of one)."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*a, **kw)
+
+
+def run(args, group):
+    app = make_app(args, group)
     eng = app.engine
     done = 0
     if args.recover:
@@ -215,20 +272,27 @@ def main(argv=None):
         # driver cursor survives even full WAL truncation, and events
         # carry their source tick as ts, so post-frontier WAL records
         # advance it further.  (The engine tick is no substitute — it
-        # also counts flush drain ticks.)
+        # also counts flush drain ticks.)  Every shard's log: over ranks
+        # a rank owns only its block's, so it reads the others' too.
         if eng.dur.frontier.meta:
             done = int(eng.dur.frontier.meta.get("source_tick", 0))
-        for wal in eng.dur.wals:
+        if args.shards > 1:
+            from repro_torch.slates.wal import WriteAheadLog
+            wals = [WriteAheadLog(eng.dur.cfg.wal_path(s), read_only=True)
+                    for s in range(eng.n_shards)]
+        else:
+            wals = eng.dur.wals
+        for wal in wals:
             for _, srcs in wal.replay():
                 if "S1" in srcs:
                     done = max(done, int(srcs["S1"].ts.max()) + 1)
-        print(f"recovered: frontier tick {eng.dur.frontier.tick}, "
+        say(f"recovered: frontier tick {eng.dur.frontier.tick}, "
               f"engine tick {app.stats()['tick']}, "
               f"resuming at source tick {done}")
 
     if args.serve:
         server = app.serve()
-        print(f"slates live at http://127.0.0.1:{server.port}/slate/U1/<k>")
+        say(f"slates live at http://127.0.0.1:{server.port}/slate/U1/<k>")
 
     remaining = max(0, args.ticks - done)
     if args.crash_at is not None:
@@ -242,25 +306,26 @@ def main(argv=None):
                 remaining, source_offset=done)
 
     if args.crash_at is not None and not args.recover:
-        print(f"CRASH at source tick {args.crash_at} (state dropped; "
+        say(f"CRASH at source tick {args.crash_at} (state dropped; "
               f"rerun with --recover)")
         return   # no close(): unflushed slates die with the process
 
-    if args.trace:
+    if args.trace and (group is None or eng.rank == 0):
+        # over ranks rank 0 writes its own spans
         path = app.export_trace(args.trace)
         with open(path) as f:          # verify it round-trips as JSON
             n_spans = len(json.load(f)["traceEvents"])
-        print(f"trace: {n_spans} span(s) -> {path} "
-              f"(load in Perfetto / chrome://tracing)")
+        say(f"trace: {n_spans} span(s) -> {path} "
+            f"(load in Perfetto / chrome://tracing)")
 
-    print(json.dumps(app.stats(), indent=2))
+    say(json.dumps(app.stats(), indent=2))
     if args.autoscale is not None:
         rep = app.telemetry()
-        print(f"telemetry: active={len(rep.active)} shards, "
+        say(f"telemetry: active={len(rep.active)} shards, "
               f"pressure={np.round(rep.pressure, 3).tolist()}, "
               f"heavy={rep.heavy_hitters[:3]}")
     for key in (0, 1, 2):
-        print(f"slate[{key}] =", _show(app.read_slate("U1", key)))
+        say(f"slate[{key}] =", _show(app.read_slate("U1", key)))
     app.close()
 
 

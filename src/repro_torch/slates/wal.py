@@ -62,9 +62,19 @@ class WriteAheadLog:
     """
 
     def __init__(self, path: str, *, sync: bool = False,
-                 level: Optional[int] = None):
+                 level: Optional[int] = None, read_only: bool = False):
         self.path = path
         self.sync = sync
+        if read_only:
+            # a reader of a log another process owns (a multi-rank
+            # engine's recovery): no header, no trim, no append handle
+            self._cctx, self._dctx = None, _compress.Decompressor()
+            self._base, self._hdr_len = self._read_header()
+            self._f = None
+            self._end = self._base + max(0, (os.path.getsize(path) if
+                                             os.path.exists(path) else 0)
+                                         - self._hdr_len)
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         # append sits on the ingest path: zstd-1 where zstandard is
         # installed, raw frames under the zlib fallback.  Frames are
@@ -139,7 +149,8 @@ class WriteAheadLog:
         return self._end
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
     # ---- compaction ----
     def truncate_before(self, offset: int):
@@ -176,7 +187,10 @@ class WriteAheadLog:
     # ---- read path ----
     def _iter_raw(self) -> Iterator[Tuple[int, int, bytes]]:
         """(logical offset, record length, raw record bytes) per record."""
-        self._f.flush()
+        if self._f is not None:
+            self._f.flush()
+        elif not os.path.exists(self.path):
+            return
         with open(self.path, "rb") as f:
             f.seek(self._hdr_len)
             off = self._base

@@ -300,7 +300,10 @@ class MetricsRegistry:
             tree["sk"] = state["sketch"]
         if "lat_hist" in state:
             tree["hist"] = state["lat_hist"]
-        return tree
+        # a multi-rank engine's ranks each hold a block of shards: one
+        # collective gives every rank the whole tree
+        gather = getattr(engine, "gather_tree", None)
+        return gather(tree) if gather is not None else tree
 
     def _read(self, engine, state, *, with_heavy: bool):
         tree = self._tree(engine, state, with_heavy=with_heavy)

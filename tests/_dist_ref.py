@@ -4,8 +4,9 @@ needs ``XLA_FLAGS`` before JAX starts, so never in the pytest process).
 
     python tests/_dist_ref.py OUT.pkl GROUP [ARG ...]
 
-runs every reference scenario of GROUP (``engine``, ``hotspot``,
-``durable``, ``elastic``, ``elastic_durable`` or ``closed_loop``) and
+runs every reference scenario of GROUP (``engine``, ``ranks``,
+``hotspot``, ``durable``, ``elastic``, ``elastic_durable`` or
+``closed_loop``) and
 pickles their results — states in the plain numpy form
 of ``repro_torch.convert.to_plain``, stats, reads, outputs — to OUT.pkl.
 The feeds are numpy, made here from seeds (``feeds``), and the port's
@@ -434,6 +435,31 @@ def _reads(eng, state, updater, keys=READ_KEYS, loop_keys=LOOP_KEYS):
                 state, updater, keys, impl="jnp")]}
 
 
+def _count_scenario(E):
+    """Counting through a mapper, the generic and the sequential path
+    (``COUNT``), with reads."""
+    jax, batch = E["jax"], E["batch"]
+    from repro.core.distributed import DistConfig, DistributedEngine
+    from repro.core.workflow import Workflow
+    eng = DistributedEngine(
+        Workflow([E["PassThroughMapper"](), E["CountingUpdater"](),
+                  E["LastValueUpdater"]()], external_streams=("S1",)),
+        E["mesh"](8), DistConfig(batch_size=64, queue_capacity=512))
+    st = eng.init_state()
+    outs = []
+    for d in feeds(**COUNT):
+        st, o = eng.step(st, {"S1": batch(d)})
+        outs.append(plain(jax.device_get(o)))
+    st, drained = eng.drain(st)
+    return dict(state=plain(jax.device_get(st)), stats=eng.stats(st),
+                outputs=outs, drained=drained, reads=_reads(eng, st, "U1"))
+
+
+def group_ranks():
+    """The fixed-membership scenario alone, for the port's rank tests."""
+    return {"count": _count_scenario(_jax_env())}
+
+
 def group_engine():
     E = _jax_env()
     jax, jnp, batch = E["jax"], E["jnp"], E["batch"]
@@ -447,19 +473,7 @@ def group_engine():
         return Workflow(list(ops), external_streams=("S1",))
 
     # counting through a mapper, the generic and the sequential path
-    eng = DistributedEngine(
-        wf(E["PassThroughMapper"](), E["CountingUpdater"](),
-           E["LastValueUpdater"]()),
-        E["mesh"](8), DistConfig(batch_size=64, queue_capacity=512))
-    st = eng.init_state()
-    outs = []
-    for d in feeds(**COUNT):
-        st, o = eng.step(st, {"S1": batch(d)})
-        outs.append(plain(jax.device_get(o)))
-    st, drained = eng.drain(st)
-    res["count"] = dict(state=plain(jax.device_get(st)),
-                        stats=eng.stats(st), outputs=outs, drained=drained,
-                        reads=_reads(eng, st, "U1"))
+    res["count"] = _count_scenario(E)
 
     # run_chunk on stacked [T, S, B] sources, on the packed-table oracle
     # (the JAX package's "off" and "jnp" backends give the same state
@@ -1036,7 +1050,8 @@ def group_closed_loop(log_path):
 def main(argv):
     out, group, *args = argv
     sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
-    res = {"engine": group_engine, "hotspot": group_hotspot,
+    res = {"engine": group_engine, "ranks": group_ranks,
+           "hotspot": group_hotspot,
            "durable": group_durable, "elastic": group_elastic,
            "elastic_durable": group_elastic_durable,
            "closed_loop": group_closed_loop}[group](*args)

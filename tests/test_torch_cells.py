@@ -273,14 +273,14 @@ def test_kernel_routes_refuse_cross_rank_reductions(mesh):
     def dt(shape, pl):
         return shd.distribute(torch.empty(shape, device="meta"), mesh, pl)
     x = dt((8, 16, 64), (Shard(0), Shard(2)))
-    with pytest.raises(NotImplementedError, match="15c"):
+    with pytest.raises(NotImplementedError, match="15d"):
         rops.rmsnorm(x, dt((64,), (Replicate(), Replicate())), impl="cuda")
     cache = dt((8, 32, 2, 16), (Shard(0), Shard(1)))
     q = dt((8, 1, 2, 16), (Shard(0), Replicate()))
-    with pytest.raises(NotImplementedError, match="15c"):
+    with pytest.raises(NotImplementedError, match="15d"):
         dops.decode_attend(q, cache, cache, dt((8,), (Shard(0), Replicate())),
                            impl="cuda")
     qs = dt((8, 64, 4, 16), (Shard(0), Shard(1)))
-    with pytest.raises(NotImplementedError, match="15c"):
+    with pytest.raises(NotImplementedError, match="15d"):
         sops.ssd(qs, qs, qs, dt((8, 64, 4), (Shard(0), Shard(1))),
                  chunk=16, impl="cuda")

@@ -1,7 +1,8 @@
 """The port stands alone: nothing in ``src/repro_torch/`` or
 ``chip_smoke.py`` imports JAX or the JAX package (``repro``; any
 ``repro.*`` import pulls in the whole JAX stack), nor do the port's
-examples (``examples/torch_*.py``).  Nor do the card-only
+examples (``examples/torch_*.py``) or the rank worker the gloo tests
+spawn (``tests/_ranks_worker.py``).  Nor do the card-only
 test files (``tests/test_torch_*_kernel.py``): the machine with the card
 has no JAX, so a file that imports it cannot be collected there.  That
 machine has no ``msgpack`` and no ``zstandard`` either: no port file
@@ -23,6 +24,7 @@ def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     files += sorted((ROOT / "examples").glob("torch_*.py"))
+    files.append(ROOT / "tests" / "_ranks_worker.py")
     return files + sorted((ROOT / "tests").glob("test_torch_*_kernel.py"))
 
 
