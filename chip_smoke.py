@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
 
-    python3 chip_smoke.py [--ticks 128] [--seed 0]
+    python3 chip_smoke.py [--ticks 64] [--seed 0]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's kernels from ``src/repro_torch/csrc`` into
@@ -135,10 +135,10 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
 7. drives the serving path: qwen2-0.5b at full width with random weights
    from ``--seed``, a ``Workflow`` of ``LMServeMapper(max_new=32,
    cache_len=512, bucket=8)`` and ``RequestSlate`` on
-   ``Engine(EngineConfig(batch_size=16))``, fed by ``request_source`` 32
-   requests (prompts of 32-256 tokens padded to 256) at 16 a tick for 2
-   ticks, then ``drain`` (the first 32 of the 64 requests it once
-   served, cut for the time limit as phases 8-12 and 15c are).  Every request's slate, read through
+   ``Engine(EngineConfig(batch_size=16))``, fed by ``request_source`` 16
+   requests (prompts of 32-256 tokens padded to 256) in one tick, then
+   ``drain`` (the first 16 of the 64 requests it once served, later 32,
+   cut for the time limit as phases 8-12 and 15c are).  Every request's slate, read through
    ``read_slates``, must equal bitwise the tokens of a direct greedy loop
    over ``lm.prefill`` / ``lm.decode_step`` on the same microbatches;
    one microbatch's teacher-forced prefill and decode logits with the
@@ -152,7 +152,8 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
 8. drives the same serving path on zamba2-1.2b at full width (38
    Mamba-2 layers of d_model 2048 with 64 SSD heads of N=P=64, one
    weight-shared attention block after every 6, vocab 32,000; random
-   weights): the same workflow, feed and checks, with a teacher-forced
+   weights): the same workflow and checks, the feed's first 8 requests
+   (once 32; cut for the time limit), with a teacher-forced
    tolerance of the plain path's own bf16-vs-f32 distance (measured;
    this model amplifies a rounding from block to block) and a
    microbatch launching ``ssd_scan`` 38 times, ``flash_attention`` 6,
@@ -164,15 +165,16 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    and 12 sLSTM blocks of d_model 1024, 4 heads, mLSTM N = 512, P =
    513; random bf16 weights drawn by ``lm.init(..., dtype=bf16)``, as in
    every serving phase): the first 16 of the 32 requests it once
-   served (prompts of 32-256 tokens padded to 256) in one tick,
+   served, in one tick (prompts of 32-256 tokens padded to 256),
    the same checks; a microbatch
    launches ``rmsnorm`` (12 x 2 + 12 + 1) x 32 times and ``ssd_scan``
    never (asserted: the mLSTM's P = N + 1 fails the kernel's
    ``supported()``, the JAX package's own rule, so the plain SSD runs);
    the sLSTM runs as a Python loop of 256 steps a block.
 10. gemma3-1b at full width (26 layers, d_model 1152, 4/1 heads of 256,
-   a 512-token window on 5 of every 6 layers, vocab 262,144): 16
-   requests with prompts of 640-1,024 tokens padded to 1,024,
+   a 512-token window on 5 of every 6 layers, vocab 262,144): 8
+   requests (once 16) with prompts of 640-1,024 tokens padded to
+   1,024,
    ``cache_len`` 1,088, so the window binds at prefill and in every
    decode step; a microbatch launches ``flash_attention`` 26 times,
    ``decode_attention`` 26 x 31 and ``rmsnorm`` 53 x 32.
@@ -249,7 +251,7 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    topic whose replay met no near-tie; a microbatch launches
    ``flash_attention`` 24 times on ``simt`` and ``rmsnorm`` 49 times on
    its f32 route; ms/tick, events/s and one profiled tick.  (c)
-   ``build_serve_app`` serves phase 7's first 16 requests on qwen2-0.5b
+   ``build_serve_app`` serves phase 7's 16 requests on qwen2-0.5b
    through ``App.run``: their slates equal phase 7's bitwise, with
    phase 7's launches a microbatch; then ``python -m
    repro_torch.launch.stream`` runs in subprocesses, uninterrupted and
@@ -262,9 +264,10 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    the same slate bitwise in both stores, and the divergence is printed.
 14. drives the continuous-batching ``ServingEngine`` (``repro_torch.
    launch.serve``) at full width with random bf16 weights from
-   ``--seed``, 8 slots, 2 admissions a tick, 32 requests of 32 new
-   tokens each, until drained.  (a) qwen2-0.5b, cache 320, bucket 64:
-   phase 7's first 32 requests, the last 8 held back and released one at
+   ``--seed``, 8 slots, 2 admissions a tick, 16 requests (14a; 8 in
+   14b and 14c; once 32 each) of 32 new tokens each, until
+   drained.  (a) qwen2-0.5b, cache 320, bucket 64:
+   phase 7's 16 requests, the last 8 held back and released one at
    a time whenever every slot is idle, until an idle slot decodes at a
    write index past the cache (its state snapshot before that tick must
    be bitwise unchanged after it: the write was dropped); a thread reads
@@ -298,7 +301,8 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    with 8 shards on the card.  (a) Phase 5's workflow and feed (the
    same events each tick, as ``[8, 8,192]`` sources) on
    ``DistConfig(batch_size=32,768, queue_capacity=131,072, chunk_size=8,
-   exchange_slack=4.0)`` with 2**19 slots an updater a shard, 128 ticks
+   exchange_slack=4.0)`` with 2**19 slots an updater a shard, ``--ticks``
+   ticks
    through ``DistributedEngine.run`` (first its sizing on the same feed:
    every (source, destination) bucket within ``cap_per_dest``, every
    shard's receipt within ``batch_size``): the slates, over all shards'
@@ -399,6 +403,40 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    to the numpy reference; before it a rank-path chunk under the sync
    debug mode "error"; ms/tick and busy ms beside 15a's, and the
    collective alone (a local copy at a world of one).
+20. the kernel routes across ranks at full width, R ranks emulated on
+   the card (it has one; NCCL refuses two ranks on one card): whole
+   tensors cut into R slices as ``Shard`` cuts them, the route's own
+   local half (the kernel) on each slice at its offset, the partials
+   stacked as the all-gather delivers them and the route's own merge
+   (``decode_attention/ops.merge``, ``ssd/ops.fold``, the sum of the
+   stacked partials), at R = 2 and 16 (the production mesh's "model" axis), each held
+   against the whole-tensor kernel and the plain version, two calls
+   bitwise equal, the launches asserted.  ``decode_attention``'s split-K
+   (the ``partial`` kernel: f32 o and log-sum-exp) for gemma3-1b (4/1
+   heads of 256, window 512 and global) and qwen2-0.5b (14/2 of 64), 8
+   requests over a 32,768-row bf16 cache, ragged lengths, one of them
+   (16,584) straddling the slices at both R with its window too (o
+   within 2e-2 and within 2**-6 of each (request, head) row's largest
+   magnitude; the merged log-sum-exp within 1e-3 of 1 + |lse| of the
+   whole cache's, from the kernel and the plain version); ``ssd_scan``'s carried state (each slice scanned from zero,
+   the fold, a second scan from the carried state on every slice but the
+   first) at zamba2-1.2b's scan, 8 x 4,096 tokens, 64 heads, N = P = 64,
+   chunk 256, bf16, on the "mma" route (y within 2e-2, the state within
+   5e-4 of max + 1); ``rmsnorm``'s split row (``rmsnorm_sums`` on each
+   rank's columns, the rows' total, ``rmsnorm`` given it) and
+   ``rmsnorm_bwd`` given the rows' sums, 8 x 4,096 rows of zamba2's 2,048
+   (one bf16 ulp; gradients within 2**-5 of max).  Each timed beside the
+   whole-tensor kernel: a rank's own work (its slice and the merge) and
+   all R slices on the one card, with the bound of one whole pass's bytes
+   at 3.35 TB/s; in the kernel line under each row's ``routes``.
+
+Cut for the time limit, earlier paths' depths (to make room for phase
+20): ``--ticks`` defaults to 64 (128 before: phases 5, 6 and
+15a); phase 7 serves 16 requests in one tick (32 in two), phases 8 and
+10 8 (32, 16), 14a 16 (32; 8 of them held back, as before), 14b and 14c
+8 (32).  Phases 9 and 11 keep their 16: cutting them to 8 saved 3.6 and
+0.0 s (their fixed-cost checks set their walls).  Each phase's wall is printed at the end, beside phase
+5's ms/tick as the host's speed marker (hosts differ by up to ~40 %).
 Every serving phase also asserts every ``flash_attention`` launch on
 its ``wgmma`` route and prints its own wall time.  Each path's launch
 counters are set to 0 just before it and read just after.
@@ -2494,11 +2532,12 @@ def telemetry_path(dev, ticks, seed, card, ref, off_ms, off_prof):
 
 # ------------------------------------------------------- phases 7 to 11
 # ``draw`` requests are drawn from the seed and the first ``requests``
-# served (64 in 4 ticks once; cut for the time limit): the
+# served (64 in 4 ticks once, then 32 in 2; cut for the time limit):
+# the
 # requests, and the microbatch the checks read, are the ones 64 served
-SERVE = {"requests": 32, "draw": 64, "per_tick": 16, "bucket": 8,
+SERVE = {"requests": 16, "draw": 64, "per_tick": 16, "bucket": 8,
          "prompt_len": 256, "min_prompt": 32, "max_new": 32,
-         "cache_len": 512, "ticks": 2}
+         "cache_len": 512, "ticks": 1}
 # each serving phase's slates, rid -> tokens (phase 13c holds
 # build_serve_app's against phase 7's)
 SERVED = {}
@@ -2544,10 +2583,11 @@ class Arch(NamedTuple):
 LONG = dict(prompt_len=1024, min_prompt=640, cache_len=1088)
 SERVE_ARCHS = {
     "qwen2-0.5b": Arch({}, {"attn": 24}, 0.125),
-    "zamba2-1.2b": Arch({}, {"mamba2": 38, "attn": 6}, None, top1=False),
+    "zamba2-1.2b": Arch(dict(requests=8), {"mamba2": 38, "attn": 6}, None,
+                        top1=False),
     "xlstm-350m": Arch(dict(requests=16, draw=32, ticks=1),
                        {"mlstm": 12, "slstm": 12}, None, top1=False),
-    "gemma3-1b": Arch(dict(requests=16, draw=32, ticks=1, **LONG),
+    "gemma3-1b": Arch(dict(requests=8, draw=32, ticks=1, **LONG),
                       {"attn": 26},
                       0.135),
     "deepseek-v2-lite-16b": Arch(dict(requests=16, draw=32, ticks=1),
@@ -4268,7 +4308,7 @@ def launcher_recovery():
 
 
 def app_serving_path(dev, seed, card):
-    """Phase 13c: ``build_serve_app`` serves phase 7's first 16 requests
+    """Phase 13c: ``build_serve_app`` serves phase 7's 16 requests
     on qwen2-0.5b through ``App.run``; then the stream launcher crashes
     at source tick 40 and recovers, in subprocesses."""
     import numpy as np
@@ -4407,21 +4447,21 @@ def profile_ticks(eng, state, source_fn, start, tick_s, n=8,
 # The continuous-batching ServingEngine (``repro_torch.launch.serve``) at
 # full width with random bf16 weights from --seed: its configuration, the
 # requests (prompt lengths uniform in [min_prompt, prompt_len]) and the
-# new tokens each.  14a serves phase 7's first 32 requests; whisper-tiny
+# new tokens each.  14a serves phase 7's 16 requests; whisper-tiny
 # runs at prompt_bucket == cache_len, the reference's limit.
 ENGINE = {
     "qwen2-0.5b": dict(
         serve=dict(n_slots=8, cache_len=320, prompt_bucket=64,
                    admit_per_tick=2, queue_capacity=64),
-        requests=32, min_prompt=32, prompt_len=256, max_new=32),
+        requests=16, min_prompt=32, prompt_len=256, max_new=32),
     "whisper-tiny": dict(
         serve=dict(n_slots=8, cache_len=256, prompt_bucket=256,
                    admit_per_tick=2, queue_capacity=64),
-        requests=32, min_prompt=32, prompt_len=224, max_new=32),
+        requests=8, min_prompt=32, prompt_len=224, max_new=32),
     "llama-3.2-vision-11b": dict(
         serve=dict(n_slots=8, cache_len=512, prompt_bucket=64,
                    admit_per_tick=2, queue_capacity=64),
-        requests=32, min_prompt=32, prompt_len=256, max_new=32),
+        requests=8, min_prompt=32, prompt_len=256, max_new=32),
 }
 # teacher-forced tolerances: qwen2-0.5b phase 7's; whisper-tiny and
 # llama-3.2-vision-11b the plain path's own bf16-vs-f32 distance,
@@ -4457,7 +4497,7 @@ def engine_requests(arch, seed, vocab):
     """The sub-phase's requests (``launch.serve.Request``)."""
     from repro_torch.launch.serve import Request
     ev = ENGINE[arch]
-    if arch == "qwen2-0.5b":        # phase 7's first 32, same rids
+    if arch == "qwen2-0.5b":        # phase 7's requests, same rids
         base = serving_requests(serve_of(arch), seed, SERVE["draw"],
                                 vocab)[:ev["requests"]]
     else:
@@ -7063,9 +7103,413 @@ def ranks_path(dev, seed, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 20
+# The kernel routes across ranks at full width, R ranks emulated on the
+# one card (NCCL refuses two ranks on one card): whole tensors cut into R
+# slices, the route's own local half (the kernel) on each slice at its
+# offset, the partials stacked as the all-gather gives them, and the
+# route's own merge (``decode_attention/ops.merge``, ``ssd/ops.fold``,
+# the sum of the stacked partials), held against the whole-tensor kernel and the plain
+# version.  R = 2, and 16 (the production mesh's "model" axis).
+RANKS_R = (2, 16)
+# decode: 8 requests over a 32,768-row bf16 cache, ragged lengths;
+# (label, H, Hkv, head dim, window)
+RANKS_DECODE = (("gemma3-1b local 4/1 heads of 256, window 512", 4, 1, 256,
+                 512),
+                ("gemma3-1b global 4/1 heads of 256", 4, 1, 256, 0),
+                ("qwen2-0.5b 14/2 heads of 64", 14, 2, 64, 0))
+RANKS_CACHE = 32768
+# zamba2-1.2b's Mamba-2 scan (64 heads, N = P = 64, chunk 256) and its
+# norms (d_model 2048) over 8 x 4,096 tokens
+RANKS_SSD = dict(B=8, S=4096, H=64, N=64, P=64, chunk=256)
+RANKS_RMS = (8 * 4096, 2048)
+RANKS_REPS = 10
+
+
+def slices(n, R):
+    """(offset, length) of each rank's piece of a dim of ``n``, as
+    ``Shard`` cuts it (``torch.chunk``: the last pieces shorter)."""
+    size = -(-n // R)
+    return [(o, min(size, n - o)) for o in range(0, n, size)]
+
+
+# split-K's limits, tighter than the kernels' absolute 2e-2 (which the
+# long rows' outputs, ~sqrt(e / n) ~ 0.01, do not exceed): o within 2**-6
+# of each (request, head) row's largest magnitude (a bf16 ulp is at most
+# 2**-7 of a value; the plain version's bf16 probabilities add well under
+# 2**-8 of the row), and the merged log-sum-exp within 1e-3 of 1 + its
+# magnitude (the card tests' bf16 limit).  A merge that drops one rank's
+# partial at R = 16 moves a long row's o by ~1/16 of its scale and its
+# lse by log(16/15) ~ 0.065: both far outside.
+SPLIT_K_ROW_TOL = 2.0**-6
+SPLIT_K_LSE_TOL = 1e-3
+
+
+def split_k_errors(got, lse, want, want_lse):
+    """(max abs error, worst error over its row's limit, worst lse error
+    over its limit) of split-K's ``(o, lse)`` against ``(want,
+    want_lse)``: o ``[B, 1, H, Dv]``, lse ``[B, 1, H]``."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    row = want.float().abs().amax(-1, keepdim=True)
+    seen = torch.isfinite(want_lse)
+    if not torch.equal(seen, torch.isfinite(lse)):
+        raise AssertionError("split-K: rows with and without a key differ")
+    lerr = ((lse - want_lse).abs() / (1 + want_lse.abs()))[seen]
+    return (float(err.max()),
+            float((err / (SPLIT_K_ROW_TOL * row).clamp_min(1e-30)).max()),
+            float(lerr.max()) / SPLIT_K_LSE_TOL)
+
+
+def ranks_decode(dev, gen, label, H, Hkv, Dh, window):
+    """One decode shape through the split-K route at each R."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention import ref as dr
+    B, S, bf16 = 8, RANKS_CACHE, torch.bfloat16
+    r = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(bf16)
+    q, kc, vc = r(B, 1, H, Dh), r(B, S, Hkv, Dh), r(B, S, Hkv, Dh)
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    # both ends, one inside rank 0's slice at both R, and one whose
+    # window and whole span straddle the half (R = 2) and slice 8 of 16
+    lens[0], lens[1], lens[2], lens[3] = 1, S, 700, S // 2 + 200
+    whole = dk.decode_attention(q, kc, vc, lens, window=window)
+    plain = dr.decode_attend(q, kc, vc, lens, window=window)
+    # the whole cache's log-sum-exp, from the kernel and the plain version
+    whole_lse = dk.decode_attention(q, kc, vc, lens, window=window,
+                                    partial=True)[1]
+    plain_lse = dr.decode_attend(q, kc, vc, lens, window=window,
+                                 partial=True)[1]
+    tol = attn_tol(bf16)
+    rows = int((lens.clamp(max=window) if window else lens).sum())
+    # q read once, each visible cache row once, o written once, lengths
+    nbytes = 2 * q.numel() * 2 + rows * Hkv * 2 * Dh * 2 + B * 4
+    whole_ms = device_ms(lambda: dk.decode_attention(q, kc, vc, lens,
+                                                     window=window),
+                         reps=RANKS_REPS)
+    out = {}
+    for R in RANKS_R:
+        parts = slices(S, R)
+
+        def local(o, n):
+            return dk.decode_attention(q, kc[:, o:o + n], vc[:, o:o + n],
+                                       lens, window=window, partial=True,
+                                       seq_offset=o, seq_total=S)
+
+        def route():
+            ps = [local(o, n) for o, n in parts]
+            o, lse = dops.merge(torch.stack([p[0] for p in ps]),
+                                torch.stack([p[1] for p in ps]))
+            return o.to(q.dtype), lse
+        torch.cuda.synchronize()
+        n0 = dk.decode_attention.partial_launches
+        got, lse = route()
+        torch.cuda.synchronize()
+        launches = dk.decode_attention.partial_launches - n0
+        if launches != len(parts):
+            raise AssertionError(f"decode_attention split-K R={R}: "
+                                 f"{launches} partial launches, expected "
+                                 f"{len(parts)}")
+        err_k, row_k, lse_k = split_k_errors(got, lse, whole, whole_lse)
+        err_p, row_p, lse_p = split_k_errors(got, lse, plain, plain_lse)
+        worst = max(row_k, row_p, lse_k, lse_p)
+        if not (err_k < tol and err_p < tol and worst <= 1
+                and got.dtype == q.dtype
+                and bool(torch.isfinite(got.float()).all())):
+            raise AssertionError(
+                f"decode_attention split-K {label} R={R}: max_abs_err "
+                f"{err_k} / {err_p} against the whole kernel / the plain "
+                f"version (tolerance {tol}); of the limits "
+                f"({SPLIT_K_ROW_TOL} of a row's max, lse "
+                f"{SPLIT_K_LSE_TOL} of 1 + |lse|): o {row_k} / {row_p}, "
+                f"lse {lse_k} / {lse_p}")
+        same_bits(f"decode_attention split-K R={R}",
+                  lambda: torch.cat([t.float().flatten() for t in route()]))
+        stacked = [local(o, n) for o, n in parts]
+        gathered = (torch.stack([p[0] for p in stacked]),
+                    torch.stack([p[1] for p in stacked]))
+        # a rank's own work: its slice's partial, then the merge of the
+        # gathered partials; the slowest rank's (the ranks' visible rows
+        # differ with the lengths and the window)
+        local_ms = [device_ms(lambda p=p: local(*p), reps=RANKS_REPS)
+                    for p in parts]
+        merge_ms = device_ms(lambda: dops.merge(*gathered), reps=RANKS_REPS)
+        route_ms = device_ms(route, reps=RANKS_REPS)
+        out[R] = {"max_abs_err": max(err_k, err_p),
+                  "of_limits": {"o": max(row_k, row_p),
+                                "lse": max(lse_k, lse_p)},
+                  "launches": launches,
+                  "ms": max(local_ms) + merge_ms, "merge_ms": merge_ms,
+                  "slowest_rank": local_ms.index(max(local_ms)),
+                  "all_ranks_ms": route_ms}
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"20 decode_attention split-K, {label}: B=8 over a {S}-row bf16 "
+        f"cache, lengths {sorted(lens.tolist())}: "
+        + "; ".join(f"R={R} max_abs_err {v['max_abs_err']} (whole kernel "
+                    f"and plain, tolerance {tol}; of the limits "
+                    f"{SPLIT_K_ROW_TOL} of a row's max and lse "
+                    f"{SPLIT_K_LSE_TOL} of 1 + |lse|: o "
+                    f"{v['of_limits']['o']}, lse {v['of_limits']['lse']}), "
+                    f"{v['launches']} partial "
+                    f"launches, the slowest rank ({v['slowest_rank']}) "
+                    f"{v['ms']:.5f} ms (its slice, and the merge "
+                    f"{v['merge_ms']:.5f}), all R slices and the merge on "
+                    f"one card "
+                    f"{v['all_ranks_ms']:.5f} ms" for R, v in out.items())
+        + f"; the whole-tensor kernel {whole_ms:.5f} ms; bound "
+        f"{bound_ms:.6f} ms ({nbytes} bytes at 3.35 TB/s; device time, "
+        f"torch.profiler, mean of {RANKS_REPS}); two calls bitwise equal")
+    return out, whole_ms, bound_ms
+
+
+def ranks_ssd(dev, gen):
+    """zamba2's scan through the carried-state route at each R."""
+    import torch
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd import ref as sr
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    c = RANKS_SSD
+    B, S, H, N, P, L = (c[k] for k in ("B", "S", "H", "N", "P", "chunk"))
+    bf16 = torch.bfloat16
+    rn = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+    q = rn(B, S, 1, N).to(bf16).expand(B, S, H, N)
+    k = (rn(B, S, 1, N) * 0.3).to(bf16).expand(B, S, H, N)
+    v = rn(B, S, H, P).to(bf16)
+    # Mamba-2's decay: softplus(dt) * -exp(a_log), here ~0.01-0.05 a step
+    la = -0.03 * torch.nn.functional.softplus(rn(B, S, H))
+    wy, wfin = sk.ssd_scan(q, k, v, la, chunk=L)
+    py, pfin = sr.ssd(q, k, v, la, chunk=L)
+    whole_ms = device_ms(lambda: sk.ssd_scan(q, k, v, la, chunk=L),
+                         reps=RANKS_REPS)
+    nbytes = (2 * B * S * N * 2 + B * S * H * P * 2 + B * S * H * 4
+              + B * S * H * P * 2 + B * H * N * P * 4)
+    out = {}
+    for R in RANKS_R:
+        parts = slices(S, R)
+        sl = lambda t, o, n: t[:, o:o + n]
+
+        def first(o, n):
+            y, fin = sk.ssd_scan(sl(q, o, n), sl(k, o, n), sl(v, o, n),
+                                 sl(la, o, n), chunk=L)
+            return y, fin, torch.exp(sl(la, o, n).sum(1))
+
+        def route():
+            ps = [first(o, n) for o, n in parts]
+            F = torch.stack([p[1] for p in ps])
+            A = torch.stack([p[2] for p in ps])
+            ys = [ps[0][0]]
+            for r, (o, n) in enumerate(parts[1:], 1):
+                h0 = sops.fold(F, A, r)[0]
+                ys.append(sk.ssd_scan(sl(q, o, n), sl(k, o, n), sl(v, o, n),
+                                      sl(la, o, n), chunk=L,
+                                      initial_state=h0)[0])
+            return torch.cat(ys, 1), sops.fold(F, A, 0)[2]
+        torch.cuda.synchronize()
+        n0 = (sk.ssd_scan.launches, sk.ssd_scan.partial_launches,
+              sk.ssd_scan.launches_by_route["mma"])
+        y, fin = route()
+        torch.cuda.synchronize()
+        launches = sk.ssd_scan.launches - n0[0]
+        moved = (sk.ssd_scan.partial_launches - n0[1],
+                 sk.ssd_scan.launches_by_route["mma"] - n0[2])
+        if (launches, moved) != (2 * len(parts) - 1,
+                                 (len(parts) - 1, 2 * len(parts) - 1)):
+            raise AssertionError(f"ssd_scan carried state R={R}: {launches}"
+                                 f" launches ({moved[0]} from a state, "
+                                 f"{moved[1]} on mma), expected "
+                                 f"{2 * len(parts) - 1}, all mma")
+        errs = {}
+        for what, (wy_, wf_) in (("whole kernel", (wy, wfin)),
+                                 ("plain", (py, pfin))):
+            ey = float((y.float() - wy_.float()).abs().max()) / (
+                float(wy_.float().abs().max()) + 1)
+            ef = float((fin - wf_).abs().max()) / (float(wf_.abs().max())
+                                                    + 1)
+            if not (ey < attn_tol(bf16) and ef < 5e-4 and y.dtype == bf16
+                    and bool(torch.isfinite(y.float()).all())):
+                raise AssertionError(f"ssd_scan carried state R={R}: y "
+                                     f"{ey}, final state {ef} of max + 1 "
+                                     f"against the {what}")
+            errs[what] = (ey, ef)
+        same_bits(f"ssd_scan carried state R={R}",
+                  lambda: torch.cat([t.float().flatten() for t in route()]))
+        last = parts[-1]
+        ps = [first(o, n) for o, n in parts]
+        F = torch.stack([p[1] for p in ps])
+        A = torch.stack([p[2] for p in ps])
+
+        def rank_last():           # the last rank: two scans and the fold
+            first(*last)
+            h0 = sops.fold(F, A, len(parts) - 1)[0]
+            return sk.ssd_scan(sl(q, *last), sl(k, *last), sl(v, *last),
+                               sl(la, *last), chunk=L, initial_state=h0)
+        rank_ms = device_ms(rank_last, reps=RANKS_REPS)
+        route_ms = device_ms(route, reps=RANKS_REPS)
+        out[R] = {"max_abs_err": max(e[0] for e in errs.values()),
+                  "state_err": max(e[1] for e in errs.values()),
+                  "launches": launches, "ms": rank_ms,
+                  "all_ranks_ms": route_ms}
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"20 ssd_scan carried state, zamba2's scan B={B} S={S} H={H} "
+        f"N=P={N} chunk {L} bf16 (q, k head-broadcast): "
+        + "; ".join(f"R={R} y {v['max_abs_err']}, state {v['state_err']} "
+                    f"of max + 1 (whole kernel and plain; tolerance 2e-2, "
+                    f"5e-4), {v['launches']} launches on mma, the last rank "
+                    f"{v['ms']:.5f} ms (two scans of its slice and the "
+                    f"fold), all R slices on one card "
+                    f"{v['all_ranks_ms']:.5f} ms" for R, v in out.items())
+        + f"; the whole-tensor kernel {whole_ms:.5f} ms; bound "
+        f"{bound_ms:.6f} ms ({nbytes} bytes at 3.35 TB/s; device time, "
+        f"torch.profiler, mean of {RANKS_REPS}); two calls bitwise equal")
+    return out, whole_ms, bound_ms
+
+
+def ranks_rmsnorm(dev, gen):
+    """zamba2's norms over a row split R ways, forward and backward."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rr
+    rows, D = RANKS_RMS
+    bf16 = torch.bfloat16
+    x = torch.randn(rows, D, generator=gen, device=dev).to(bf16)
+    dy = torch.randn(rows, D, generator=gen, device=dev).to(bf16)
+    w = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+    wy = rk.rmsnorm(x, w)
+    wg = rk.rmsnorm_bwd(x, w, dy)
+    py = rr.rmsnorm(x, w)
+    pg = rr.rmsnorm_bwd(x, w, dy)
+    whole_ms = device_ms(lambda: rk.rmsnorm(x, w), reps=RANKS_REPS)
+    whole_bwd_ms = device_ms(lambda: rk.rmsnorm_bwd(x, w, dy),
+                             reps=RANKS_REPS)
+    out = {}
+    for R in RANKS_R:
+        parts = slices(D, R)
+        # each rank's columns, contiguous as its shard is
+        xs = [x[:, o:o + n].contiguous() for o, n in parts]
+        dys = [dy[:, o:o + n].contiguous() for o, n in parts]
+        ws = [w[o:o + n].contiguous() for o, n in parts]
+
+        def fwd():
+            ss = torch.stack([rk.rmsnorm_sums(a) for a in xs]).sum(0)
+            return torch.cat([rk.rmsnorm(a, b, ss=ss, d_norm=D)
+                              for a, b in zip(xs, ws)], 1)
+
+        def bwd():
+            st = torch.stack([rk.rmsnorm_sums(a, b, g)
+                              for a, b, g in zip(xs, ws, dys)]).sum(0)
+            gs = [rk.rmsnorm_bwd(a, b, g, sums=st, d_norm=D)
+                  for a, b, g in zip(xs, ws, dys)]
+            return (torch.cat([g[0] for g in gs], 1),
+                    torch.cat([g[1] for g in gs]))
+        torch.cuda.synchronize()
+        n0 = (rk.rmsnorm_sums.launches, rk.rmsnorm.partial_launches,
+              rk.rmsnorm_bwd.partial_launches)
+        y = fwd()
+        g = bwd()
+        torch.cuda.synchronize()
+        launches = (rk.rmsnorm_sums.launches - n0[0],
+                    rk.rmsnorm.partial_launches - n0[1],
+                    rk.rmsnorm_bwd.partial_launches - n0[2])
+        if launches != (2 * len(parts), len(parts), len(parts)):
+            raise AssertionError(f"rmsnorm split row R={R}: launches "
+                                 f"(sums, forward, backward) {launches}")
+        err = max(rms_close(y, wy), rms_close(y, py))
+        gerr = max(check_grads_close(f"rmsnorm_bwd split row R={R}", g, wg),
+                   check_grads_close(f"rmsnorm_bwd split row R={R}", g, pg))
+        same_bits(f"rmsnorm split row R={R}", fwd)
+        same_bits(f"rmsnorm_bwd split row R={R}",
+                  lambda: torch.cat([t.float().flatten() for t in bwd()]))
+        ss = torch.stack([rk.rmsnorm_sums(a) for a in xs]).sum(0)
+        st = torch.stack([rk.rmsnorm_sums(a, b, g)
+                          for a, b, g in zip(xs, ws, dys)]).sum(0)
+        parts_ss = torch.stack([ss] * len(parts))
+        parts_st = torch.stack([st] * len(parts))
+        # a rank's own work: its columns' sums, the sum of the gathered
+        # partials and its normalise (or backward) pass
+        rank_ms = device_ms(lambda: (rk.rmsnorm_sums(xs[0]),
+                                     rk.rmsnorm(xs[0], ws[0],
+                                                ss=parts_ss.sum(0),
+                                                d_norm=D)), reps=RANKS_REPS)
+        rank_bwd_ms = device_ms(lambda: (
+            rk.rmsnorm_sums(xs[0], ws[0], dys[0]),
+            rk.rmsnorm_bwd(xs[0], ws[0], dys[0], sums=parts_st.sum(0),
+                           d_norm=D)), reps=RANKS_REPS)
+        out[R] = {"max_abs_err": err, "grad_err": gerr,
+                  "launches": launches, "ms": rank_ms,
+                  "all_ranks_ms": device_ms(fwd, reps=RANKS_REPS),
+                  "bwd_ms": rank_bwd_ms,
+                  "bwd_all_ranks_ms": device_ms(bwd, reps=RANKS_REPS)}
+        del xs, dys, ws, parts_ss, parts_st
+    bound_ms = (2 * rows * D * 2 + D * 4) / HBM_BYTES_PER_S * 1e3
+    bwd_bound_ms = (3 * rows * D * 2 + 2 * D * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"20 rmsnorm split row, zamba2's [{rows}, {D}] bf16: "
+        + "; ".join(f"R={R} max_abs_err {v['max_abs_err']} (one bf16 ulp "
+                    f"of each value, whole kernel and plain), gradients "
+                    f"{v['grad_err']} (2**-5 of max), launches (sums, "
+                    f"forward, backward) {v['launches']}, a rank forward "
+                    f"{v['ms']:.5f} ms / backward {v['bwd_ms']:.5f} ms, all "
+                    f"R on one card {v['all_ranks_ms']:.5f} / "
+                    f"{v['bwd_all_ranks_ms']:.5f} ms" for R, v in out.items())
+        + f"; the whole-tensor kernels {whole_ms:.5f} / {whole_bwd_ms:.5f} "
+        f"ms; bounds {bound_ms:.6f} / {bwd_bound_ms:.6f} ms (bytes at 3.35 "
+        f"TB/s; device time, torch.profiler, mean of {RANKS_REPS}); two "
+        f"calls bitwise equal")
+    return (out, whole_ms, bound_ms, whole_bwd_ms, bwd_bound_ms)
+
+
+def kernel_ranks_path(dev, seed, card):
+    """Phase 20.  Returns (the launches of its checked route runs by
+    kernel, each kernel row's ``routes`` entries)."""
+    import torch
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    routes = {"decode_attention": {}, "ssd_scan": {}, "rmsnorm": {},
+              "rmsnorm_bwd": {}}
+    launches = dict.fromkeys(routes, 0)
+    for label, H, Hkv, Dh, window in RANKS_DECODE:
+        out, whole_ms, bound_ms = ranks_decode(dev, gen, label, H, Hkv, Dh,
+                                               window)
+        for R, v in out.items():
+            launches["decode_attention"] += v["launches"]
+            routes["decode_attention"][f"split-K R={R}, {label}"] = dict(
+                v, whole_ms=whole_ms, bound_ms=bound_ms, bound_by="bytes",
+                card=card)
+        torch.cuda.empty_cache()
+    out, whole_ms, bound_ms = ranks_ssd(dev, gen)
+    for R, v in out.items():
+        launches["ssd_scan"] += v["launches"]
+        routes["ssd_scan"][f"carried state R={R}"] = dict(
+            v, whole_ms=whole_ms, bound_ms=bound_ms, bound_by="bytes",
+            card=card)
+    torch.cuda.empty_cache()
+    out, whole_ms, bound_ms, whole_bwd_ms, bwd_bound_ms = ranks_rmsnorm(
+        dev, gen)
+    for R, v in out.items():
+        sums, fwd, bwd = v["launches"]
+        launches["rmsnorm"] += fwd
+        launches["rmsnorm_bwd"] += bwd
+        routes["rmsnorm"][f"split row R={R}"] = {
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "all_ranks_ms": v["all_ranks_ms"], "whole_ms": whole_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "launches": fwd, "rmsnorm_sums_launches": sums // 2,
+            "card": card}
+        routes["rmsnorm_bwd"][f"split row R={R}"] = {
+            "max_abs_err": v["grad_err"], "ms": v["bwd_ms"],
+            "all_ranks_ms": v["bwd_all_ranks_ms"], "whole_ms": whole_bwd_ms,
+            "bound_ms": bwd_bound_ms, "bound_by": "bytes", "launches": bwd,
+            "rmsnorm_sums_launches": sums // 2, "card": card}
+    torch.cuda.empty_cache()
+    log(f"20: the routes' launches {launches}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s wall")
+    return launches, routes
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ticks", type=int, default=128)
+    ap.add_argument("--ticks", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--durable-child", metavar="DIR",
                     help="run phase 12's crash run in DIR (phase 12 starts "
@@ -7126,68 +7570,97 @@ def main(argv=None):
     log(f"built {sorted(libs)} with {_build.nvcc_path()} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    entries = [check_slate_update(dev, args.seed),
-               *check_slate_lookup(dev, args.seed),
-               check_countmin(dev, args.seed),
-               check_histogram(dev, args.seed),
-               check_flash_attention(dev, args.seed),
-               check_decode_attention(dev, args.seed),
-               check_ssd_scan(dev, args.seed),
-               check_rmsnorm(dev, args.seed),
-               check_flash_attention_bwd(dev, args.seed),
-               check_rmsnorm_bwd(dev, args.seed)]
+    walls = {}                     # each phase's wall, s
+
+    def timed(phase, fn, *a):
+        t = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            walls[phase] = walls.get(phase, 0.0) + time.perf_counter() - t
+
+    t_run = time.perf_counter()
+    entries = timed("3", lambda: [
+        check_slate_update(dev, args.seed), *check_slate_lookup(dev, args.seed),
+        check_countmin(dev, args.seed), check_histogram(dev, args.seed),
+        check_flash_attention(dev, args.seed),
+        check_decode_attention(dev, args.seed),
+        check_ssd_scan(dev, args.seed), check_rmsnorm(dev, args.seed),
+        check_flash_attention_bwd(dev, args.seed),
+        check_rmsnorm_bwd(dev, args.seed)])
     torch.cuda.empty_cache()
-    check_no_host_sync(dev, args.seed)
+    timed("4", check_no_host_sync, dev, args.seed)
     torch.cuda.empty_cache()
     # each path's launches, counted from 0 just before it runs
     by_path = {}
-    by_path["main"], ref, off_s, off_prof = end_to_end(
-        dev, args.ticks, args.seed, card)
+    by_path["main"], ref, off_s, off_prof = timed(
+        "5", end_to_end, dev, args.ticks, args.seed, card)
     torch.cuda.empty_cache()
-    by_path["telemetry"] = telemetry_path(dev, args.ticks, args.seed, card,
-                                          ref, off_s, off_prof)
+    by_path["telemetry"] = timed("6", telemetry_path, dev, args.ticks,
+                                 args.seed, card, ref, off_s, off_prof)
     torch.cuda.empty_cache()
-    for arch in SERVE_ARCHS:
-        by_path[f"serving {arch}"] = serving_path(dev, args.seed, card, arch)
+    for phase, arch in zip(("7", "8", "9", "10", "11"), SERVE_ARCHS):
+        by_path[f"serving {arch}"] = timed(phase, serving_path, dev,
+                                           args.seed, card, arch)
         torch.cuda.empty_cache()
-    by_path["durable"] = durable_path(dev, args.seed, card, off_s)
+    by_path["durable"] = timed("12", durable_path, dev, args.seed, card,
+                               off_s)
     torch.cuda.empty_cache()
-    by_path["app counting"] = app_counting_path(dev, args.seed, card, off_s)
-    by_path["app trends"] = app_trends_path(dev, args.seed, card)
-    by_path["app serving"] = app_serving_path(dev, args.seed, card)
+    by_path["app counting"] = timed("13", app_counting_path, dev, args.seed,
+                                    card, off_s)
+    by_path["app trends"] = timed("13", app_trends_path, dev, args.seed,
+                                  card)
+    by_path["app serving"] = timed("13", app_serving_path, dev, args.seed,
+                                   card)
     torch.cuda.empty_cache()
     for arch in ENGINE:
-        by_path[f"engine {arch}"] = engine_path(dev, args.seed, card, arch)
+        by_path[f"engine {arch}"] = timed("14", engine_path, dev, args.seed,
+                                          card, arch)
         torch.cuda.empty_cache()
-    engine_journal(args.seed, card)
+    timed("14", engine_journal, args.seed, card)
     torch.cuda.empty_cache()
-    check_sharded_no_host_sync(dev, args.seed)
-    by_path["sharded"] = sharded_path(dev, args.ticks, args.seed, card, ref,
-                                      (off_s, off_prof))
+    timed("15", check_sharded_no_host_sync, dev, args.seed)
+    by_path["sharded"] = timed("15", sharded_path, dev, args.ticks,
+                               args.seed, card, ref, (off_s, off_prof))
     torch.cuda.empty_cache()
-    by_path["sharded hot"] = sharded_hot_path(dev, args.seed, card)
+    by_path["sharded hot"] = timed("15", sharded_hot_path, dev, args.seed,
+                                   card)
     torch.cuda.empty_cache()
-    sharded_failover(dev, args.seed, card)
+    timed("15", sharded_failover, dev, args.seed, card)
     torch.cuda.empty_cache()
-    by_path["sharded durable"] = sharded_durable_path(dev, args.seed, card)
+    by_path["sharded durable"] = timed("15", sharded_durable_path, dev,
+                                       args.seed, card)
     torch.cuda.empty_cache()
-    check_elastic_no_host_sync(dev, args.seed)
-    by_path["elastic"] = elastic_path(dev, args.seed, card)
+    timed("16", check_elastic_no_host_sync, dev, args.seed)
+    by_path["elastic"] = timed("16", elastic_path, dev, args.seed, card)
     torch.cuda.empty_cache()
-    by_path["closed loop"] = closed_loop_path(dev, args.seed, card)
+    by_path["closed loop"] = timed("16", closed_loop_path, dev, args.seed,
+                                   card)
     torch.cuda.empty_cache()
-    elastic_tiers(dev, args.seed, card)
+    timed("16", elastic_tiers, dev, args.seed, card)
     torch.cuda.empty_cache()
-    by_path["elastic durable"] = elastic_durable_path(dev, args.seed, card)
+    by_path["elastic durable"] = timed("16", elastic_durable_path, dev,
+                                       args.seed, card)
     torch.cuda.empty_cache()
-    by_path["train"] = train_path(dev, args.seed, card)
+    by_path["train"] = timed("17", train_path, dev, args.seed, card)
     torch.cuda.empty_cache()
-    by_path["mesh"] = mesh_path(dev, args.seed, card)
+    by_path["mesh"] = timed("18", mesh_path, dev, args.seed, card)
     from repro_torch.launch import mesh as tmesh
     try:
-        by_path["ranks"] = ranks_path(dev, args.seed, card)
+        by_path["ranks"] = timed("19", ranks_path, dev, args.seed, card)
     finally:
         tmesh.close_world()
+    torch.cuda.empty_cache()
+    by_path["kernel ranks"], split_routes = timed(
+        "20", kernel_ranks_path, dev, args.seed, card)
+    for e in entries:
+        if split_routes.get(e["name"]):
+            e.setdefault("routes", {}).update(split_routes[e["name"]])
+    total = time.perf_counter() - t_run
+    log(f"phase walls (s): {json.dumps({k: round(v, 1) for k, v in walls.items()})}"
+        f"; phases 3-20 {total:.1f} s, the script {time.perf_counter() - t0:.1f}"
+        f" s with the build; the host's speed marker: phase 5 "
+        f"{off_s * 1e3:.3f} ms/tick; {card}")
     for e in entries:
         e["launches_by_path"] = {path: n[e["name"]] for path, n in
                                  by_path.items() if n.get(e["name"])}

@@ -13,6 +13,15 @@
 // or before the window, are never read, so a short request in a batch does
 // not pay for the longest.
 //
+// A cache whose sequence is split across ranks (the serving rules shard
+// it over "model") gives each rank a slice: `seq_offset` is the global
+// position of the slice's row 0 and `seq_total` the whole cache's length,
+// so the mask is tested in global positions (lengths[b] clamped to
+// seq_total, the window's start derived from that).  On that route the
+// kernel writes o in f32 and, beside it, each row's log-sum-exp in f32
+// (natural log; -inf and o = 0 for a row with no visible key on the
+// slice), which kernels/decode_attention/ops.py merges across ranks.
+//
 // q is bf16 or f32 (the model's compute dtype), the caches bf16 or f32 (the
 // serving caches are bf16); the output has q's dtype.  Tensors are
 // [B, S, heads, D], read through their strides (last dimension contiguous).
@@ -88,6 +97,9 @@ struct Args {
   const void* v;
   const int32_t* lengths;
   void* o;
+  float* lse;         // [B, Sq, H] f32, or null
+  int o_f32;          // o is f32 (the partial route), else q's dtype
+  int seq_offset, seq_total;
   int B, Sq, S, H, Hkv, Dh, Dv;
   long long qs[3], ks[3], vs[3], os[3];  // element strides of b, s, head
   int window, vec, splits, stages;
@@ -197,6 +209,27 @@ __device__ __forceinline__ long long row_off(const Args& a, int row, int h0,
   return t * st[1] + (h0 + hh) * st[2];
 }
 
+// Output element `col` of query row `row` (of the group whose first head is
+// h0) of batch b: in q's dtype, or in f32 on the partial route.
+template <typename TQ>
+__device__ __forceinline__ void store_out(const Args& a, int b, int row,
+                                          int h0, int col, float v) {
+  const long long off = b * a.os[0] + row_off(a, row, h0, a.os) + col;
+  if (a.o_f32)
+    static_cast<float*>(a.o)[off] = v;
+  else
+    store(static_cast<TQ*>(a.o) + off, v);
+}
+
+// Row `row`'s log-sum-exp (natural log) from its max M (log2 units) and
+// denominator l: -inf where no key was visible.
+__device__ __forceinline__ void store_lse(const Args& a, int b, int row,
+                                          int h0, float M, float l) {
+  const int hh = a.Sq == 1 ? row : row / a.Sq, t = row - hh * a.Sq;
+  a.lse[((long long)b * a.Sq + t) * a.H + h0 + hh] =
+      l > 0.f ? (M + log2f(l)) * 0.6931471805599453f : __int_as_float(0xff800000u);
+}
+
 // Rows [r0, r0 + RP) of the group's queries, times mul, into registers:
 // thread tid holds elements tid and tid + 128 of each (0 past Dh or R).
 template <int RP, typename TQ>
@@ -248,7 +281,6 @@ decode_attention_kernel(Args a) {
   const TQ* qp = static_cast<const TQ*>(a.q) + b * a.qs[0];
   const TC* kp = static_cast<const TC*>(a.k) + b * a.ks[0] + g * a.ks[2];
   const TC* vp = static_cast<const TC*>(a.v) + b * a.vs[0] + g * a.vs[2];
-  TQ* op = static_cast<TQ*>(a.o) + b * a.os[0];
   // scores in log2 units: q times scale * log2 e, so each p is one exp2
   const float c2 = a.scale * 1.4426950408889634f;
   // a pass's query rows: thread tid loads elements tid and tid + 128 of
@@ -256,10 +288,16 @@ decode_attention_kernel(Args a) {
   float qv[RP][2];
   load_q<RP>(a, qv, qp, 0, R, g * rep, c2);
 
-  // this split's share of the visible rows [lo, len)
+  // this split's share of the visible rows [lo, len): global positions
+  // (lengths[b] clamped to the whole cache), then this slice's rows
   int len = a.lengths[b];
-  len = len < 0 ? 0 : (len < a.S ? len : a.S);
-  const int lo = a.window && len > a.window ? len - a.window : 0;
+  len = len < 0 ? 0 : (len < a.seq_total ? len : a.seq_total);
+  int lo = a.window && len > a.window ? len - a.window : 0;
+  len -= a.seq_offset;
+  lo -= a.seq_offset;
+  len = len < a.S ? len : a.S;
+  lo = lo > 0 ? lo : 0;
+  len = len > lo ? len : lo;
   const int per = (len - lo + a.splits - 1) / a.splits;
   const int start = lo + split * per;
   const int end = start + per < len ? start + per : len;
@@ -423,6 +461,8 @@ decode_attention_kernel(Args a) {
         Lw += pw[a.Dv + 1] * e;
       }
       wts[tid][kWarps] = Lw;
+      if (a.lse && a.splits == 1 && tid < nr)
+        store_lse(a, b, r0 + tid, g * rep, M, Lw);
     }
     __syncthreads();
     if (a.splits > 1 && r0 == 0)  // the first block has started
@@ -436,8 +476,8 @@ decode_attention_kernel(Args a) {
       if (a.splits > 1)
         gather[r * dv1 + col] = A;
       else if (r < nr)
-        store(op + row_off(a, r0 + r, g * rep, a.os) + col,
-              A / fmaxf(wts[r][kWarps], 1e-30f));
+        store_out<TQ>(a, b, r0 + r, g * rep, col,
+                      A / fmaxf(wts[r][kWarps], 1e-30f));
     }
     if (a.splits > 1 && tid < RP) {
       gather[tid * dv1 + a.Dv] = M;
@@ -461,6 +501,14 @@ decode_attention_kernel(Args a) {
                           : 0.f;
         }
         __syncthreads();
+        if (a.lse && tid < nr) {      // the row's max and denominator
+          float Ms = kNegInf, Ls = 0.f;
+          for (int sp = 0; sp < a.splits; ++sp)
+            Ms = fmaxf(Ms, part[(sp * kRows + tid) * dv1 + a.Dv]);
+          for (int sp = 0; sp < a.splits; ++sp)
+            Ls += part[(sp * kRows + tid) * dv1 + a.Dv + 1] * sw[tid][sp];
+          store_lse(a, b, r0 + tid, g * rep, Ms, Ls);
+        }
         for (int i = tid; i < RP * a.Dv; i += kThreads) {
           const int r = a.dsh >= 0 ? i >> a.dsh : i / a.Dv, col = i - r * a.Dv;
           float A = 0.f, Ls = 0.f;
@@ -473,8 +521,7 @@ decode_attention_kernel(Args a) {
             }
           }
           if (r < nr)
-            store(op + row_off(a, r0 + r, g * rep, a.os) + col,
-                  A / fmaxf(Ls, 1e-30f));
+            store_out<TQ>(a, b, r0 + r, g * rep, col, A / fmaxf(Ls, 1e-30f));
         }
       }
       // the next pass writes the slots again only once they are read
@@ -536,18 +583,23 @@ int launch_nc(Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// q_dtype / c_dtype: 0 = f32, 1 = bf16 (o has q's dtype).  strides: 12
-// element strides, (batch, seq, head) of q, k, v, o in turn.  lengths: [B]
-// int32 on the device.  splits: blocks a (b, kv head), 1-8 (the wrapper's
-// plan).  Sizes are checked by the Python wrapper (1 <= Dh, Dv <= 256,
-// H % Hkv == 0).  Returns cudaGetLastError() after the launch.
+// q_dtype / c_dtype: 0 = f32, 1 = bf16 (o has q's dtype, or f32 with
+// lse).  strides: 12 element strides, (batch, seq, head) of q, k, v, o in
+// turn.  lengths: [B] int32 on the device.  seq_offset / seq_total: the
+// global position of cache row 0 and the whole cache's length (0 and S
+// for a whole cache).  lse: null, or [B, Sq, H] f32 (then o is f32).
+// splits: blocks a (b, kv head), 1-8 (the wrapper's plan).  Sizes are
+// checked by the Python wrapper (1 <= Dh, Dv <= 256, H % Hkv == 0).
+// Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        void* o, int B, int Sq, int S, int H,
                                        int Hkv, int Dh, int Dv,
                                        const long long* strides, int window,
                                        float scale, int q_dtype, int c_dtype,
-                                       int vec, int splits, void* stream) {
+                                       int vec, int splits, int seq_offset,
+                                       int seq_total, float* lse,
+                                       void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (splits < 1 || splits > kMaxSplits) return (int)cudaErrorInvalidValue;
   Args a;
@@ -556,6 +608,10 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   a.v = v;
   a.lengths = static_cast<const int32_t*>(lengths);
   a.o = o;
+  a.lse = lse;
+  a.o_f32 = lse != nullptr;
+  a.seq_offset = seq_offset;
+  a.seq_total = seq_total;
   a.B = B;
   a.Sq = Sq;
   a.S = S;

@@ -46,6 +46,12 @@
 //   c = tid mod 256, so no two threads touch one word), and is written to
 //   part[block, :] at the end.  At most 1,024 blocks.
 
+// A row split across ranks (kernels/rmsnorm/ops.py): the rows' sums of x**2
+// and of w' dy x over the rank's columns come from csrc/rmsnorm.cu's
+// rmsnorm_sums, gathered and summed in rank order; both routes then take
+// them (`sums` [rows, 2], over a whole row of `d_norm` elements) in place
+// of their own reductions, and dw is the rank's columns.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,7 +83,8 @@ __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ w,
                  const T* __restrict__ dy, T* __restrict__ dx,
                  float* __restrict__ part, long long rows, int D, int rpb,
-                 float eps, int offset) {
+                 float eps, int offset, const float* __restrict__ sums,
+                 int d_norm) {
   extern __shared__ float acc[];            // [D]: this block's dw partial
   __shared__ float red[2][2][kWarps];       // by row parity: ss, dot
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -88,28 +95,33 @@ rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ w,
     const T* xr = x + r * D;
     const T* dyr = dy + r * D;
     float ss = 0.f, dot = 0.f;
-    for (int i = tid; i < D; i += kThreads) {
-      const float xf = to_f32(xr[i]);
-      const float g = to_f32(dyr[i]) * (offset ? 1.f + w[i] : w[i]);
-      ss = fmaf(xf, xf, ss);
-      dot = fmaf(g, xf, dot);
+    if (sums) {                     // the row's totals over the ranks
+      ss = sums[2 * r];
+      dot = sums[2 * r + 1];
+    } else {
+      for (int i = tid; i < D; i += kThreads) {
+        const float xf = to_f32(xr[i]);
+        const float g = to_f32(dyr[i]) * (offset ? 1.f + w[i] : w[i]);
+        ss = fmaf(xf, xf, ss);
+        dot = fmaf(g, xf, dot);
+      }
+      ss = warp_sum(ss);
+      dot = warp_sum(dot);
+      const int par = (int)(r & 1);   // two buffers: one barrier a row
+      if (lane == 0) {
+        red[par][0][warp] = ss;
+        red[par][1][warp] = dot;
+      }
+      __syncthreads();
+      ss = 0.f;
+      dot = 0.f;
+      for (int i = 0; i < kWarps; ++i) {
+        ss += red[par][0][i];
+        dot += red[par][1][i];
+      }
     }
-    ss = warp_sum(ss);
-    dot = warp_sum(dot);
-    const int par = (int)(r & 1);   // two buffers: one barrier a row
-    if (lane == 0) {
-      red[par][0][warp] = ss;
-      red[par][1][warp] = dot;
-    }
-    __syncthreads();
-    ss = 0.f;
-    dot = 0.f;
-    for (int i = 0; i < kWarps; ++i) {
-      ss += red[par][0][i];
-      dot += red[par][1][i];
-    }
-    const float rstd = rsqrtf(ss / (float)D + eps);
-    const float c = rstd * rstd * rstd * (dot / (float)D);
+    const float rstd = rsqrtf(ss / (float)d_norm + eps);
+    const float c = rstd * rstd * rstd * (dot / (float)d_norm);
     T* dxr = dx + r * D;
     for (int i = tid; i < D; i += kThreads) {
       const float xf = to_f32(xr[i]);
@@ -160,11 +172,11 @@ int sum_dw(const float* part, float* dw, int n_blocks, int D,
 template <typename T>
 int launch(const void* x, const float* w, const void* dy, void* dx,
            float* part, float* dw, long long rows, int D, int rpb, float eps,
-           int offset, cudaStream_t s) {
+           int offset, const float* sums, int d_norm, cudaStream_t s) {
   const int nb = (int)((rows + rpb - 1) / rpb);
   rmsnorm_bwd_rows<T><<<nb, kThreads, D * sizeof(float), s>>>(
       static_cast<const T*>(x), w, static_cast<const T*>(dy),
-      static_cast<T*>(dx), part, rows, D, rpb, eps, offset);
+      static_cast<T*>(dx), part, rows, D, rpb, eps, offset, sums, d_norm);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return sum_dw(part, dw, nb, D, s);
@@ -222,7 +234,8 @@ __global__ void __launch_bounds__(kRegsWarps * 32, 2)
 rmsnorm_bwd_regs(const T* __restrict__ x, const float* __restrict__ w,
                  const T* __restrict__ dy, T* __restrict__ dx,
                  float* __restrict__ part, long long rows, int D, int rpw,
-                 float eps, int offset) {
+                 float eps, int offset, const float* __restrict__ sums,
+                 int d_norm) {
   constexpr int kVec = 16 / sizeof(T);        // elements a vector
   extern __shared__ __align__(16) float red[];  // [kRegsWarps][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -261,10 +274,15 @@ rmsnorm_bwd_regs(const T* __restrict__ x, const float* __restrict__ w,
         dot = fmaf(to_f32(ge[j]) * wk[j], xf, dot);
       }
     }
-    ss = warp_sum(ss);
-    dot = warp_sum(dot);
-    const float rstd = rsqrtf(ss / (float)D + eps);
-    const float c = rstd * rstd * rstd * (dot / (float)D);
+    if (sums) {            // the row's totals over the ranks
+      ss = sums[2 * r];
+      dot = sums[2 * r + 1];
+    } else {
+      ss = warp_sum(ss);
+      dot = warp_sum(dot);
+    }
+    const float rstd = rsqrtf(ss / (float)d_norm + eps);
+    const float c = rstd * rstd * rstd * (dot / (float)d_norm);
     uint4* dxr = reinterpret_cast<uint4*>(dx + r * D);
 #pragma unroll
     for (int k = 0; k < VPT; ++k) {
@@ -306,17 +324,19 @@ rmsnorm_bwd_regs(const T* __restrict__ x, const float* __restrict__ w,
 template <typename T, int VPT>
 int launch_regs_vpt(const T* x, const float* w, const T* dy, T* dx,
                     float* part, long long rows, int D, int rpw, float eps,
-                    int offset, unsigned nb, cudaStream_t s) {
+                    int offset, unsigned nb, const float* sums, int d_norm,
+                    cudaStream_t s) {
   rmsnorm_bwd_regs<T, VPT>
       <<<nb, kRegsWarps * 32, kRegsWarps * D * sizeof(float), s>>>(
-          x, w, dy, dx, part, rows, D, rpw, eps, offset);
+          x, w, dy, dx, part, rows, D, rpw, eps, offset, sums, d_norm);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_regs(const void* x, const float* w, const void* dy, void* dx,
                 float* part, float* dw, long long rows, int D, int rpw,
-                float eps, int offset, int vpt, cudaStream_t s) {
+                float eps, int offset, int vpt, const float* sums, int d_norm,
+                cudaStream_t s) {
   const long long per_block = (long long)kRegsWarps * rpw;
   const unsigned nb = (unsigned)((rows + per_block - 1) / per_block);
   const T* xt = static_cast<const T*>(x);
@@ -326,15 +346,15 @@ int launch_regs(const void* x, const float* w, const void* dy, void* dx,
   switch (vpt) {
     case 1:
       e = launch_regs_vpt<T, 1>(xt, w, gt, ot, part, rows, D, rpw, eps,
-                                offset, nb, s);
+                                offset, nb, sums, d_norm, s);
       break;
     case 2:
       e = launch_regs_vpt<T, 2>(xt, w, gt, ot, part, rows, D, rpw, eps,
-                                offset, nb, s);
+                                offset, nb, sums, d_norm, s);
       break;
     case 4:
       e = launch_regs_vpt<T, 4>(xt, w, gt, ot, part, rows, D, rpw, eps,
-                                offset, nb, s);
+                                offset, nb, sums, d_norm, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -351,30 +371,34 @@ int launch_regs(const void* x, const float* w, const void* dy, void* dx,
 // vpt in {1, 2, 4} the regs route with rpb rows a warp, 8 warps a block
 // (blocks = ceil(rows / (8 rpb)); x, dy, dx and w 16-byte aligned, D a
 // whole number of 16-byte vectors, at most 32 vpt of them).  The plan is
-// the Python wrapper's.  Returns cudaGetLastError() after the launches
-// (the first failing one's code).
+// the Python wrapper's.  sums: null (each row's own sums) or [rows, 2] f32,
+// the rows' totals of x**2 and w' dy x over a whole row of d_norm elements
+// (d_norm is D when sums is null).  Returns cudaGetLastError() after the
+// launches (the first failing one's code).
 extern "C" int rmsnorm_bwd_launch(const void* x, const float* w,
                                   const void* dy, void* dx, float* part,
                                   float* dw, long long rows, int D, int rpb,
                                   float eps, int offset, int x_dtype,
-                                  int vpt, void* stream) {
+                                  int vpt, const float* sums, int d_norm,
+                                  void* stream) {
   if (rows <= 0 || D <= 0) return 0;
-  if (D > kMaxD || rpb < 1) return (int)cudaErrorInvalidValue;
+  if (D > kMaxD || rpb < 1 || d_norm <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (vpt != 0) {
     const int vec = x_dtype == 1 ? 8 : 4;
     if (D % vec || D / vec > 32 * vpt) return (int)cudaErrorInvalidValue;
     return x_dtype == 1
                ? launch_regs<__nv_bfloat16>(x, w, dy, dx, part, dw, rows, D,
-                                            rpb, eps, offset, vpt, s)
+                                            rpb, eps, offset, vpt, sums,
+                                            d_norm, s)
                : launch_regs<float>(x, w, dy, dx, part, dw, rows, D, rpb,
-                                    eps, offset, vpt, s);
+                                    eps, offset, vpt, sums, d_norm, s);
   }
   return x_dtype == 1
              ? launch<__nv_bfloat16>(x, w, dy, dx, part, dw, rows, D, rpb,
-                                     eps, offset, s)
+                                     eps, offset, sums, d_norm, s)
              : launch<float>(x, w, dy, dx, part, dw, rows, D, rpb, eps,
-                             offset, s);
+                             offset, sums, d_norm, s);
 }
 
 extern "C" const char* rmsnorm_bwd_error_string(int code) {

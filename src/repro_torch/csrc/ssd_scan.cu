@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py
 // (_ssd_kernel / ssd_scan).  For every batch b and head h, from a zero
-// state S [N, P] (f32), over chunks of L rows with cum = the inclusive
-// cumsum of log_a inside the chunk:
+// state S [N, P] (f32) or a given initial one (h0 [B, H, N, P] f32: the
+// route over a sequence split across ranks scans a rank's slice from the
+// state the ranks before it carry, kernels/ssd/ops.py), over chunks of L
+// rows with cum = the inclusive cumsum of log_a inside the chunk:
 //   y[l]  = sum_{m <= l} (q_l . k_m) exp(cum_l - cum_m) v_m
 //           + exp(cum_l) (q_l S)
 //   S    <- exp(cum_last) S + sum_m exp(cum_last - cum_m) k_m^T v_m
@@ -106,6 +108,7 @@ struct Args {
   const float* la;
   void* y;
   float* fin;
+  const float* h0;    // [B, H, N, P] f32, or null: a zero state
   int B, S, H, N, P, L;
   long long qs[3], ks[3], vs[3], las[3], ys[3];  // (batch, seq, head)
 };
@@ -162,7 +165,8 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Args a) {
   const float* lap = a.la + b * a.las[0] + h * a.las[2];
   T* yp = static_cast<T*>(a.y) + b * a.ys[0] + h * a.ys[2];
 
-  for (int i = tid; i < N * P; i += kThreads) St[i] = 0.f;
+  const float* h0p = a.h0 ? a.h0 + ((long long)b * a.H + h) * N * P : nullptr;
+  for (int i = tid; i < N * P; i += kThreads) St[i] = h0p ? h0p[i] : 0.f;
 
   for (int t0 = 0; t0 < a.S; t0 += L) {
     const int Lr = min(L, a.S - t0);   // real rows of this chunk
@@ -209,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(Args a) {
 #pragma unroll
         for (int c = 0; c < R; ++c) acc[r][c] = 0.f;
       __syncthreads();
-      if (t0 > 0) {                    // carried state: exp(cum_l) (q_l S)
+      if (t0 > 0 || h0p) {             // carried state: exp(cum_l) (q_l S)
         for (int n = 0; n < N; ++n) {
           float qv[4], sv[R];
 #pragma unroll
@@ -523,9 +527,21 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_mma_kernel(Args a) {
             kb_col = ((lane >> 3) & 1) * 8;
   const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8, t_col = (lane >> 4) * 8;
 
+  if (a.h0) {   // the initial state: f32 into fin, bf16 into Sb
+    const float* hp = a.h0 + ((long long)b * a.H + h) * N * P;
+    for (int i = tid * 4; i < N * P; i += kThreads * 4) {
+      const int n = i / P, p = i - n * P;
+      const float4 v = *reinterpret_cast<const float4*>(hp + i);
+      *reinterpret_cast<float4*>(fp + i) = v;
+      uint2 packed;
+      packed.x = pack_bf16(v.x, v.y);
+      packed.y = pack_bf16(v.z, v.w);
+      *reinterpret_cast<uint2*>(Sb + n * ldp + p) = packed;
+    }
+  }
   for (int t0 = 0; t0 < a.S; t0 += L) {
     const int Lr = min(L, a.S - t0);   // real rows of this chunk
-    const bool carry = t0 > 0;
+    const bool carry = t0 > 0 || a.h0;
     __syncthreads();                   // the last chunk is done with smem
     stage<N>(q_u, qp, a.qs[1], t0, L, a.S);
     stage<N>(k_u, kp, a.ks[1], t0, L, a.S);
@@ -714,7 +730,7 @@ int launch(const Args& a, cudaStream_t s) {
       ssd_mma_kernel<PT, NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
-  const int bytes = smem_bytes(a.L, a.N, a.P, a.S > a.L);
+  const int bytes = smem_bytes(a.L, a.N, a.P, a.S > a.L || a.h0);
   if (bytes > kMaxSmem || a.L % 16 || a.L > 256 || a.N != 16 * NQ ||
       a.P != 16 * PT)
     return (int)cudaErrorInvalidValue;
@@ -751,7 +767,9 @@ int launch_n(const Args& a, cudaStream_t s) {
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and y alike; log_a and final are f32).
 // strides: 15 element strides, (batch, seq, head) of q, k, v, log_a, y in
-// turn.  route: 0 = simt, 1 = mma (bf16 only).
+// turn.  route: 0 = simt, 1 = mma (bf16 only).  h0: null (a zero
+// state) or the initial state [B, H, N, P] f32, contiguous and 16-byte
+// aligned.
 // L is the chunk (the simt route: min(chunk, S); the mma route: the
 // chunk, or S rounded up to 16 when S is shorter).  Sizes are checked by
 // the Python wrapper (1 <= N, P <= 128, 1 <= L <= 2048, S >= 1; the mma
@@ -760,7 +778,7 @@ extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v,
                                const float* log_a, void* y, float* fin,
                                int B, int S, int H, int N, int P, int L,
                                const long long* strides, int dtype,
-                               int route, void* stream) {
+                               int route, const float* h0, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   Args a;
   a.q = q;
@@ -769,6 +787,7 @@ extern "C" int ssd_scan_launch(const void* q, const void* k, const void* v,
   a.la = log_a;
   a.y = y;
   a.fin = fin;
+  a.h0 = h0;
   a.B = B;
   a.S = S;
   a.H = H;

@@ -14,6 +14,15 @@ counts launches in ``decode_attention.launches``.  The kernel reads
 ``lengths`` on the device: no host sync.  Any shape the TPU kernel's
 ``supported()`` takes is taken (and any ``S`` >= 1, head dims 1-256);
 anything else raises.
+
+With ``partial=True`` it is the local half of the route over a cache
+whose sequence is split across ranks (``kernels/decode_attention/
+ops.py``): the cache is the slice whose row 0 is global position
+``seq_offset`` of a ``seq_total``-row cache, the mask is tested in
+global positions, and it returns ``(o, lse)`` in f32: each row's output
+over the slice and its log-sum-exp (``-inf``, with ``o = 0``, for a row
+with no visible key there).  Those launches are also counted in
+``decode_attention.partial_launches``.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                       ctypes.c_float]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return lib
 
@@ -62,10 +71,13 @@ def _sm_count(index: int) -> int:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, partial: bool = False,
+                     seq_offset: int = 0, seq_total: int = None):
     """q: [B,Sq,H,Dh] f32/bf16; caches: [B,S,Hkv,Dh] / [B,S,Hkv,Dv]
     f32/bf16 (one dtype); lengths: [B] int32, the number of valid cache
-    rows.  Returns [B,Sq,H,Dv] in q's dtype."""
+    rows.  Returns [B,Sq,H,Dv] in q's dtype; with ``partial``, ``(o
+    [B,Sq,H,Dv], lse [B,Sq,H])`` in f32 over the slice at
+    ``seq_offset`` of a ``seq_total``-row cache."""
     dev = q.device
     check_layout("decode_attention", dev, q=q, k_cache=k_cache,
                  v_cache=v_cache)
@@ -85,13 +97,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     require(0 < Dh <= MAX_HEAD_DIM and 0 < Dv <= MAX_HEAD_DIM,
             f"head dims must be in [1, {MAX_HEAD_DIM}], got {Dh}, {Dv}")
     require(S > 0 and window >= 0, "need S >= 1 and window >= 0")
+    total = S if seq_total is None else int(seq_total)
+    require(partial or (seq_offset == 0 and total == S),
+            "a slice of the cache (seq_offset, seq_total) needs partial")
+    require(0 <= seq_offset and seq_offset + S <= total < 2**31,
+            f"the slice [{seq_offset}, {seq_offset + S}) must lie in the "
+            f"{total}-row cache")
     require(lengths.is_cuda and lengths.device == dev
             and lengths.dtype == torch.int32 and lengths.shape == (B,)
             and lengths.is_contiguous(),
             f"lengths must be [{B}] int32, contiguous, on {dev}")
-    o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
+    o = torch.empty((B, Sq, H, Dv), device=dev,
+                    dtype=torch.float32 if partial else q.dtype)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
+           if partial else None)
     if o.numel() == 0:
-        return o
+        return (o, lse) if partial else o
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.decode_attention_launch(
@@ -100,10 +121,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         strides_of(q, k_cache, v_cache, o), int(window), float(Dh ** -0.5),
         DTYPES[q.dtype], DTYPES[k_cache.dtype],
         int(vec_ok(k_cache, v_cache)),
-        plan_splits(B, Hkv, S, _sm_count(dev.index)), stream)
+        plan_splits(B, Hkv, S, _sm_count(dev.index)), int(seq_offset),
+        total, lse.data_ptr() if partial else None, stream)
     decode_attention.launches += 1
+    decode_attention.partial_launches += int(partial)
     _build.check(lib, _NAME, code)
-    return o
+    return (o, lse) if partial else o
 
 
 decode_attention.launches = 0
+decode_attention.partial_launches = 0

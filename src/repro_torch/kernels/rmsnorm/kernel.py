@@ -26,6 +26,15 @@ in registers, for rows of at most ``WARP_VECTORS`` 16-byte vectors a
 lane; ``"loop"``, a 256-thread block walking its rows, for the rest.
 Calls are counted in ``rmsnorm_bwd.launches`` and, by route, in
 ``rmsnorm_bwd.launches_by_route``.
+
+A row split across ranks (``kernels/rmsnorm/ops.py``): :func:`rmsnorm_sums`
+gives each row's f32 partial sum of squares over the rank's columns (and,
+with ``dy``, the partial ``sum (w' dy) x`` the backward needs), one launch
+counted in ``rmsnorm_sums.launches``; the ranks' partials summed, both
+:func:`rmsnorm` (``ss``) and :func:`rmsnorm_bwd` (``sums``) take the rows'
+totals over a whole row of ``d_norm`` elements in place of their own
+reductions (those launches also counted in ``partial_launches``), on the
+same routes and plans.
 """
 from __future__ import annotations
 
@@ -114,7 +123,12 @@ def _lib() -> ctypes.CDLL:
     fn = lib.rmsnorm_launch
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_float]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.rmsnorm_sums_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -127,7 +141,8 @@ def _bwd_lib() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 6
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -179,10 +194,29 @@ def bwd_plan(rows: int, D: int, dtype: torch.dtype,
     return BwdPlan(0, rpb, -(-rows // rpb), 1)
 
 
+def _check_sums(name, t, shape, dev, d_norm, D):
+    if t is None:
+        if d_norm not in (None, D):
+            raise ValueError(f"{name} kernel: d_norm needs the rows' sums")
+        return D
+    if not (t.device == dev and t.dtype == torch.float32
+            and tuple(t.shape) == tuple(shape) and t.is_contiguous()):
+        raise ValueError(f"{name} kernel: the rows' sums must be "
+                         f"{list(shape)} float32, contiguous, on {dev}; "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if d_norm is None or d_norm < D:
+        raise ValueError(f"{name} kernel: d_norm, the whole row's length, "
+                         f"must be at least D={D}, got {d_norm}")
+    return int(d_norm)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
-            scale_offset: bool = False) -> torch.Tensor:
+            scale_offset: bool = False, ss: torch.Tensor = None,
+            d_norm: int = None) -> torch.Tensor:
     """x: [..., D] f32/bf16, contiguous; w: [D] f32, on x's device.
-    Returns x's shape and dtype."""
+    Returns x's shape and dtype.  With ``ss`` ([...] f32, each row's sum
+    of squares over a whole row of ``d_norm`` elements, of which x holds
+    D) it normalises by that in place of its own sum."""
     dev = x.device
 
     def require(cond, msg):
@@ -201,6 +235,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
             "x and w must be contiguous")
     D = x.shape[-1]
     rows = x.numel() // D
+    d_norm = _check_sums("rmsnorm", ss, x.shape[:-1], dev, d_norm, D)
     out = torch.empty_like(x)
     if rows == 0:
         return out
@@ -212,22 +247,78 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     code = lib.rmsnorm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                               rows, D, float(eps), int(scale_offset),
                               DTYPES[x.dtype], p.threads_per_row,
-                              p.rows_per_block, p.per_thread, stream)
+                              p.rows_per_block, p.per_thread,
+                              None if ss is None else ss.data_ptr(), d_norm,
+                              stream)
     rmsnorm.launches += 1
     rmsnorm.launches_by_route[p.route] += 1
+    rmsnorm.partial_launches += int(ss is not None)
     _build.check(lib, _NAME, code)
     return out
 
 
 rmsnorm.launches = 0
 rmsnorm.launches_by_route = {r: 0 for r in ROUTES}
+rmsnorm.partial_launches = 0
+
+
+def rmsnorm_sums(x: torch.Tensor, w: torch.Tensor = None,
+                 dy: torch.Tensor = None, *,
+                 scale_offset: bool = False) -> torch.Tensor:
+    """Each row's f32 partial sums over x's columns: ``x [..., D]``
+    (f32/bf16, contiguous) gives ``[...]``, the sum of squares; with
+    ``dy`` (as x) and ``w [D]`` f32, ``[..., 2]``: the sum of squares and
+    ``sum (dy w') x``, w' = w or 1 + w."""
+    dev = x.device
+
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"rmsnorm_sums kernel: {msg}")
+
+    require(x.is_cuda and x.dtype in DTYPES and x.ndim >= 1
+            and x.shape[-1] > 0 and x.is_contiguous(),
+            f"x must be [..., D] float32 or bfloat16, contiguous, on a CUDA "
+            f"device, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if dy is not None:
+        require(dy.device == dev and dy.dtype == x.dtype
+                and dy.shape == x.shape and dy.is_contiguous(),
+                f"dy must be x's shape and dtype, contiguous, on {dev}")
+        require(w is not None and w.device == dev
+                and w.dtype == torch.float32 and w.shape == x.shape[-1:]
+                and w.is_contiguous(),
+                f"w must be [{x.shape[-1]}] float32 on {dev} with dy")
+    D = x.shape[-1]
+    rows = x.numel() // D
+    out = torch.empty(x.shape[:-1] + ((2,) if dy is not None else ()),
+                      dtype=torch.float32, device=dev)
+    if rows == 0:
+        return out
+    vec = 16 // x.element_size()
+    aligned = (D % vec == 0 and x.data_ptr() % 16 == 0
+               and (dy is None or dy.data_ptr() % 16 == 0))
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.rmsnorm_sums_launch(
+        x.data_ptr(), None if w is None else w.data_ptr(),
+        None if dy is None else dy.data_ptr(), out.data_ptr(), rows, D,
+        int(scale_offset), DTYPES[x.dtype], int(aligned), stream)
+    rmsnorm_sums.launches += 1
+    _build.check(lib, _NAME, code)
+    return out
+
+
+rmsnorm_sums.launches = 0
 
 
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
-                eps: float = 1e-6, scale_offset: bool = False):
+                eps: float = 1e-6, scale_offset: bool = False,
+                sums: torch.Tensor = None, d_norm: int = None):
     """The gradients of :func:`rmsnorm` with respect to x and w: x and dy
     [..., D] (one dtype, f32 or bf16, contiguous), w [D] f32.  Returns
-    ``(dx, dw)``: dx in x's shape and dtype, dw [D] f32."""
+    ``(dx, dw)``: dx in x's shape and dtype, dw [D] f32.  With ``sums``
+    ([..., 2] f32: each row's sum of squares and ``sum (dy w') x`` over a
+    whole row of ``d_norm`` elements, of which x holds D) it takes those
+    in place of its own row sums."""
     dev = x.device
 
     def require(cond, msg):
@@ -249,6 +340,8 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
             "x, w and dy must be contiguous")
     D = x.shape[-1]
     rows = x.numel() // D
+    d_norm = _check_sums("rmsnorm_bwd", sums, x.shape[:-1] + (2,), dev,
+                         d_norm, D)
     dx = torch.empty_like(x)
     dw = torch.zeros_like(w)
     if rows == 0:
@@ -262,12 +355,16 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
                                   dx.data_ptr(), part.data_ptr(),
                                   dw.data_ptr(), rows, D, p.rows_each,
                                   float(eps), int(scale_offset),
-                                  DTYPES[x.dtype], p.per_thread, stream)
+                                  DTYPES[x.dtype], p.per_thread,
+                                  None if sums is None else sums.data_ptr(),
+                                  d_norm, stream)
     rmsnorm_bwd.launches += 1
     rmsnorm_bwd.launches_by_route[p.route] += 1
+    rmsnorm_bwd.partial_launches += int(sums is not None)
     _build.check(lib, _BWD, code)
     return dx, dw
 
 
 rmsnorm_bwd.launches = 0
+rmsnorm_bwd.partial_launches = 0
 rmsnorm_bwd.launches_by_route = {r: 0 for r in ROUTES}

@@ -3,9 +3,9 @@
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan/kernel.py::
 ssd_scan``: the Mamba-2 / mLSTM linear recurrence ``S_t = exp(log_a_t)
 S_{t-1} + k_t^T v_t``, ``y_t = q_t S_t`` over ``q, k [B,S,H,N]``,
-``v [B,S,H,P]``, ``log_a [B,S,H]`` from a zero state, computed chunk by
-chunk; returns ``y [B,S,H,P]`` in v's dtype and the final f32 state
-``[B,H,N,P]``.
+``v [B,S,H,P]``, ``log_a [B,S,H]`` from a zero state (or a given f32
+``initial_state [B,H,N,P]``), computed chunk by chunk; returns ``y
+[B,S,H,P]`` in v's dtype and the final f32 state ``[B,H,N,P]``.
 
 What bounds it on the H100, and the design: see the source.  The
 wrapper checks device, dtype, shape and strides (the last dimension
@@ -14,8 +14,12 @@ allocates the outputs, picks the route (:func:`route_of`: ``"mma"``, the
 tensor cores, for bf16 with N and P of 16, 32, 64 or 128 and a chunk
 whose tiles fit shared memory; ``"simt"``, the f32 CUDA cores, for the rest),
 launches on the current stream and counts launches in ``ssd_scan.launches`` and, by route, in
-``ssd_scan.launches_by_route``.  Like the TPU kernel it starts from a
-zero state only (``ssd_step`` carries the state in decode).
+``ssd_scan.launches_by_route``.  The TPU kernel starts from a zero
+state only; this one also takes an initial state, which the route over
+a sequence split across ranks (``kernels/ssd/ops.py``) passes to each
+rank's second scan (those launches are also counted in
+``ssd_scan.partial_launches``).  ``ssd_step`` carries the state in
+decode.
 """
 from __future__ import annotations
 
@@ -91,16 +95,17 @@ def _lib() -> ctypes.CDLL:
     fn = lib.ssd_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return lib
 
 
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             log_a: torch.Tensor, *, chunk: int = 256):
+             log_a: torch.Tensor, *, chunk: int = 256,
+             initial_state: torch.Tensor = None):
     """q, k: [B,S,H,N]; v: [B,S,H,P] (one dtype, f32 or bf16); log_a:
-    [B,S,H] f32.  Returns (y [B,S,H,P] in v's dtype, final [B,H,N,P]
-    f32)."""
+    [B,S,H] f32; initial_state: None (zero) or [B,H,N,P] f32.  Returns (y
+    [B,S,H,P] in v's dtype, final [B,H,N,P] f32)."""
     dev = q.device
 
     def require(cond, msg):
@@ -129,6 +134,14 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"N and P must be in [1, {MAX_NP}], got {N}, {P}")
     require(0 < chunk <= MAX_CHUNK, f"chunk must be in [1, {MAX_CHUNK}]")
     require(S > 0, "need S >= 1")
+    h0 = initial_state
+    if h0 is not None:
+        require(h0.device == dev and h0.dtype == torch.float32
+                and h0.shape == (B, H, N, P),
+                f"initial_state must be [{B}, {H}, {N}, {P}] float32 on "
+                f"{dev}, got {tuple(h0.shape)} {h0.dtype} on {h0.device}")
+        if not h0.is_contiguous() or h0.data_ptr() % 16:
+            h0 = h0.contiguous().clone()
     y = torch.empty((B, S, H, P), dtype=v.dtype, device=dev)
     fin = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
     if y.numel() == 0:
@@ -142,12 +155,14 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
         y.data_ptr(), fin.data_ptr(), B, S, H, N, P, L,
         (ctypes.c_longlong * len(flat))(*flat), DTYPES[q.dtype],
-        ROUTES[path], stream)
+        ROUTES[path], None if h0 is None else h0.data_ptr(), stream)
     ssd_scan.launches += 1
+    ssd_scan.partial_launches += int(h0 is not None)
     ssd_scan.launches_by_route[path] += 1
     _build.check(lib, _NAME, code)
     return y, fin
 
 
 ssd_scan.launches = 0
+ssd_scan.partial_launches = 0
 ssd_scan.launches_by_route = {r: 0 for r in ROUTES}

@@ -123,6 +123,13 @@ def apply(p, x, state, ctx: Ctx, *, cfg: ModelConfig):
         state["ssd"].copy_(ssd_state)
         new_state = state
     else:
+        # the scan's layout on a mesh: its heads over "model" where they
+        # divide it (the four inputs alike, so each rank scans its heads),
+        # else the residual stream's sequence split (the prefill and train
+        # rules' act_seq): the carried-state route across ranks
+        heads = ("act_batch", "act_seq", "heads")
+        q, k, v = (ctx.constrain(t, heads + (None,)) for t in (q, k, v))
+        log_a = ctx.constrain(log_a, heads)
         y, final = ssd_ops.ssd(q, k, v, log_a, chunk=s.chunk)
         new_state = ({"conv": new_conv, "ssd": final}
                      if ctx.phase == "prefill" else None)

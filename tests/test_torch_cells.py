@@ -8,7 +8,8 @@ four cells build with the arguments' local shapes, a small decode cell's
 FLOPs equal a hand count, the eager form of the walker's scan test
 counts its products and gathers, a sharded restore puts each rank's
 shard in place bit for bit, and a kernel route on DTensors sees local
-shards or raises.  The fixture destroys the world at teardown.
+shards, or, where a reduced dim is split, the rank's slice and one
+all-gather of partials.  The fixture destroys the world at teardown.
 """
 import numpy as np
 import pytest
@@ -264,23 +265,88 @@ def test_kernel_routes_see_local_shards(mesh, monkeypatch):
     assert seen[-1][1][-1] == (2,)
 
 
-def test_kernel_routes_refuse_cross_rank_reductions(mesh):
-    from torch.distributed.tensor import Replicate, Shard
+def test_kernel_routes_refuse_cross_rank_reductions(mesh, monkeypatch):
+    """Where a dim a kernel reduces over is split across ranks, the route
+    no longer refuses: each of the three runs its kernel on the rank's
+    slice at its offset (this fake world's rank 0: offset 0), then one
+    all-gather of the partials over the splitting mesh dim, and wraps the
+    merge back.  The refusal left is a gradient through the ``ssd_scan``
+    kernel, which has no backward yet (ROADMAP queue 1 item 22)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.kernels import _local
+    from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    seen = []
+
+    def rec(name, out_of):
+        def f(*args, **kw):
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            assert not any(isinstance(a, DTensor) for a in ts), name
+            seen.append((name, [tuple(a.shape) for a in ts],
+                         {k: tuple(v.shape) if isinstance(v, torch.Tensor)
+                          else v for k, v in kw.items()}))
+            return out_of(*ts, **kw)
+        return f
+    f32 = torch.float32
+    monkeypatch.setattr(rk, "rmsnorm_sums", rec(
+        "rmsnorm_sums", lambda x, **kw: torch.empty(
+            x.shape[:-1], dtype=f32, device=x.device)))
+    monkeypatch.setattr(rk, "rmsnorm", rec(
+        "rmsnorm", lambda x, w, **kw: torch.empty_like(x)))
+    monkeypatch.setattr(dk, "decode_attention", rec(
+        "decode_attention", lambda q, k, v, n, **kw: (
+            torch.empty(q.shape[:3] + v.shape[3:], dtype=f32,
+                        device=q.device),
+            torch.empty(q.shape[:3], dtype=f32, device=q.device))))
+    monkeypatch.setattr(sk, "ssd_scan", rec(
+        "ssd_scan", lambda q, k, v, la, **kw: (
+            torch.empty_like(v), torch.empty(
+                q.shape[:1] + q.shape[2:] + v.shape[3:], dtype=f32,
+                device=q.device))))
 
     def dt(shape, pl):
         return shd.distribute(torch.empty(shape, device="meta"), mesh, pl)
+
+    def gathers(fn):
+        g0 = _local.GATHERS["all_gather"]
+        out = fn()
+        return out, _local.GATHERS["all_gather"] - g0
+    # rmsnorm over a row split on "model" (2 ranks): partial sums of the
+    # rank's 32 columns, one gather, then the normalise pass over D = 64
     x = dt((8, 16, 64), (Shard(0), Shard(2)))
-    with pytest.raises(NotImplementedError, match="15d"):
-        rops.rmsnorm(x, dt((64,), (Replicate(), Replicate())), impl="cuda")
+    y, n = gathers(lambda: rops.rmsnorm(
+        x, dt((64,), (Replicate(), Replicate())), impl="cuda"))
+    assert n == 1 and tuple(y.placements) == (Shard(0), Shard(2))
+    assert seen[-2] == ("rmsnorm_sums", [(2, 16, 32)],
+                        {"scale_offset": False})
+    assert seen[-1][:2] == ("rmsnorm", [(2, 16, 32), (32,)])
+    assert seen[-1][2]["ss"] == (2, 16) and seen[-1][2]["d_norm"] == 64
+    # decode attention over a cache whose sequence is split on "model":
+    # the partial route on the rank's 16 rows at offset 0 of 32
     cache = dt((8, 32, 2, 16), (Shard(0), Shard(1)))
     q = dt((8, 1, 2, 16), (Shard(0), Replicate()))
-    with pytest.raises(NotImplementedError, match="15d"):
-        dops.decode_attend(q, cache, cache, dt((8,), (Shard(0), Replicate())),
-                           impl="cuda")
+    o, n = gathers(lambda: dops.decode_attend(
+        q, cache, cache, dt((8,), (Shard(0), Replicate())), impl="cuda"))
+    assert n == 1 and tuple(o.placements) == (Shard(0), Replicate())
+    name, shapes, kw = seen[-1]
+    assert name == "decode_attention" and shapes == [
+        (2, 1, 2, 16), (2, 16, 2, 16), (2, 16, 2, 16), (2,)]
+    assert kw["partial"] and kw["seq_offset"] == 0 and kw["seq_total"] == 32
+    # the SSD scan over a sequence split on "model": the rank's 32 rows
+    # from zero, one gather of (final, decay); rank 0 scans once
     qs = dt((8, 64, 4, 16), (Shard(0), Shard(1)))
-    with pytest.raises(NotImplementedError, match="15d"):
-        sops.ssd(qs, qs, qs, dt((8, 64, 4), (Shard(0), Shard(1))),
-                 chunk=16, impl="cuda")
+    la = dt((8, 64, 4), (Shard(0), Shard(1)))
+    (y, fin), n = gathers(lambda: sops.ssd(qs, qs, qs, la, chunk=16,
+                                           impl="cuda"))
+    assert n == 1 and tuple(y.placements) == (Shard(0), Shard(1))
+    assert tuple(fin.placements) == (Shard(0), Replicate())
+    assert seen[-1][:2] == ("ssd_scan", [(2, 32, 4, 16)] * 3 + [(2, 32, 4)])
+    assert seen[-1][2]["initial_state"] is None
+    # a gradient through the kernel still raises, naming item 22
+    qg = dt((8, 64, 4, 16), (Shard(0), Shard(1))).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 22"):
+        sops.ssd(qg, qg, qg, la, chunk=16, impl="cuda")

@@ -1,8 +1,8 @@
 """The port stands alone: nothing in ``src/repro_torch/`` or
 ``chip_smoke.py`` imports JAX or the JAX package (``repro``; any
 ``repro.*`` import pulls in the whole JAX stack), nor do the port's
-examples (``examples/torch_*.py``) or the rank worker the gloo tests
-spawn (``tests/_ranks_worker.py``).  Nor do the card-only
+examples (``examples/torch_*.py``) or the rank workers the gloo tests
+spawn (``tests/_ranks_worker.py``, ``tests/_kernel_ranks_worker.py``).  Nor do the card-only
 test files (``tests/test_torch_*_kernel.py``): the machine with the card
 has no JAX, so a file that imports it cannot be collected there.  That
 machine has no ``msgpack`` and no ``zstandard`` either: no port file
@@ -25,6 +25,7 @@ def _port_files():
     files.append(ROOT / "chip_smoke.py")
     files += sorted((ROOT / "examples").glob("torch_*.py"))
     files.append(ROOT / "tests" / "_ranks_worker.py")
+    files.append(ROOT / "tests" / "_kernel_ranks_worker.py")
     return files + sorted((ROOT / "tests").glob("test_torch_*_kernel.py"))
 
 
@@ -129,4 +130,18 @@ def test_multi_shard_slice_files_are_checked(rel):
     """The multi-shard slices' modules (the engine, key splitting, the
     ring, the closed-loop controller) and their card-only tests are
     among the files the check above reads."""
+    assert ROOT / rel in _port_files()
+
+
+@pytest.mark.parametrize("rel", [
+    "src/repro_torch/kernels/_local.py",
+    "src/repro_torch/kernels/decode_attention/ops.py",
+    "src/repro_torch/kernels/ssd/ops.py",
+    "src/repro_torch/kernels/rmsnorm/ops.py",
+    "tests/_kernel_ranks_worker.py",
+    "tests/test_torch_kernel_ranks_kernel.py"])
+def test_kernel_ranks_slice_files_are_checked(rel):
+    """The kernel routes across ranks (the shared helpers, the three
+    dispatchers), the worker their gloo test spawns and their card-only
+    tests are among the files the check above reads."""
     assert ROOT / rel in _port_files()

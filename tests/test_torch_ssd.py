@@ -125,9 +125,11 @@ def test_ssd_step_replay_matches_scan_tail():
 
 
 def test_ssd_initial_state_matches_jax():
-    """The plain version carries an ``initial_state`` (the kernel starts
-    from zero only, as in the JAX package); the dispatcher takes the
-    plain version for it, and ``impl="cuda"`` refuses it."""
+    """The plain version carries an ``initial_state``; "auto" takes the
+    plain version for it (the JAX package's rule: its kernel starts from
+    zero only), and ``impl="cuda"`` hands it to the kernel (which takes
+    one: the route over a sequence split across ranks scans from the
+    carried state), whose wrapper raises for CPU tensors."""
     B, S, H, N, P = 2, 40, 2, 8, 16
     q, k, v, la = _inputs(B, S, H, N, P, seed=9)
     s0 = np.random.default_rng(10).standard_normal((B, H, N, P)).astype(
@@ -144,5 +146,5 @@ def test_ssd_initial_state_matches_jax():
     yw, fw = t_ref.ssd(*t, chunk=16)
     assert torch.allclose(torch.cat([y1, y2], 1), yw, atol=1e-4)
     assert torch.allclose(f2, fw, atol=1e-4)
-    with pytest.raises(ValueError, match="zero state"):
+    with pytest.raises(ValueError, match="a CUDA device"):
         t_ops.ssd(*t, chunk=16, initial_state=f1, impl="cuda")
