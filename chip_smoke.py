@@ -394,7 +394,17 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    shards, 2**19 slots an updater a shard, ``[8, 8,192]`` sources of
    phase 5's feed) for 16 ticks, its state bitwise 15a's after 15a's
    first 16 ticks (15a keeps a copy on the card) and its launches
-   exactly 15a's over them; then, with the queues' backlog in place,
+   exactly 15a's over them besides the served reads' lookups.  The run
+   is served over HTTP (``StateHandle.serve`` on rank 0): a reader
+   thread a path (``/slate/U1/<k>`` of 5 keys, ``/slates/U1`` of the
+   4,096-key read set, ``/status``, ``/metrics``) while it goes, each
+   answer from the drain of a chunk boundary with its source tick, the
+   keys' sums never falling; then a batch queued after the run that
+   ``close()``'s last drain answers; every answer at tick 16 byte for
+   byte what 15a's engine serves from its kept state; a drain's
+   broadcasts (1 empty, 2 otherwise) and one ``all_gather`` a read
+   asserted; it prints an empty drain's ms and a read's p50 / p99
+   from enqueue to answer.  Then, with the queues' backlog in place,
    ``scale`` 8 -> 4 -> 8 on the device tier (``exchange_rows`` and
    ``exchange_queue`` over the group, events moved), a drain and 15a's
    reads, each bitwise what 15a's engine gives from its kept state;
@@ -6920,12 +6930,157 @@ def same_reads(a, b, what):
             raise AssertionError(f"{what} differs")
 
 
+def served_paths(read_keys, singles):
+    """Phase 19's HTTP reads: ``/slate/U1/<k>`` of each single key,
+    ``/slates/U1`` of the read set, ``/status`` and ``/metrics``."""
+    return [f"/slate/U1/{k}" for k in singles] + [
+        "/slates/U1?keys=" + ",".join(str(int(k)) for k in read_keys),
+        "/status", "/metrics"]
+
+
+def http_get(port, path, timeout=300):
+    """``(status, X-Source-Tick or None, body bytes)`` of ``GET path`` on
+    127.0.0.1:``port``, error statuses included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.headers.get("X-Source-Tick"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("X-Source-Tick"), e.read()
+
+
+def timed_get(port, path, waits):
+    """``http_get``, its round trip in s appended to ``waits``."""
+    t0 = time.perf_counter()
+    got = http_get(port, path)
+    waits.append(time.perf_counter() - t0)
+    return got
+
+
+def wait_queued(h, n, what, limit=120.0):
+    """Wait until ``n`` requests are on ``h``'s read queue; raise after
+    ``limit`` s (a reader that never reached the server)."""
+    t0 = time.perf_counter()
+    while len(h._queue) < n:
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError(f"19: {len(h._queue)} of {n} {what} "
+                                 f"queued after {limit} s")
+        time.sleep(0.001)
+
+
+def counted_drains(h):
+    """Wrap ``h.drain``: a record a call of its reads, wall ms,
+    collectives and kernel launches."""
+    from repro_torch.core import distributed as dist
+    uk, lk, _, _ = sharded_launch_counts()
+    drains, real = [], h.drain
+
+    def drain(tick=None):
+        c0 = dict(dist.COLLECTIVES)
+        l0 = dict(lk.slate_lookup.launches_by_route)
+        u0 = uk.slate_update.launches
+        t0 = time.perf_counter()
+        n = real(tick)
+        drains.append({
+            "reads": n, "ms": (time.perf_counter() - t0) * 1e3,
+            **{k: dist.COLLECTIVES[k] - c0[k] for k in c0},
+            "lookups": {r: lk.slate_lookup.launches_by_route[r] - l0[r]
+                        for r in l0},
+            "slate_update": uk.slate_update.launches - u0})
+        return n
+
+    h.drain = drain
+    return drains
+
+
+def lane_sums(body):
+    """{key: the sum of its U1 row's lanes} of a ``/slate`` (key None) or
+    ``/slates`` body; U1 sums lanes >= 0, so a key's sum never falls."""
+    doc = json.loads(body)
+    if "slates" in doc:
+        return {k: sum(v["v"]) for k, v in doc["slates"].items()
+                if v is not None}
+    return {None: sum(doc["v"])} if "v" in doc else {}
+
+
+def check_served(live, final, want, paths, ticks, chunk):
+    """Phase 19's served answers: every path answered at the first
+    chunk boundary and at source ticks that never go back; each key's
+    lane sums and the processed totals never fall; the batch queued
+    after the run (``final``) answered at the last tick, and every
+    answer at that tick, equal to ``want`` (15a's engine at that tick,
+    read through a server of its own) byte for byte."""
+    by_path = {}
+    for path, status, tick, body in live:
+        if status != 200 and not (status == 404 and path.startswith(
+                "/slate/")):
+            raise AssertionError(f"19 served {path}: {status} {body[:200]}")
+        by_path.setdefault(path, []).append((int(tick), status, body))
+    for path in paths:
+        got = by_path.get(path, [])
+        if not got or got[0][0] != chunk:
+            raise AssertionError(f"19 served {path}: first answers at "
+                                 f"{[t for t, _, _ in got[:3]]}, not {chunk}")
+        seen = [t for t, _, _ in got]
+        if seen != sorted(seen) or not set(seen) <= set(range(
+                chunk, ticks + 1, chunk)):
+            raise AssertionError(f"19 served {path} at ticks {seen}")
+        if path.startswith("/slate"):
+            last = {}
+            for t, _, body in got:
+                for k, v in lane_sums(body).items():
+                    if v < last.get(k, 0):
+                        raise AssertionError(f"19 served {path}: key {k}'s "
+                                             f"sum fell to {v} at {t}")
+                    last[k] = v
+        if path == "/status":
+            done = [sum(json.loads(b)["processed"].values())
+                    for _, _, b in got]
+            if done != sorted(done):
+                raise AssertionError(f"19 /status processed {done}")
+        for t, status, body in got:
+            if t == ticks and (status, body) != (want[path][0],
+                                                  want[path][2]):
+                raise AssertionError(f"19 served {path} at {t} differs "
+                                     f"from 15a's read")
+    for path in paths:
+        status, tick, body = final[path]
+        if tick is None or int(tick) != ticks or (status, body) != (
+                want[path][0], want[path][2]):
+            raise AssertionError(f"19 the final {path} ({status}, tick "
+                                 f"{tick}) differs from 15a's read")
+
+
+def check_drains(drains):
+    """A drain broadcasts once when empty, twice otherwise (the counts,
+    the packed requests), gathers once a read and writes nothing."""
+    for d in drains:
+        want = (1 if d["reads"] == 0 else 2, d["reads"], 0, 0)
+        got = (d["broadcast"], d["all_gather"], d["all_to_all_single"],
+               d["slate_update"])
+        if got != want:
+            raise AssertionError(f"19 a drain of {d['reads']} reads made "
+                                 f"(broadcast, all_gather, "
+                                 f"all_to_all_single, slate_update) {got}, "
+                                 f"expected {want}")
+
+
+def percentile(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q)) if len(xs) else \
+        float("nan")
+
+
 def ranks_path(dev, seed, card):
     """Phase 19: 15a's deployment (8 shards, 2**19 slots an updater a
     shard, sources [8, 8,192] of phase 5's Zipf feed) through the rank
     path on the NCCL world of one phase 18 started, held against 15a's
     run with no group: the state after 15a's first ``RANK_TICKS`` ticks
-    bitwise 15a's, its kernels' launches exactly 15a's over them; then,
+    bitwise 15a's, its kernels' launches exactly 15a's over them (the
+    served reads' lookups apart); the run served over HTTP from rank 0
+    through the read queue (``check_served``, ``check_drains``); then,
     with the queues' backlog in place, ``scale`` 8 -> 4 -> 8 on the
     device tier (``exchange_rows`` / ``exchange_queue`` over the group,
     events moved), a drain and 15a's reads, each bitwise what 15a's
@@ -6934,9 +7089,12 @@ def ranks_path(dev, seed, card):
     reference; a chunk of the rank path under the sync debug mode
     "error".  Prints ms/tick and busy ms beside 15a's and the
     collective's device ms.  Returns the launches of the rank path."""
+    import threading
+
     import torch
     import torch.distributed as tdist
     from repro_torch.core import distributed as dist
+    from repro_torch.core.engine import StateHandle
     from repro_torch.core.event import tree_map
 
     t_phase = time.perf_counter()
@@ -6959,19 +7117,66 @@ def ranks_path(dev, seed, card):
     src = sharded_source(source_fn)
     read_keys = read_set(seed)
     singles = [int(k) for k in read_keys[[0, 1, 7, Q // 2, -1]]]
-    state = eng.init_state()
+    # rank 0 serves the run over HTTP: a reader a path while it goes,
+    # then a batch queued after it that close()'s last drain answers
+    paths = served_paths(read_keys, singles)
+    h = StateHandle(eng, eng.init_state(), timeout=300)
+    drains = counted_drains(h)
+    srv = h.serve()
+    live, final, stop = [], {}, threading.Event()
+    waits, final_waits = [], []
+
+    def reader(path):
+        while not stop.is_set():
+            live.append((path,) + timed_get(srv.port, path, waits))
+
+    def paced(t, mx):
+        # every reader's first request waits for the first boundary
+        if t == 0:
+            wait_queued(h, len(paths), "readers' first requests")
+        return src(t, mx)
+
+    readers = [threading.Thread(target=reader, args=(p,)) for p in paths]
     torch.cuda.synchronize()
     reset_launches()
     c0 = dict(dist.COLLECTIVES)
     calls = lambda: {k: dist.COLLECTIVES[k] - c0[k] for k in c0}
     with torch_probe_calls() as torch_calls:
+        for r in readers:
+            r.start()
         t0 = time.perf_counter()
-        state, _ = eng.run(state, src, ticks)
+        state, _ = eng.run(h.state, paced, ticks, handle=h)
         torch.cuda.synchronize()
         tick_s = (time.perf_counter() - t0) / ticks
+        in_run = len(drains)
+        served_lookups = {r: sum(d["lookups"][r] for d in drains)
+                          for r in lk.ROUTES}
         at_run = {"slate_update": uk.slate_update.launches,
-                  **lk.slate_lookup.launches_by_route}
+                  **{r: n - served_lookups[r] for r, n in
+                     lk.slate_lookup.launches_by_route.items()}}
         c_run = calls()
+        marks.append(("rank run, served", time.perf_counter()))
+        # the readers' last requests, answered at the run's last boundary
+        stop.set()
+        while any(r.is_alive() for r in readers):
+            h.drain()
+            time.sleep(0.001)
+        empty_ms = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            if h.drain():
+                raise AssertionError("19: an empty drain read something")
+            empty_ms.append((time.perf_counter() - t1) * 1e3)
+        askers = [threading.Thread(target=lambda p=p: final.update(
+            {p: timed_get(srv.port, p, final_waits)})) for p in paths]
+        for a in askers:
+            a.start()
+        wait_queued(h, len(paths), "requests after the run")
+        h.close()
+        for a in askers:
+            a.join()
+        check_drains(drains)
+        marks.append(("served reads", time.perf_counter()))
         same_tree(SHARDED_AT["state"], state,
                   f"19 state after {ticks} ticks against 15a's")
         backlog = sum(int(q.size.sum()) for q in state["queues"].values())
@@ -6985,11 +7190,17 @@ def ranks_path(dev, seed, card):
                 "slate_lookup": lk.slate_lookup.launches}
     launches["slate_lookup routes"] = check_lookup_routes("ranks",
                                                           torch_calls)
-    marks.append(("rank run", time.perf_counter()))
+    marks.append(("scale, drain, reads", time.perf_counter()))
 
     # the reference: 15a's engine (no group) from its state at this tick
     ref_eng = SHARDED_AT.pop("eng")
     ref_state = SHARDED_AT.pop("state")
+    ref_h = StateHandle(ref_eng, ref_state)
+    ref_srv = ref_h.serve()
+    want = {p: http_get(ref_srv.port, p) for p in paths}
+    ref_h.close()
+    check_served(live, final, want, paths, ticks, eng.cfg.chunk_size)
+    marks.append(("15a's reads served", time.perf_counter()))
     ref_state, ref_reps = reconfigure(ref_eng, ref_state)
     same_tree(ref_state, scaled, "19 state after scale 8 -> 4 -> 8")
     del scaled
@@ -7053,8 +7264,33 @@ def ranks_path(dev, seed, card):
         f"its own state (moved rows {rows}, events {ev}, pauses "
         f"{[round(r.pause_s, 4) for r in reps]} s); the path's launches "
         f"{launches}")
+    log(f"19 served: {len(live)} HTTP answers during the run (a reader a "
+        f"path of {len(paths)}: /slate x {len(singles)}, /slates of "
+        f"{len(read_keys)} keys, /status, /metrics) from {in_run} drains "
+        f"at the chunk boundaries, at source ticks "
+        f"{sorted({int(t) for _, _, t, _ in live})}, the keys' sums never "
+        f"falling; {len(paths)} queued after the run, answered by "
+        f"close()'s drain at tick {ticks}; every answer at tick {ticks} "
+        f"byte for byte 15a's engine's from its kept state; drains "
+        f"{len(drains)}, broadcasts {sum(d['broadcast'] for d in drains)} "
+        f"(1 an empty drain, 2 otherwise), all_gathers "
+        f"{sum(d['all_gather'] for d in drains)} (one a read), lookups "
+        f"{ {r: n for r, n in served_lookups.items() if n} } during the "
+        f"run; {card}")
+    log(f"19 served: an empty drain {percentile(empty_ms, 50):.4f} ms "
+        f"(min {min(empty_ms):.4f}, max {max(empty_ms):.4f}) over "
+        f"{len(empty_ms)}; a read's HTTP round trip (enqueue to answer "
+        f"and the request's own time) p50 "
+        f"{percentile(waits, 50) * 1e3:.3f} ms, p99 "
+        f"{percentile(waits, 99) * 1e3:.3f} ms over {len(waits)} "
+        f"reads during the run (the batch after it: p50 "
+        f"{percentile(final_waits, 50) * 1e3:.3f} ms, p99 "
+        f"{percentile(final_waits, 99) * 1e3:.3f} ms over "
+        f"{len(final_waits)}); a non-empty drain "
+        f"{percentile([d['ms'] for d in drains if d['reads']], 50):.3f} ms "
+        f"p50 over {sum(1 for d in drains if d['reads'])}; {card}")
     log(f"19 ranks: {tick_s * 1e3:.3f} ms/tick on the group of one over "
-        f"{ticks} ticks, 15a's {SHARDED_AT['tick_s_at'] * 1e3:.3f} over the "
+        f"{ticks} ticks, served over HTTP meanwhile, 15a's {SHARDED_AT['tick_s_at'] * 1e3:.3f} over the "
         f"same {ticks} (and {SHARDED_AT['tick_s'] * 1e3:.3f} over all its "
         f"ticks); {card}")
 

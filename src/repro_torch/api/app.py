@@ -106,7 +106,6 @@ class App:
         self._plan_fuse: Optional[bool] = None
         self.engine: Optional[Engine] = None
         self.handle: Optional[StateHandle] = None
-        self._servers: list = []
 
     # ---- graph declaration ----------------------------------------
     def _mutate(self):
@@ -393,16 +392,17 @@ class App:
     def serve(self, port: int = 0):
         """Start the HTTP slate server (paper section 4.4) bound to the
         app's live state.  Starts the engine with the default runtime
-        (on ``cuda``) if needed; closed by :meth:`close`."""
+        (on ``cuda``) if needed; closed by :meth:`close`.  Over the ranks
+        of a process group every rank calls it and rank 0 serves
+        (``StateHandle.serve``)."""
         if self.handle is None:
             self.start()
-        srv = self.handle.serve(port)
-        self._servers.append(srv)
-        return srv
+        return self.handle.serve(port)
 
     def close(self):
-        for srv in self._servers:
-            srv.close()
-        self._servers.clear()
+        """Answer the reads still queued (a last drain on every rank of
+        a group), stop the server, close the engine."""
+        if self.handle is not None:
+            self.handle.close()
         if self.engine is not None:
             self.engine.close()

@@ -304,6 +304,12 @@ def broadcast_object(obj, group):
     return box[0]
 
 
+def broadcast_tensor(t: torch.Tensor, group):
+    """Rank 0's ``t`` into every rank's ``t`` (in place, any backend)."""
+    COLLECTIVES["broadcast"] += 1
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+
+
 def _group_block(group, rows: int) -> int:
     """The first global shard index of this rank's block of ``rows``."""
     return 0 if group is None else dist.get_rank(group) * rows
@@ -1265,7 +1271,11 @@ class DistributedEngine:
         With durability, each tick's sources are logged per shard before
         it runs, and drain ticks of a flush barrier advance the engine
         tick but not ``source_fn``'s index.  ``handle`` (a
-        ``StateHandle``) is republished after every chunk.
+        ``StateHandle``) is republished after every chunk and every
+        reconfigure, and each time it drains its read queue there
+        (``StateHandle.drain``, a collective on a group when the handle
+        serves; nothing otherwise), so a served read sees the state of a
+        chunk boundary.
 
         With ``cfg.autoscale`` set to an :class:`AutoscalePolicy`, the
         loop fires live reconfigures at the policy's source-tick
@@ -1314,6 +1324,7 @@ class DistributedEngine:
                     pol.on_change(rep)
                 if handle is not None:
                     handle.state = state
+                    handle.drain(t)
         self.tick_cursor = max(t, self.tick_cursor)
         return state, outputs
 
@@ -1377,6 +1388,7 @@ class DistributedEngine:
                     pol.on_change(rep)
                 if handle is not None:
                     handle.state = state
+                    handle.drain(t)
             if self._ctl_log is not None:
                 self._ctl_log.log({
                     "tick": t,
@@ -1449,6 +1461,7 @@ class DistributedEngine:
                     obs_mark = src_t
                 if handle is not None:
                     handle.state = state
+                    handle.drain(src_t)
         self.tick_cursor = src_t
         if self.dur is not None:
             with self._span("wal_fence"):
@@ -1456,13 +1469,14 @@ class DistributedEngine:
         return state, outputs
 
     def run_durable(self, state, source_fn, n_ticks: int, *,
-                    start_tick: int = 0):
+                    start_tick: int = 0, handle=None):
         """Durable host driver: ``source_fn(tick)`` returns ``[n_shards,
         B]``-leading source batches.  Returns ``(state,
-        next_source_tick)``; a thin wrapper over :meth:`run`."""
+        next_source_tick)``; a thin wrapper over :meth:`run` (``handle``
+        republished and drained as there)."""
         assert self.dur is not None, "attach_durability first"
         state, _ = self.run(state, lambda t, _mx: source_fn(t), n_ticks,
-                            start_tick=start_tick)
+                            start_tick=start_tick, handle=handle)
         return state, self.tick_cursor
 
     def recover(self, *, frontier=None):

@@ -40,6 +40,8 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeout
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -137,6 +139,43 @@ def resolve_key_dtype(name) -> torch.dtype:
     return dt
 
 
+# the served reads a drain runs, by their code in the packed requests
+READ_KINDS = ("slate", "slates", "status", "metrics")
+
+
+def pack_requests(reqs, updaters: Sequence[str]) -> np.ndarray:
+    """``[(kind, updater, keys), ...]`` as one int64 vector: for each
+    request its kind's index in ``READ_KINDS``, its updater's index in
+    ``updaters`` (-1 for none), its key count, then its keys."""
+    out: List[int] = []
+    for kind, updater, keys in reqs:
+        keys = [int(k) for k in keys]
+        out += [READ_KINDS.index(kind),
+                -1 if updater is None else updaters.index(updater),
+                len(keys), *keys]
+    return np.asarray(out, dtype=np.int64)
+
+
+def unpack_requests(words, updaters: Sequence[str]):
+    """The inverse of :func:`pack_requests`."""
+    words = np.asarray(words, dtype=np.int64)
+    reqs, i = [], 0
+    while i < len(words):
+        kind, u, n = (int(x) for x in words[i:i + 3])
+        reqs.append((READ_KINDS[kind], None if u < 0 else updaters[u],
+                     [int(k) for k in words[i + 3:i + 3 + n]]))
+        i += 3 + n
+    return reqs
+
+
+@dataclass
+class _Request:
+    kind: str
+    updater: Optional[str]
+    keys: List[int]
+    future: Future
+
+
 class StateHandle:
     """Live view of ``(engine, state)`` for concurrent readers.
 
@@ -144,21 +183,47 @@ class StateHandle:
     chunk, so a reader thread (the HTTP slate server of :meth:`serve`)
     sees live slates without the caller threading state through it.
     Reads hold the engine's ``read_lock``, which ``run`` holds while a
-    chunk updates the state in place."""
+    chunk updates the state in place.
 
-    def __init__(self, engine, state=None, cache=None):
+    On an engine with a process group (``engine.group``, a world of one
+    included) a read is a collective every rank must enter in the same
+    order, so the server's threads never read: each HTTP request goes on
+    the handle's read queue and waits for an answer.  Every rank calls
+    :meth:`serve`, then :meth:`drain` at the same points, where ``run``
+    republishes the state (after each chunk and each reconfigure), and
+    at :meth:`close`: rank 0 broadcasts its queued requests, every rank
+    runs their reads in that order, and rank 0 answers them, each with
+    the source tick it was read at.  A handle that serves nothing never
+    drains, so an unserved run makes no collective of its own.  Keys
+    outside the engine's key type are refused before they are queued
+    (HTTP 400).  The handle's own ``read_slate`` / ``read_slates``
+    / ``stats`` / ``metrics_text`` stay direct reads (collectives there,
+    made by every rank)."""
+
+    def __init__(self, engine, state=None, cache=None, *,
+                 timeout: float = 30.0):
         self.engine = engine
         self.state = state
         # optional slates.replica.HotKeyCache: consulted before touching
         # device state, warmed from telemetry heavy hitters, invalidated
         # whenever the flush frontier advances (DESIGN.md section 15)
         self.cache = cache
+        # the read queue (an engine with a group): a served request
+        # waits ``timeout`` s for a drain before it answers 503
+        self.group = getattr(engine, "group", None)
+        self.timeout = timeout
+        self._queue: deque = deque()
+        self._queue_lock = threading.Lock()
+        self._closed = False
+        self._servers: list = []
 
     def _lock(self):
         return getattr(self.engine, "read_lock", None) or nullcontext()
 
     def read_slate(self, updater: str, key: int):
-        c = self.cache
+        # over a group this read is a collective: a hit on one rank's
+        # cache would leave the others waiting in it
+        c = self.cache if self.group is None else None
         if c is not None:
             hit, val = c.get(updater, key)
             if hit:
@@ -205,20 +270,155 @@ class StateHandle:
 
     def serve(self, port: int = 0):
         """Start an HTTP slate server bound to this handle (127.0.0.1;
-        ``port=0`` picks a free port).  Refused on an engine over more
-        than one rank: a read there is a collective every rank must
-        enter in the same order, which one rank's server thread cannot
-        (ROADMAP queue 1 item 15e)."""
-        world = getattr(self.engine, "world", 1)
-        if world > 1:
-            raise RuntimeError(
-                f"the HTTP slate server cannot serve an engine over "
-                f"{world} ranks: its reads are collectives every rank "
-                f"must enter together (ROADMAP item 15e)")
-        from repro_torch.slates.http import SlateServer
-        return SlateServer(read_fn=self.read_slate, stats_fn=self.stats,
-                           read_many_fn=self.read_slates,
-                           metrics_fn=self.metrics_text, port=port)
+        ``port=0`` picks a free port); :meth:`close` stops it.  On an
+        engine with a group every rank calls it and only rank 0 serves,
+        through the read queue (each answer carries its source tick);
+        the other ranks get a ``NoServer`` (``port`` None)."""
+        from repro_torch.slates.http import NoServer, SlateServer
+        if self.group is None:
+            srv = SlateServer(read_fn=self.read_slate, stats_fn=self.stats,
+                              read_many_fn=self.read_slates,
+                              metrics_fn=self.metrics_text, port=port)
+        elif self.engine.rank != 0:
+            srv = NoServer()
+        else:
+            srv = SlateServer(
+                read_fn=self._served_slate,
+                stats_fn=lambda: self._ask("status"),
+                read_many_fn=lambda u, keys: self._ask("slates", u, keys),
+                metrics_fn=lambda: self._ask("metrics"), port=port,
+                ticked=True)
+        self._servers.append(srv)
+        return srv
+
+    # -- the read queue (an engine with a group) --
+    def _updaters(self) -> List[str]:
+        return [u.name for u in self.engine.wf.updaters()]
+
+    def _served_slate(self, updater: str, key: int):
+        c = self.cache
+        if c is not None:
+            hit, val = c.get(updater, key)
+            if hit:
+                return val, None
+        val, tick = self._ask("slate", updater, [key])
+        if c is not None and val is not None:
+            c.put(updater, key, val)
+        return val, tick
+
+    def _ask(self, kind: str, updater: Optional[str] = None, keys=()):
+        """Queue a read for the next drain and wait for its answer:
+        ``(value, source tick)``.  A key the engine's key type cannot
+        hold is refused here (HTTP 400), so no drain ever packs it."""
+        from repro_torch.slates.http import BadRequest, Unavailable
+        if updater is not None and updater not in self._updaters():
+            raise KeyError(updater)
+        keys = [int(k) for k in keys]
+        half = 1 << (self.engine.key_bits - 1)
+        if any(not -half <= k < half for k in keys):
+            raise BadRequest(f"a key outside int{self.engine.key_bits}")
+        req = _Request(kind, updater, keys, Future())
+        with self._queue_lock:
+            if self._closed:
+                raise Unavailable("the slate handle is closed")
+            self._queue.append(req)
+        try:
+            return req.future.result(timeout=self.timeout)
+        except FutureTimeout:
+            if req.future.cancel():
+                raise Unavailable(f"no drain within {self.timeout} s")
+            try:            # a drain took it: its answer is on the way
+                return req.future.result(timeout=self.timeout)
+            except FutureTimeout:
+                raise Unavailable(f"the drain did not answer within "
+                                  f"{self.timeout} s")
+
+    def _read(self, kind: str, updater: Optional[str], keys):
+        if kind == "slate":
+            return self.read_slate(updater, keys[0])
+        if kind == "slates":
+            return self.read_slates(updater, keys)
+        return self.stats() if kind == "status" else self.metrics_text()
+
+    def _take(self, names: Sequence[str]):
+        """Rank 0's queued requests in FIFO order and their packed
+        words; a request that does not pack fails alone (HTTP 500)."""
+        taken, words = [], []
+        with self._queue_lock:
+            while self._queue:
+                req = self._queue.popleft()
+                if not req.future.set_running_or_notify_cancel():
+                    continue
+                try:
+                    words.append(pack_requests(
+                        [(req.kind, req.updater, req.keys)], names))
+                    taken.append(req)
+                except Exception as e:
+                    req.future.set_exception(e)
+        return taken, np.concatenate(words or [np.zeros(0, np.int64)])
+
+    def drain(self, tick: Optional[int] = None) -> int:
+        """Answer the queued reads (collective: every rank calls it at
+        the same point).  Rank 0 takes its queue in FIFO order and
+        broadcasts it (the request count and word count, then, if any,
+        the packed requests); every rank runs the reads in that order on
+        the current state; rank 0 completes the requests with
+        ``(value, tick)``, ``tick`` defaulting to the engine's source
+        cursor.  Returns the number of reads; 0 at once, with no
+        collective, without a group or while the handle serves nothing
+        (every rank of a group calls :meth:`serve`, so all agree)."""
+        if self.group is None or not self._servers:
+            return 0
+        from repro_torch.core.distributed import broadcast_tensor
+        root = self.engine.rank == 0
+        names = self._updaters()
+        taken, words = self._take(names) if root else ([], None)
+        try:
+            dev = self.engine.device
+            head = torch.tensor([len(taken), 0 if words is None else
+                                 len(words)], dtype=torch.int64, device=dev)
+            broadcast_tensor(head, self.group)
+            n, n_words = head.tolist()
+            if n == 0:
+                return 0
+            buf = torch.from_numpy(words).to(dev) if root else \
+                torch.empty(n_words, dtype=torch.int64, device=dev)
+            broadcast_tensor(buf, self.group)
+            reqs = unpack_requests(buf.cpu().numpy(), names)
+            if tick is None:
+                tick = getattr(self.engine, "tick_cursor", None)
+            answers = []
+            with self._lock():
+                for kind, updater, keys in reqs:
+                    try:
+                        answers.append((self._read(kind, updater, keys),
+                                        None))
+                    except Exception as e:      # answered as a 500
+                        answers.append((None, e))
+        except BaseException as e:
+            for req in taken:
+                req.future.set_exception(e)
+            raise
+        for req, (value, err) in zip(taken, answers):
+            if err is not None:
+                req.future.set_exception(err)
+            else:
+                req.future.set_result((value, tick))
+        return n
+
+    def close(self):
+        """Stop serving: no request is queued after this; every rank
+        takes one last drain (collective, on an engine with a group that
+        serves), so the queued reads are answered; then the server
+        stops."""
+        with self._queue_lock:
+            self._closed = True
+        try:
+            self.drain()
+        finally:
+            for srv in self._servers:
+                srv.close()
+            self._servers.clear()
 
 
 class Engine:

@@ -30,6 +30,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import (ModelConfig, SHAPE_BY_NAME,
                                        ShapeConfig, cell_is_applicable)
 from repro_torch.models.context import Ctx
+from repro_torch.models.layers import spmd
 
 CDTYPE = torch.bfloat16
 
@@ -167,7 +168,7 @@ def make_decode_step(model, *, mesh=None, rules=None):
         with on_mesh(mesh):
             logits, new_states = lm.decode_step(params, token, states,
                                                 cur_index, ctx)
-            next_token = torch.argmax(logits[:, -1], -1).to(torch.int32)
+            next_token = spmd.argmax_last(logits[:, -1]).to(torch.int32)
             return next_token[:, None], new_states, cur_index + 1
 
     return decode_step

@@ -32,10 +32,14 @@ joins the launcher's process group (NCCL on ``cuda:LOCAL_RANK``, gloo
 with ``--device cpu``) and holds its block of the shards; every rank
 makes the same global feed from the seed and keeps its block's rows.
 Rank 0 prints what the one-process run prints; the others print
-nothing.  ``--serve`` is refused there (a read is a collective)::
+nothing.  With ``--serve`` rank 0 serves the slates: a read is a
+collective, so its request waits on the read queue that every rank
+drains after each chunk (``StateHandle.drain``), and ``app.close()``
+answers what is still queued::
 
     python -m torch.distributed.run --nproc-per-node 4 \
-        -m repro_torch.launch.stream --device cpu --dir /tmp/r --shards 8
+        -m repro_torch.launch.stream --device cpu --dir /tmp/r --shards 8 \
+        --serve
 
 Live elasticity (DESIGN.md section 12) on the same shards::
 
@@ -232,12 +236,6 @@ def main(argv=None):
                          "Chrome trace JSON (open in Perfetto) after "
                          "the run")
     args = ap.parse_args(argv)
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1 and args.serve:
-        raise SystemExit(
-            f"--serve cannot run over {world} ranks: a slate read is a "
-            f"collective every rank must enter together (ROADMAP item "
-            f"15e)")
     if args.autoscale is not None and args.shards < 2:
         ap.error("--autoscale needs --shards >= 2 (a distributed "
                  "runtime to scale)")

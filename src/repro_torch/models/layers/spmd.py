@@ -19,6 +19,13 @@ forward before ``unflatten_last``, in the backward (where the gradient
 of the joined dim is split that way) before ``flatten_last``'s
 gradient is split back into heads.
 
+``argmax_last`` takes the argmax of the last dim with that dim whole:
+DTensor's own rule for ``argmax`` over a split dim reshapes the rank's
+candidates into an invalid shape on a two-axis mesh (the vocab-split
+logits of a decode step, torch 2.13), so each mesh dim that splits it
+is gathered first, on the device, and ties go to the first maximal
+index as on the whole tensor.
+
 ``pad_seq`` pads the sequence dim of a DTensor shard by shard, its
 sequence gathered first where it is split: DTensor's own rule for
 ``pad`` gives a malformed placement on a two-axis mesh in some torch
@@ -48,6 +55,19 @@ def _heads_whole(y, H: int):
     pl = tuple(Replicate() if p.is_shard(last) and H % mesh.size(i)
                else p for i, p in enumerate(y.placements))
     return y if pl == tuple(y.placements) else y.redistribute(mesh, pl)
+
+
+def argmax_last(x):
+    """``torch.argmax(x, -1)``, the last dim of a DTensor made whole on
+    every mesh dim that splits it."""
+    if hasattr(x, "device_mesh"):
+        from torch.distributed.tensor import Replicate
+        last = x.ndim - 1
+        pl = tuple(Replicate() if p.is_shard(last) else p
+                   for p in x.placements)
+        if pl != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return torch.argmax(x, -1)
 
 
 def unflatten_last(y, H: int, K: int):

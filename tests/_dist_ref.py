@@ -48,6 +48,29 @@ EXCHANGE = dict(seed=9, shards=8, per_shard=64, cap=8)
 DURABLE_TICKS, DURABLE_CRASH, DURABLE_EVERY = 12, 9, 4
 READ_KEYS = np.arange(-4, 72, dtype=np.int32)    # hits and misses
 LOOP_KEYS = READ_KEYS[::4]      # the JAX engine's per-key reads are slow
+SERVE_SINGLES = (0, 5, 17, 40, 63, 70)           # 70: never fed
+
+
+def serve_paths(updater="U1"):
+    """The slate reads the serve parity tests make over HTTP: one
+    ``/slate`` a key of ``SERVE_SINGLES`` and one ``/slates`` of
+    ``READ_KEYS``."""
+    return [f"/slate/{updater}/{k}" for k in SERVE_SINGLES] + [
+        f"/slates/{updater}?keys=" + ",".join(str(int(k))
+                                               for k in READ_KEYS)]
+
+
+def http_get(port, path, timeout=120):
+    """``(status, X-Source-Tick or None, body bytes)`` of ``GET path`` on
+    127.0.0.1:``port``, error statuses included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.headers.get("X-Source-Tick"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("X-Source-Tick"), e.read()
 
 
 # ---- live elasticity: scenarios both packages play through ``play`` ----
@@ -435,11 +458,13 @@ def _reads(eng, state, updater, keys=READ_KEYS, loop_keys=LOOP_KEYS):
                 state, updater, keys, impl="jnp")]}
 
 
-def _count_scenario(E):
+def _count_scenario(E, serve=False):
     """Counting through a mapper, the generic and the sequential path
-    (``COUNT``), with reads."""
+    (``COUNT``), with reads; with ``serve``, before the drain,
+    ``StateHandle.serve``'s bodies of ``serve_paths()``."""
     jax, batch = E["jax"], E["batch"]
     from repro.core.distributed import DistConfig, DistributedEngine
+    from repro.core.engine import StateHandle
     from repro.core.workflow import Workflow
     eng = DistributedEngine(
         Workflow([E["PassThroughMapper"](), E["CountingUpdater"](),
@@ -450,14 +475,23 @@ def _count_scenario(E):
     for d in feeds(**COUNT):
         st, o = eng.step(st, {"S1": batch(d)})
         outs.append(plain(jax.device_get(o)))
+    served = None
+    if serve:
+        srv = StateHandle(eng, st).serve()
+        try:
+            served = {p: http_get(srv.port, p) for p in serve_paths()}
+        finally:
+            srv.close()
     st, drained = eng.drain(st)
     return dict(state=plain(jax.device_get(st)), stats=eng.stats(st),
-                outputs=outs, drained=drained, reads=_reads(eng, st, "U1"))
+                outputs=outs, drained=drained, reads=_reads(eng, st, "U1"),
+                served=served)
 
 
 def group_ranks():
-    """The fixed-membership scenario alone, for the port's rank tests."""
-    return {"count": _count_scenario(_jax_env())}
+    """The fixed-membership scenario alone, for the port's rank tests,
+    with its served bodies."""
+    return {"count": _count_scenario(_jax_env(), serve=True)}
 
 
 def group_engine():

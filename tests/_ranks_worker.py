@@ -19,6 +19,8 @@ import os
 import pickle
 import shutil
 import sys
+import threading
+import time
 import traceback
 
 import numpy as np
@@ -32,6 +34,7 @@ if __name__ == "__main__":
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import distributed as D  # noqa: E402
 from repro_torch.core.durability import DurabilityConfig  # noqa: E402
+from repro_torch.core.engine import StateHandle  # noqa: E402
 from repro_torch.core.event import EventBatch  # noqa: E402
 from repro_torch.core.operators import (AssociativeUpdater,  # noqa: E402
                                         Mapper, SequentialUpdater)
@@ -385,9 +388,88 @@ def sc_durable(make, base):
     return out
 
 
+SERVE_CHUNK = 4
+SERVE_PATHS = ref.serve_paths() + ["/status", "/metrics"]
+
+
+def sc_serve(make, base):
+    """``StateHandle.serve`` on ``COUNT``'s run (``run`` in chunks of
+    ``SERVE_CHUNK`` ticks).  Over ranks: rank 0 serves, a client thread
+    a path of ``SERVE_PATHS`` there reads it again and again while the
+    run goes (each answer with the source tick of the drain that served
+    it), then one request
+    a path is queued after the run and ``close()`` answers them (the
+    ``final`` bodies); every rank's server port.  On one process: the
+    bodies at every chunk boundary (the run in spans of a chunk) and at
+    the end, read directly."""
+    eng = make(count_ops(), batch_size=64, queue_capacity=512,
+               chunk_size=SERVE_CHUNK)
+    fs = ref.feeds(**COUNT)
+    src = lambda t, mx: {"S1": tb(fs[t])}
+    h = StateHandle(eng, eng.init_state())
+    srv = h.serve()
+    out = {}
+    if getattr(make, "group", None) is None:
+        out["at_tick"] = {}
+        for t in range(0, len(fs), SERVE_CHUNK):
+            h.state, _ = eng.run(h.state, src, SERVE_CHUNK, start_tick=t,
+                                 handle=h)
+            out["at_tick"][t + SERVE_CHUNK] = {
+                p: ref.http_get(srv.port, p) for p in SERVE_PATHS}
+        out["final"] = {p: ref.http_get(srv.port, p) for p in SERVE_PATHS}
+        h.close()
+    else:
+        root = _rank(make) == 0
+        out["ports"] = D.all_gather_objects(srv.port, make.group)
+        live, stop = [], threading.Event()
+
+        def client(p):
+            while not stop.is_set():
+                live.append((p,) + ref.http_get(srv.port, p))
+
+        readers = [threading.Thread(target=client, args=(p,))
+                   for p in SERVE_PATHS] if root else []
+        for r in readers:
+            r.start()
+        def paced(t, mx):
+            # every reader's first request waits for the first boundary
+            t0 = time.monotonic()
+            while root and t == 0 and len(h._queue) < len(SERVE_PATHS):
+                assert time.monotonic() - t0 < 60, "readers never queued"
+                time.sleep(0.005)
+            time.sleep(0.02)
+            return src(t, mx)
+
+        h.state, _ = eng.run(h.state, paced, len(fs), handle=h)
+        # the readers' last requests answered at the run's end
+        stop.set()
+        while D.broadcast_object(any(r.is_alive() for r in readers),
+                                 make.group):
+            h.drain()
+            time.sleep(0.01)
+        final = {}
+        if root:
+            askers = [threading.Thread(target=lambda p=p: final.update(
+                {p: ref.http_get(srv.port, p)})) for p in SERVE_PATHS]
+            for a in askers:
+                a.start()
+            t0 = time.monotonic()
+            while len(h._queue) < len(SERVE_PATHS):   # all queued
+                assert time.monotonic() - t0 < 60, "askers never queued"
+                time.sleep(0.01)
+        h.close()
+        if root:
+            for a in askers:
+                a.join()
+        out.update(live=live, final=final)
+    out["state"] = host(eng, h.state)
+    return out
+
+
 ENGINE = {"count": sc_count, "grid": sc_grid, "chunk": sc_chunk,
           "run": sc_run, "slack": sc_slack, "two_choice": sc_two_choice,
-          "split": sc_split, "fail": sc_fail, "durable": sc_durable}
+          "split": sc_split, "fail": sc_fail, "durable": sc_durable,
+          "serve": sc_serve}
 
 
 # ---- the elasticity scenarios (tests/test_torch_ranks_elastic.py) ----

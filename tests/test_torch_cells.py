@@ -350,3 +350,49 @@ def test_kernel_routes_refuse_cross_rank_reductions(mesh, monkeypatch):
     qg = dt((8, 64, 4, 16), (Shard(0), Shard(1))).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="item 22"):
         sops.ssd(qg, qg, qg, la, chunk=16, impl="cuda")
+
+
+@pytest.mark.parametrize("arch,shape", CASES)
+def test_lower_cell_on_fake_mesh(mesh, arch, shape):
+    """Each cell's step runs once under the cost counter on the fake
+    (4, 2) world, as JAX's ``tests/test_dryrun_small.py`` lowers the same
+    four: xlstm-350m's ``long_500k`` decode step takes its argmax over
+    the vocab-split logits (``spmd.argmax_last`` gathers the vocab over
+    "model" first; DTensor's own rule failed there)."""
+    low = cells.lower_cell(cells.build_cell(arch, shape, mesh))
+    assert low.cost.flops > 0 and low.cost.hbm_bytes > 0
+    assert 0 < low.argument_bytes <= low.peak_bytes
+    if cells.SHAPE_BY_NAME[shape].phase == "decode":
+        # the step's last collective: the last position's logits [B, V],
+        # their vocab split over "model", gathered whole for the argmax
+        kind, _, how = low.collectives[-1]
+        assert kind == "all-gather" and how.endswith(
+            "Shard(dim=1)) -> " + how.split(" -> ")[1]), how
+        assert how.split(" -> ")[1].endswith("Replicate())"), how
+
+
+def test_argmax_over_split_vocab_on_two_ranks(tmp_path):
+    """Two gloo ranks, a (1, 2) mesh with the last dim split over
+    "model": ``spmd.argmax_last`` gives the first maximal index, as
+    ``torch.argmax`` of the whole tensor does, where a maximum appears
+    in both halves, twice in one half, or everywhere; and reduced
+    xlstm-350m's decode step (``cells.make_decode_step``, the
+    ``ServingEngine``'s) gives ``torch.argmax`` of its vocab-split
+    logits made whole."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+    from tests import _argmax_ranks
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = str(tmp_path / "rank0.pkl")
+    mp.spawn(_argmax_ranks.worker, args=(2, port, out), nprocs=2, join=True)
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    got, whole = res["ties"]
+    assert got.tolist() == whole.tolist() == [1, 5, 3, 0]
+    token, want, placements = res["xlstm"]
+    assert placements == ["R", "S(2)"]       # [B, 1, V], V over "model"
+    assert token.tolist() == want.tolist()

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports JAX or the JAX package (``repro``; any
 ``repro.*`` import pulls in the whole JAX stack), nor do the port's
 examples (``examples/torch_*.py``) or the rank workers the gloo tests
-spawn (``tests/_ranks_worker.py``, ``tests/_kernel_ranks_worker.py``).  Nor do the card-only
+spawn (``tests/_ranks_worker.py``, ``tests/_kernel_ranks_worker.py``,
+``tests/_argmax_ranks.py``).  Nor do the card-only
 test files (``tests/test_torch_*_kernel.py``): the machine with the card
 has no JAX, so a file that imports it cannot be collected there.  That
 machine has no ``msgpack`` and no ``zstandard`` either: no port file
@@ -26,6 +27,7 @@ def _port_files():
     files += sorted((ROOT / "examples").glob("torch_*.py"))
     files.append(ROOT / "tests" / "_ranks_worker.py")
     files.append(ROOT / "tests" / "_kernel_ranks_worker.py")
+    files.append(ROOT / "tests" / "_argmax_ranks.py")
     return files + sorted((ROOT / "tests").glob("test_torch_*_kernel.py"))
 
 

@@ -10,17 +10,23 @@ scenarios on the one-card engine meanwhile, and the tests compare them:
 fixed membership through ``step``, ``run_chunk`` and ``run`` (telemetry
 on), a ``("pod", "data")`` (2, 4) grid, a small slack with drops (the
 exchange order and ``exchange_dropped``), reads plain and of partials
-(two-choice, a split hot key), ``stats``, ``fail_shard``, and a durable
+(two-choice, a split hot key), ``stats``, ``fail_shard``, a durable
 crash recovered on the ranks, with a log written on the ranks recovered
-by one process and the reverse.  The fixed-membership scenario is also
-held to the JAX ``DistributedEngine`` (one 8-device subprocess,
-``tests/_dist_ref.py ranks``).  On a one-rank gloo group in this process
-the collective counter shows every hop through ``all_to_all_single``
-and a read's one ``all_gather``."""
+by one process and the reverse, and HTTP slate reads served by rank 0
+through the read queue every rank drains at chunk boundaries.  The
+fixed-membership scenario is also held to the JAX ``DistributedEngine``
+(one 8-device subprocess, ``tests/_dist_ref.py ranks``), and the served
+bodies to its ``StateHandle.serve``'s.  On a one-rank gloo group in this
+process the collective counter shows every hop through
+``all_to_all_single``, a read's one ``all_gather`` and a drain's
+broadcasts; the read queue's packing, close and 503s."""
+import json
 import os
 import pickle
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -110,7 +116,8 @@ def eq(a, b, path="result"):
         assert x.dtype == y.dtype and np.array_equal(x, y), path
 
 
-@pytest.mark.parametrize("name", [n for n in W.ENGINE if n != "durable"])
+@pytest.mark.parametrize("name", [n for n in W.ENGINE
+                                  if n not in ("durable", "serve")])
 def test_ranks_equal_one_card(played, name):
     """Each scenario on 4 ranks equals the one-card engine bitwise:
     the gathered state (queues in their order, tables, counters, the
@@ -287,12 +294,269 @@ def test_shards_must_split_over_the_ranks():
     D._check_split(10, 1)               # a world of one takes any count
 
 
-def test_serve_refused_across_ranks():
-    """The HTTP slate server never serves an engine over more than one
-    rank (its reads are collectives); it names the ROADMAP item."""
-    class Ranked:
-        world = 4
-        read_lock = None
+def test_serve_refused_across_ranks(played):
+    """Over 4 ranks only rank 0 serves: the other ranks' ``serve``
+    starts no server (``port`` None); their reads reach rank 0's answers
+    through the drains."""
+    ports = played["ranks"]["serve"]["ports"]
+    assert isinstance(ports[0], int) and ports[0] > 0
+    assert ports[1:] == [None] * (WORLD - 1)
 
-    with pytest.raises(RuntimeError, match="15e"):
-        StateHandle(Ranked()).serve()
+
+def _count_of(body):
+    return json.loads(body)["count"]
+
+
+def test_served_reads_equal_one_card_at_their_tick(played):
+    """Rank 0 of 4 serves ``COUNT``'s run over HTTP while it goes (a
+    reader a path of ``_ranks_worker.SERVE_PATHS``): every answer
+    carries the source tick of the chunk boundary whose drain served it
+    and equals, status and body byte for byte, the one-card engine's
+    answer at that tick; every path is answered at the first boundary;
+    a key's count and the processed totals never fall; the state after
+    the run is the one-card run's."""
+    one, ranks = played["one"]["serve"], played["ranks"]["serve"]
+    seen = {}
+    for path, status, tick, body in ranks["live"]:
+        t = int(tick)
+        assert t in one["at_tick"], tick
+        want = one["at_tick"][t][path]
+        assert (status, body) == (want[0], want[2]), (path, t)
+        assert want[1] is None         # one process reads directly
+        seen.setdefault(path, []).append((t, body))
+    assert set(seen) == set(W.SERVE_PATHS)
+    for path, answers in seen.items():
+        assert answers[0][0] == W.SERVE_CHUNK, path
+        ticks = [t for t, _ in answers]
+        assert ticks == sorted(ticks), path
+        if path.startswith("/slate/") and answers[-1][1].startswith(b"{\"c"):
+            counts = [_count_of(b) for _, b in answers
+                      if b.startswith(b"{\"c")]
+            assert counts == sorted(counts), path
+        if path == "/status":
+            done = [sum(json.loads(b)["processed"].values())
+                    for _, b in answers]
+            assert done == sorted(done)
+    eq(one["state"], ranks["state"], "state")
+
+
+def test_served_final_bodies_equal_jax(played):
+    """One request a path queued after the run, answered by ``close()``'s
+    last drain at the run's last tick: the ``/slate`` and ``/slates``
+    bodies byte for byte the JAX package's ``StateHandle.serve`` bodies
+    after the same 12 ticks (misses' 404s included), and every answer
+    the one-card engine's."""
+    one, ranks = played["one"]["serve"], played["ranks"]["serve"]
+    jax = played["jax"]["count"]["served"]
+    final = ranks["final"]
+    assert set(final) == set(W.SERVE_PATHS)
+    for path in ref.serve_paths():
+        assert (final[path][0], final[path][2]) == (jax[path][0],
+                                                    jax[path][2]), path
+    assert {final[p][0] for p in ref.serve_paths()} == {200, 404}
+    for path, (status, tick, body) in final.items():
+        assert int(tick) == ref.COUNT["ticks"]
+        assert (status, body) == (one["final"][path][0],
+                                  one["final"][path][2]), path
+
+
+# ---- the read queue, world-free or on a one-rank group ----
+def test_packed_requests_round_trip():
+    """A drain's broadcast buffer: kind, updater index, key count, keys;
+    int64, so int64 keys pass whole."""
+    from repro_torch.core import engine as E
+    reqs = [("slate", "U2", [7]), ("status", None, []),
+            ("slates", "U1", [1, -3, 2**40, 5]), ("metrics", None, []),
+            ("slates", "U2", [])]
+    words = E.pack_requests(reqs, ["U1", "U2"])
+    assert words.dtype == np.int64
+    assert words[:7].tolist() == [0, 1, 1, 7, 2, -1, 0]
+    assert E.unpack_requests(words, ["U1", "U2"]) == reqs
+    assert E.unpack_requests(E.pack_requests([], ["U1"]), ["U1"]) == []
+
+
+def _ranked_handle(group, **kw):
+    eng = W._engine(W.count_ops(), W.SHARDS, ("data",), "S1", group,
+                    dict(batch_size=64, queue_capacity=512))
+    st = eng.init_state()
+    for d in ref.feeds(**W.COUNT)[:3]:
+        st, _ = eng.step(st, {"S1": W.tb(d)})
+    return eng, StateHandle(eng, st, **kw)
+
+
+def _wait_queued(h, n):
+    t0 = time.monotonic()
+    while len(h._queue) < n:
+        assert time.monotonic() - t0 < 30, "requests never queued"
+        time.sleep(0.005)
+
+
+def test_close_answers_pending_requests(world_of_one):
+    """Reads made while no run goes wait on the queue; ``close()``'s last
+    drain answers them in order, each equal to a direct read, with one
+    ``all_gather`` a read and two broadcasts (the counts, the packed
+    requests); an empty drain is one broadcast."""
+    eng, h = _ranked_handle(world_of_one)
+    srv = h.serve()
+    before = dict(D.COLLECTIVES)
+    assert h.drain() == 0
+    assert D.COLLECTIVES["broadcast"] - before["broadcast"] == 1
+    paths = ["/slate/U1/5", "/slates/U1?keys=1,2,99", "/status", "/metrics"]
+    got = {}
+    askers = [threading.Thread(target=lambda p=p: got.update(
+        {p: ref.http_get(srv.port, p)})) for p in paths]
+    for a in askers:
+        a.start()
+    _wait_queued(h, len(paths))
+    assert not got                     # nothing answers before a drain
+    before = dict(D.COLLECTIVES)
+    h.close()
+    for a in askers:
+        a.join()
+    made = {k: D.COLLECTIVES[k] - before[k] for k in before}
+    assert made["broadcast"] == 2 and made["all_gather"] == len(paths)
+    assert made["all_to_all_single"] == 0
+    want = eng.read_slate(h.state, "U1", 5)
+    assert json.loads(got["/slate/U1/5"][2]) == {
+        k: v.item() for k, v in want.items()}
+    assert json.loads(got["/status"][2]) == eng.stats(h.state)
+    assert all(code == 200 for code, _, _ in got.values())
+    assert got["/metrics"][2].startswith(b"# HELP")
+    before = dict(D.COLLECTIVES)
+    assert h.drain() == 0 and D.COLLECTIVES == before  # closed: no drain
+
+
+def test_requests_after_close_or_past_timeout_get_503(world_of_one):
+    """A request no drain takes within the handle's timeout answers 503
+    (and leaves the queue: the next drain reads nothing); after
+    ``close()`` a request answers 503 at once."""
+    eng, h = _ranked_handle(world_of_one, timeout=0.3)
+    srv = h.serve()
+    code, tick, body = ref.http_get(srv.port, "/status")
+    assert code == 503 and tick is None and b"no drain" in body
+    assert h.drain() == 0              # the timed-out request is gone
+    h.close()
+    again = h.serve()                  # a server over the closed handle
+    try:
+        t0 = time.monotonic()
+        code, _, body = ref.http_get(again.port, "/slate/U1/5")
+        assert code == 503 and b"closed" in body
+        assert time.monotonic() - t0 < 0.3
+    finally:
+        again.close()
+
+
+def test_engine_without_group_never_queues():
+    """Without a group (``DistributedEngine`` on one device) the server
+    reads directly under ``read_lock``: nothing is queued, a drain is a
+    no-op and no collective runs."""
+    eng, h = _ranked_handle(None)
+    srv = h.serve()
+    try:
+        before = dict(D.COLLECTIVES)
+        code, tick, body = ref.http_get(srv.port, "/slate/U1/5")
+        assert code == 200 and tick is None and not h._queue
+        assert json.loads(body)["count"] == int(
+            eng.read_slate(h.state, "U1", 5)["count"])
+        assert h.drain() == 0 and D.COLLECTIVES == before
+    finally:
+        h.close()
+
+
+def test_queue_loses_no_request_under_concurrent_readers(world_of_one):
+    """32 reader threads (more than the cores), a drainer thread and a
+    short switch interval: every request is answered once, in some
+    drain, with the value of a direct read, and nothing is left queued."""
+    eng, h = _ranked_handle(world_of_one)
+    h.serve()                          # a handle that serves drains
+    want = {k: None if r is None else int(r["count"]) for k, r in
+            ((k, eng.read_slate(h.state, "U1", k)) for k in range(40))}
+    got, errors, stop = [], [], threading.Event()
+
+    def reader(i):
+        try:
+            for j in range(4):
+                k = (7 * i + j) % 40
+                r, _ = h._ask("slate", "U1", [k])
+                got.append((k, None if r is None else int(r["count"])))
+        except Exception as e:              # recorded and asserted on
+            errors.append(e)
+
+    def drainer():
+        while not stop.is_set():
+            h.drain()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=reader, args=(i,))
+                   for i in range(32)]
+        d = threading.Thread(target=drainer)
+        d.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        stop.set()
+        d.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not d.is_alive()
+    assert not errors and not h._queue
+    assert len(got) == 32 * 4 and all(want[k] == c for k, c in got)
+    h.close()
+
+
+def test_unserved_handle_never_drains(world_of_one):
+    """A ranked handle that serves nothing (no rank called ``serve``)
+    drains nothing: ``run`` with it and its ``close()`` make no
+    broadcast, so an unserved run is the run without a handle."""
+    eng, h = _ranked_handle(world_of_one)
+    fs = ref.feeds(**W.COUNT)
+    before = dict(D.COLLECTIVES)
+    h.state, _ = eng.run(h.state, lambda t, mx: {"S1": W.tb(fs[t])}, 4,
+                         start_tick=3, handle=h)
+    h.close()
+    assert D.COLLECTIVES["broadcast"] == before["broadcast"]
+
+
+def test_key_outside_key_type_answers_400_and_the_run_goes_on(world_of_one):
+    """A key the engine's key type cannot hold is refused before it is
+    queued (400, ``/slate`` and ``/slates``); a request that does not
+    pack (put on the queue past that check) fails alone, and the drain
+    still broadcasts and answers the others; the run with the handle
+    then goes on, its drains answering the next reads."""
+    from concurrent.futures import Future
+    from repro_torch.core.engine import _Request
+    eng, h = _ranked_handle(world_of_one)
+    srv = h.serve()
+    half = 1 << (eng.key_bits - 1)
+    for path in (f"/slate/U1/{half}", f"/slates/U1?keys=1,{-half - 1}"):
+        code, tick, body = ref.http_get(srv.port, path)
+        assert code == 400 and tick is None and b"outside int" in body, path
+    assert not h._queue
+    bad = _Request("slate", "U1", [2**64], Future())
+    got = {}
+    asker = threading.Thread(target=lambda: got.update(
+        ok=ref.http_get(srv.port, "/slate/U1/5")))
+    h._queue.append(bad)
+    asker.start()
+    _wait_queued(h, 2)
+    before = dict(D.COLLECTIVES)
+    assert h.drain() == 1
+    asker.join()
+    assert D.COLLECTIVES["broadcast"] - before["broadcast"] == 2
+    assert isinstance(bad.future.exception(), OverflowError)
+    assert got["ok"][0] == 200
+    fs = ref.feeds(**W.COUNT)
+    asker = threading.Thread(target=lambda: got.update(
+        ok=ref.http_get(srv.port, "/slate/U1/5")))
+    asker.start()
+    _wait_queued(h, 1)
+    h.state, _ = eng.run(h.state, lambda t, mx: {"S1": W.tb(fs[t])}, 4,
+                         start_tick=3, handle=h)
+    asker.join()
+    assert got["ok"][0] == 200 and int(got["ok"][1]) == 7
+    assert json.loads(got["ok"][2])["count"] == int(
+        eng.read_slate(h.state, "U1", 5)["count"])
+    h.close()
