@@ -7,8 +7,12 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the port's kernels from ``src/repro_torch/csrc`` into
 ``build/repro_torch/``, then:
 
-1. prints the card (``nvidia-smi`` name and power limit) and the
-   torch / CUDA versions;
+1. prints the card (``nvidia-smi`` name and power limit), the torch /
+   CUDA versions and the host's CPU limits (torch's threads,
+   ``os.cpu_count()``, the affinity mask, the cgroup quota); the CPU
+   runs of 15c, 16c and 21 take the least of them as torch's thread
+   count (``cpu_threads``, a guard against a cgroup quota) and restore
+   it after;
 2. builds every kernel (one nvcc per source, all started together) and
    prints the build time;
 3. holds each kernel against its plain PyTorch version on the card at
@@ -439,9 +443,40 @@ It builds the port's kernels from ``src/repro_torch/csrc`` into
    whole-tensor kernel: a rank's own work (its slice and the merge) and
    all R slices on the one card, with the bound of one whole pass's bytes
    at 3.35 TB/s; in the kernel line under each row's ``routes``.
+21. the paper's two applications that chain updaters, through
+   ``App.run`` and a drain, from ``examples/torch_hot_topics.py`` and
+   ``examples/torch_reputation.py`` (their ``build_app`` /
+   ``make_feed``), G copies of each example's stream side by side in
+   one key space.  (a) Hot topics at G = 128: 65,536 tweets a tick over
+   2,048 topics (FEAT 32), 40 ticks, from minute 5 60% of a group's
+   tweets on its topic 16g + 3; U1 sequential (``max_run`` 192, its
+   emissions the next hop's events), U2 associative with an ``emit``
+   (the generic path: segmented scan, ``insert_or_find``, read, merge,
+   write); ``RuntimeConfig(batch_size=262,144, queue_capacity=1,048,576,
+   chunk_size=1)``, 524,288 slots each.  (b) Reputation at G = 128:
+   1,048,576 users (celebrities 0-639, 30% of 65,536 mentions a tick),
+   U1 sequential (``max_run`` 32) over 2**22 slots, batch 131,072, 30
+   ticks.  Gates: each app at G = 8 on the card and on the CPU, state,
+   every tick's outputs and stats bitwise, then a ``run_chunk`` of the
+   card app under the sync debug mode "error"; at G = 128 against numpy:
+   every U1 count the bincount of the (topic, minute) keys from an f32
+   argmax of the same product (near ties within 1e-3 printed and left
+   out), every U1 ``emitted``, U2 ``total`` and ``hot`` row's
+   ``ratio_x100`` (drain ticks included) from the feed alone (a key
+   (topic, m) emits on its first tweet of tick 4m + 3; near-tie topics
+   left out), every U2 ``periods`` the sum of U1's ``emitted``, each
+   burst topic its group's most frequent hot topic; every reputation slate's
+   ``interactions`` exact and ``score`` bitwise an f32 replay in the
+   engine's queue order (``sequential_order``, deferral included), the
+   celebrities on top; reads through ``read_slates``; no drop; every
+   ``insert_or_find`` on ``find`` (INSERT_ROUNDS an updater a tick),
+   reads on ``keys``, no ``slate_update`` or count kernel launch, no
+   torch probe hash.  Each prints ms/tick, events/s and one profiled
+   tick beside phase 5's ms/tick.
 
 Cut for the time limit, earlier paths' depths (to make room for phase
-20): ``--ticks`` defaults to 64 (128 before: phases 5, 6 and
+20; phase 21 cut none, its room came from bounding the CPU runs'
+threads): ``--ticks`` defaults to 64 (128 before: phases 5, 6 and
 15a); phase 7 serves 16 requests in one tick (32 in two), phases 8 and
 10 8 (32, 16), 14a 16 (32; 8 of them held back, as before), 14b and 14c
 8 (32).  Phases 9 and 11 keep their 16: cutting them to 8 saved 3.6 and
@@ -475,7 +510,7 @@ import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -3676,12 +3711,14 @@ def front_door_app(capacity):
     return app
 
 
-def table_rows(state, name, leaf):
-    """An updater's occupied rows below the sink: (keys, leaf values)."""
+def table_rows(state, name):
+    """An updater's occupied rows below the sink: (int64 keys, {leaf:
+    values}), numpy."""
     t = state["tables"][name]
-    occ = t.keys[:C] != -1
-    return (t.keys[:C][occ].long().cpu().numpy(),
-            t.vals[leaf][:C][occ].cpu().numpy())
+    cap = t.keys.shape[0] - 1
+    occ = t.keys[:cap] != -1
+    return (t.keys[:cap][occ].long().cpu().numpy(),
+            {k: v[:cap][occ].cpu().numpy() for k, v in t.vals.items()})
 
 
 def app_counting_path(dev, seed, card, phase5_tick_s):
@@ -3780,8 +3817,9 @@ def app_counting_path(dev, seed, card, phase5_tick_s):
     state = h.state
     for name, leaf, want, lanes in (("U1", "count", counts, slice(0, 1)),
                                     ("U2", "v", maxes, slice(None))):
-        keys, vals = table_rows(state, name, leaf)
-        keys5, vals5 = table_rows(st5, name, "v")
+        keys, vals = table_rows(state, name)
+        keys5, vals5 = table_rows(st5, name)
+        vals, vals5 = vals[leaf], vals5["v"]
         vals5 = vals5[:, lanes].reshape(vals.shape)
         if name == "U1":
             vals5 = vals5.astype(np.int64)
@@ -3875,21 +3913,24 @@ def trends_feed(seed, vocab):
     return ticks
 
 
-def sequential_order(keys, ts, valid, batch, max_run):
+def sequential_order(keys, ts, valid, batch, max_run, take=None):
     """The order in which a sequential updater fed ``batch`` events a
     tick by one upstream stage steps through them, from the engine's
     documented semantics (not its code): emission ``i`` of ``keys`` /
     ``ts`` / ``valid`` (the stage's outputs, ``batch`` a tick, tick by
     tick) joins the updater's FIFO queue at the end of its tick; each
-    tick the updater takes the first ``batch`` queued events, orders
-    them by (key, ts) stably, steps through the first ``max_run`` of
-    each key and re-queues the rest, in that order, ahead of the tick's
-    new emissions.  Returns the emission indices in stepping order."""
+    tick the updater takes the first ``take`` (default ``batch``) queued
+    events, orders them by (key, ts) stably, steps through the first
+    ``max_run`` of each key and re-queues the rest, in that order, ahead
+    of the tick's new emissions.  Returns the emission indices in
+    stepping order."""
     import numpy as np
     ticks = len(keys) // batch
+    take_n = batch if take is None else take
+    keys, ts = np.asarray(keys).tolist(), np.asarray(ts).tolist()
     queue, order, t = [], [], 0
     while t < ticks or queue:
-        take, queue = queue[:batch], queue[batch:]
+        take, queue = queue[:take_n], queue[take_n:]
         take.sort(key=lambda i: (keys[i], ts[i]))
         seen, deferred = {}, []
         for i in take:
@@ -3898,7 +3939,7 @@ def sequential_order(keys, ts, valid, batch, max_run):
         queue += deferred
         if t < ticks:
             lo = t * batch
-            queue += [lo + j for j in np.nonzero(valid[lo:lo + batch])[0]]
+            queue += (lo + np.nonzero(valid[lo:lo + batch])[0]).tolist()
         t += 1
     return order
 
@@ -5423,6 +5464,18 @@ def failover_run(device):
     return eng, state
 
 
+def same_arrays(a, b, what):
+    """Two numpy trees (``convert.state_to_numpy``) bitwise equal."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{what}: keys {set(a) ^ set(b)}")
+        for k in a:
+            same_arrays(a[k], b[k], f"{what}.{k}")
+    elif not (a.dtype == b.dtype and a.shape == b.shape
+              and a.tobytes() == b.tobytes()):
+        raise AssertionError(f"{what} differs")
+
+
 def sharded_failover(dev, seed, card):
     """Phase 15c: shard 3 fails at tick 8 of a reduced run (2**14 slots
     a shard, 4,096 events a tick, 16 ticks); the card's state and stats
@@ -5433,20 +5486,13 @@ def sharded_failover(dev, seed, card):
     eng, state = failover_run(dev)
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eng_cpu, state_cpu = failover_run(torch.device("cpu"))
-    t_cpu = time.perf_counter() - t0
-    a, b = convert.state_to_numpy(state), convert.state_to_numpy(state_cpu)
-
-    def walk(x, y, path):
-        if isinstance(x, dict):
-            for k in x:
-                walk(x[k], y[k], f"{path}.{k}")
-        elif not (x.dtype == y.dtype and x.shape == y.shape
-                  and x.tobytes() == y.tobytes()):
-            raise AssertionError(f"fail-over: {path} differs card vs CPU")
-
-    walk(a, b, "state")
+    with cpu_threads() as n_cpu:
+        t0 = time.perf_counter()
+        eng_cpu, state_cpu = failover_run(torch.device("cpu"))
+        t_cpu = time.perf_counter() - t0
+    same_arrays(convert.state_to_numpy(state),
+                convert.state_to_numpy(state_cpu), "fail-over card vs CPU: "
+                "state")
     if eng.stats(state) != eng_cpu.stats(state_cpu):
         raise AssertionError("fail-over: stats differ card vs CPU")
     occ = state["tables"]["U1"].occupancy().tolist()
@@ -5455,7 +5501,8 @@ def sharded_failover(dev, seed, card):
     log(f"sharded fail-over: shard 3 failed at tick {FAILOVER['fail_at']} "
         f"of {FAILOVER['ticks']}; state and stats bitwise equal to the CPU "
         f"run ({eng.stats(state)['processed']}, occupancy U1 {occ}); card "
-        f"{t_card:.2f} s, CPU {t_cpu:.2f} s; {card}")
+        f"{t_card:.2f} s, CPU {t_cpu:.2f} s on {n_cpu} torch threads; "
+        f"{card}")
 
 
 def sharded_durable_config(d):
@@ -6066,24 +6113,17 @@ def elastic_tiers(dev, seed, card):
     runs, walls = {}, {}
     for where, d, mode in (("card", dev, "auto"), ("card", dev, "off"),
                            ("cpu", torch.device("cpu"), "auto")):
-        t0 = time.perf_counter()
-        eng, st, reps, reads = elastic_small_run(d, mode)
-        torch.cuda.synchronize()
-        walls[(where, mode)] = time.perf_counter() - t0
+        with (cpu_threads() if where == "cpu" else nullcontext()):
+            t0 = time.perf_counter()
+            eng, st, reps, reads = elastic_small_run(d, mode)
+            torch.cuda.synchronize()
+            walls[(where, mode)] = time.perf_counter() - t0
         runs[(where, mode)] = (convert.state_to_numpy(st), eng.stats(st),
                                reps, reads)
 
-    def walk(x, y, path):
-        if isinstance(x, dict):
-            for k in x:
-                walk(x[k], y[k], f"{path}.{k}")
-        elif not (x.dtype == y.dtype and x.shape == y.shape
-                  and x.tobytes() == y.tobytes()):
-            raise AssertionError(f"16c: {path} differs")
-
     fields = lambda r: {k: v for k, v in vars(r).items() if k != "pause_s"}
     a, b = runs[("card", "auto")], runs[("cpu", "auto")]
-    walk(a[0], b[0], "state")
+    same_arrays(a[0], b[0], "16c: state")
     if a[1] != b[1] or [fields(r) for r in a[2]] != \
             [fields(r) for r in b[2]]:
         raise AssertionError("16c: stats or reports differ card vs CPU")
@@ -7743,6 +7783,478 @@ def kernel_ranks_path(dev, seed, card):
     return launches, routes
 
 
+# ---------------------------------------------------------------- phase 21
+# The paper's two chained-updater applications (examples/torch_hot_topics.py
+# and examples/torch_reputation.py), each G copies of the example's stream
+# side by side in one key space, so each key sees the example's own rates:
+# 21a at G = 128 (65,536 tweets a tick over 2,048 topics), 21b at G = 128
+# with 1,048,576 users (640 celebrities) and 2**22 slots; gate (a) runs
+# each at G = 8 on the card and on the CPU.
+APPS = {"groups": 128, "small": 8, "users": 1 << 20, "capacity": 1 << 22}
+# 21a leaves out the U1 keys a tweet whose top two topic scores lie within
+# this of each other could have gone to (a rounding of the product may
+# flip its argmax)
+NEAR_TIE = 1e-3
+
+
+def example(name):
+    """The module ``examples/<name>.py`` of this checkout."""
+    import importlib.util
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cpu_limits():
+    """The CPUs this process may use, as each layer states them: torch's
+    intra-op threads, ``os.cpu_count()``, the affinity mask and the
+    cgroup's CPU quota (``/sys/fs/cgroup/cpu.max``; None without one)."""
+    import os
+    import torch
+    quota = None
+    path = Path("/sys/fs/cgroup/cpu.max")
+    if path.exists():
+        q, period = path.read_text().split()[:2]
+        if q != "max":
+            quota = int(q) / int(period)
+    return {"torch threads": torch.get_num_threads(),
+            "cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0)), "cgroup quota": quota}
+
+
+@contextmanager
+def cpu_threads():
+    """torch's CPU thread count set to the least of ``cpu_limits()`` (a
+    quota rounded down, at least 1) while the block runs, then restored.
+    A guard, not a measured cure: a thread count above a cgroup quota
+    makes torch's CPU runs spin against each other, but no host seen so
+    far had a quota, and there the count is the one torch already had."""
+    import math
+    import torch
+    n = max(1, min(math.floor(v) for v in cpu_limits().values()
+                   if v is not None))
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield n
+    finally:
+        torch.set_num_threads(saved)
+
+
+def settle(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_clean(stats, fed, ops, what):
+    """No queue or table dropped anything, every queue is empty and each
+    of ``ops`` processed ``fed`` events."""
+    if any(stats["queue_dropped"].values()) or \
+            any(stats["queue_size"].values()) or \
+            any(stats["table_dropped"].values()):
+        raise AssertionError(f"{what}: a queue or table dropped or kept "
+                             f"events: {stats}")
+    if any(stats["processed"][op] != fed for op in ops):
+        raise AssertionError(f"{what}: processed {stats['processed']}, fed "
+                             f"{fed}")
+
+
+def hot_topics_reference(mod, topic_dirs, ticks):
+    """21a's numpy reference: each tweet's U1 key from an f32 argmax of
+    ``feat @ dirs.T`` (in row blocks), and the keys that a tweet whose
+    top two scores lie within ``NEAR_TIE`` could have gone to."""
+    import numpy as np
+    w = np.ascontiguousarray(topic_dirs.T)
+    keys, near = [], set()
+    for t, d in enumerate(ticks):
+        minute = t // mod.TICKS_PER_MINUTE
+        for lo in range(0, d["feat"].shape[0], 8192):
+            s = d["feat"][lo:lo + 8192] @ w
+            top = s.argmax(1)
+            best = s[np.arange(s.shape[0]), top]
+            tie = np.count_nonzero(s >= (best - np.float32(NEAR_TIE))[:, None],
+                                   axis=1) > 1
+            keys.append(top * 100_000 + minute)
+            for r in np.nonzero(tie)[0]:
+                close = np.nonzero(s[r] >= best[r] - np.float32(NEAR_TIE))[0]
+                log(f"21a near tie: tick {t}, row {lo + r}, topics "
+                    f"{close.tolist()}, scores {s[r, close].tolist()}")
+                near |= {int(c) * 100_000 + minute for c in close}
+    return np.concatenate(keys), near
+
+
+def hot_topics_emissions(mod, keys, per_tick):
+    """U1's emissions from the feed alone.  A U1 key (topic, m) steps
+    its tweets in strict ts order and emits on its first tweet of the
+    minute's last tick 4m + 3 (the first whose minute has passed), the
+    count then being its tweets of ticks 4m .. 4m + 2 plus one.
+    ``keys``: each tweet's U1 key, ``per_tick`` tweets a tick.  Returns
+    the sorted U1 keys, whether each emitted and the count it emitted
+    (0 where none)."""
+    import numpy as np
+    n = mod.TICKS_PER_MINUTE
+    last = np.arange(keys.size) // per_tick % n == n - 1
+    uk, inv = np.unique(keys, return_inverse=True)
+    before = np.bincount(inv[~last], minlength=uk.size)
+    has = np.bincount(inv[last], minlength=uk.size) > 0
+    return uk, has, np.where(has, before + 1, 0)
+
+
+def hot_ratios(mod, uk, count):
+    """U2's ``hot`` rows from U1's emissions (``hot_topics_emissions``):
+    a topic's emissions in minute order, each in a U2 batch of its own
+    (a topic's minutes close 4 ticks apart), each row's ratio by the
+    example's ``hot_emit`` in f32 (the counts and their sums are exact
+    integers there).  Returns {topic: [ratio_x100 of each hot row]}."""
+    import numpy as np
+    sel = count > 0
+    topic, c = uk[sel] // 100_000, count[sel].astype(np.float32)
+    out = {}
+    for t in np.unique(topic):
+        cur = c[topic == t]
+        total = np.cumsum(cur, dtype=np.float32) - cur     # old["total"]
+        periods = np.arange(cur.size, dtype=np.float32)   # old["periods"]
+        avg = np.where(periods > 0, total / np.maximum(periods, 1), cur)
+        ratio = cur / np.maximum(avg, np.float32(1e-6))
+        hot = ratio > mod.HOT_THRESHOLD
+        out[int(t)] = (ratio[hot] * np.float32(100)).astype(np.int32).tolist()
+    return out
+
+
+def check_hot_topics(mod, app, outs, topic_dirs, ticks, groups, what):
+    """21a's gate (b), on the drained app, against numpy
+    (``hot_topics_reference``, ``hot_topics_emissions``, ``hot_ratios``;
+    the keys a near tie could move, and their topics, left out): every
+    U1 ``count`` and ``emitted``, every U2 ``total`` (bitwise in f32) and
+    every ``hot`` row's ``ratio_x100``, drain ticks included; every U2
+    topic's ``periods`` the sum of ``emitted`` over its U1 keys, through
+    the tables and through ``read_slates``; every group's burst topic
+    surfaces as hot and is its group's most frequent hot topic; nothing
+    dropped.  Returns the hot pairs."""
+    import numpy as np
+    fed = sum(d["key"].size for d in ticks)
+    stats = app.stats()
+    check_clean(stats, fed, ("M1", "U1"), what)
+    keys, near = hot_topics_reference(mod, topic_dirs, ticks)
+    want_k, want_n = np.unique(keys, return_counts=True)
+    _, want_e, want_c = hot_topics_emissions(mod, keys, ticks[0]["key"].size)
+    state = app.handle.state
+    k1, v1 = table_rows(state, "U1")
+    o1 = np.argsort(k1)
+    k1, count, emitted = k1[o1], v1["count"][o1], v1["emitted"][o1]
+    kept = ~np.isin(k1, list(near))
+    kept_w = ~np.isin(want_k, list(near))
+    if not (np.array_equal(k1[kept], want_k[kept_w])
+            and np.array_equal(count[kept], want_n[kept_w])
+            and np.array_equal(emitted[kept], want_e[kept_w])):
+        raise AssertionError(f"{what}: U1 counts or emissions differ from "
+                             f"numpy")
+    topics = np.arange(mod.N_TOPICS * groups)
+    periods = np.bincount(k1 // 100_000, weights=emitted,
+                          minlength=topics.size).astype(np.int64)
+    k2, v2 = table_rows(state, "U2")
+    if not np.array_equal(np.sort(k2), np.nonzero(periods)[0]) or \
+            not np.array_equal(v2["periods"], periods[k2]) or \
+            stats["processed"]["U2"] != periods.sum():
+        raise AssertionError(f"{what}: U2 periods differ from U1's "
+                             f"emissions")
+    near_t = {k // 100_000 for k in near}
+    ok = ~np.isin(k2, list(near_t))
+    total = np.bincount(want_k // 100_000, weights=want_c,
+                        minlength=topics.size).astype(np.float32)
+    if not np.array_equal(v2["total"][ok], total[k2[ok]]):
+        raise AssertionError(f"{what}: U2 totals differ from numpy")
+    found = mod.hot_pairs(outs)
+    got = {int(t): [] for t in topics}
+    for k, _, r in found:
+        got[k].append(r)
+    want = hot_ratios(mod, want_k, want_c)
+    for t in topics:
+        if t not in near_t and got[t] != want.get(int(t), []):
+            raise AssertionError(f"{what}: topic {t}'s hot rows "
+                                 f"{got[t]}, numpy {want.get(int(t))}")
+    reads = app.handle.read_slates("U2", topics)
+    burst = topics[mod.BURST_TOPIC::mod.N_TOPICS] * 100_000 + \
+        mod.BURST_MINUTE
+    reads1 = app.handle.read_slates("U1", burst)
+    for t, row in zip(topics, reads):
+        if (row is None) != (periods[t] == 0) or (
+                row is not None and int(row["periods"]) != periods[t]):
+            raise AssertionError(f"{what}: read_slates U2 {t}: {row}")
+    at = dict(zip(k1.tolist(), count.tolist()))
+    for k, row in zip(burst, reads1):
+        if row is None or int(row["count"]) != at[int(k)]:
+            raise AssertionError(f"{what}: read_slates U1 {k}: {row}")
+    bad = mod.check_hot(found, groups)
+    if bad:
+        raise AssertionError(f"{what}: {bad[:4]}")
+    log(f"{what}: {k1.size} U1 slates' counts and emissions equal numpy's "
+        f"of {fed} tweets ({len(near)} keys left out for near ties), "
+        f"{k2.size} U2 slates' periods equal U1's emissions "
+        f"({int(periods.sum())}), through the tables and read_slates, and "
+        f"{int(ok.sum())} U2 totals and those topics' hot rows numpy's "
+        f"({len(near_t)} topics left out); {len(found)} hot pairs "
+        f"({len(outs)} ticks, drain included), each of the {groups} burst "
+        f"topics its group's most frequent; processed {stats['processed']}")
+    return found
+
+
+def replay_reputation(target, actor, order, n_users):
+    """Each user's ``score`` and ``interactions`` from an f32 numpy
+    replay of the events in stepping order, one round per event rank:
+    round r steps every user's r-th event at once."""
+    import numpy as np
+    t, a = target[order], actor[order]
+    by_user = np.argsort(t, kind="stable")
+    tu = t[by_user]
+    start = np.r_[True, tu[1:] != tu[:-1]]
+    first = np.flatnonzero(start)
+    rank = np.empty(t.size, np.int64)
+    rank[by_user] = np.arange(t.size) - first[np.cumsum(start) - 1]
+    by_rank = np.argsort(rank, kind="stable")
+    bounds = np.searchsorted(rank[by_rank], np.arange(rank.max() + 2))
+    score = np.zeros(n_users, np.float32)
+    for r in range(rank.max() + 1):
+        ev = by_rank[bounds[r]:bounds[r + 1]]
+        u = t[ev]
+        score[u] = (np.float32(0.95) * score[u] + np.float32(0.05) * a[ev]
+                    + np.float32(0.01))
+    return score, np.bincount(target, minlength=n_users)
+
+
+def check_reputation(mod, app, ticks, groups, n_users, what):
+    """21b's gate (b), on the drained app: every user's ``interactions``
+    exact and ``score`` bitwise equal to an f32 numpy replay in the
+    engine's queue order (``sequential_order``: a tick's 512 G mentions
+    join U1's queue after M1's tick, U1 takes ``batch_size`` a tick and
+    steps ``max_run`` a user, deferring the rest), through the table and
+    ``read_slates``; the top 5 G scores are the celebrities'; nothing
+    dropped."""
+    import numpy as np
+    target = np.concatenate([d["target"] for d in ticks])
+    actor = np.concatenate([d["actor_score"] for d in ticks])
+    per_tick = ticks[0]["target"].size
+    fed = target.size
+    stats = app.stats()
+    check_clean(stats, fed, ("M1", "U1"), what)
+    u1 = app.engine.wf.op_index("U1")
+    up = app.engine.wf.operators[u1]
+    order = sequential_order(
+        target, np.repeat(np.arange(len(ticks)) + 1, per_tick),
+        np.ones(fed, bool), per_tick, up.max_run,
+        take=app.engine.cfg.batch_size)
+    score, n = replay_reputation(target, actor, np.asarray(order), n_users)
+    keys, vals = table_rows(app.handle.state, "U1")
+    if not (np.array_equal(np.sort(keys), np.nonzero(n)[0])
+            and np.array_equal(vals["interactions"], n[keys])):
+        raise AssertionError(f"{what}: interactions differ from the feed")
+    diff = np.abs(vals["score"] - score[keys])
+    if not np.array_equal(vals["score"], score[keys]):
+        raise AssertionError(f"{what}: {int((diff > 0).sum())} scores "
+                             f"differ from the f32 replay, by up to "
+                             f"{diff.max()}")
+    celebs = mod.CELEBRITIES * groups
+    top = keys[np.argsort(-vals["score"], kind="stable")[:celebs]]
+    if set(top.tolist()) != set(range(celebs)):
+        raise AssertionError(f"{what}: the top {celebs} scores are not the "
+                             f"celebrities'")
+    probe = np.r_[np.arange(celebs), keys[:64], n_users - 1]
+    at = dict(zip(keys.tolist(), vals["score"].tolist()))
+    for k, row in zip(probe, app.handle.read_slates("U1", probe)):
+        if (row is None) != (int(k) not in at) or (
+                row is not None and float(row["score"]) != at[int(k)]):
+            raise AssertionError(f"{what}: read_slates U1 {k}: {row}")
+    log(f"{what}: {keys.size} U1 slates' interactions exact and scores "
+        f"bitwise the f32 replay of {fed} mentions in queue order "
+        f"(deferred past max_run {up.max_run}: "
+        f"{int(app.handle.state['deferred'])}); the top {celebs} are the "
+        f"celebrities; processed {stats['processed']}")
+
+
+def run_app(app, src, n_ticks, rt, dev):
+    """``App.run`` over ``n_ticks``, then source-less ticks until every
+    queue is empty (``drain=True``'s ticks, with their outputs kept);
+    returns (every tick's outputs, run s, drain s)."""
+    app.start(rt, device=dev)
+    t0 = time.perf_counter()
+    outs = app.run(src, n_ticks)
+    settle(dev)
+    t_run = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(64):
+        if not any(app.stats()["queue_size"].values()):
+            break
+        outs += app.run(lambda tick, max_events: {}, 1)
+    settle(dev)
+    return outs, t_run, time.perf_counter() - t0
+
+
+def check_card_equals_cpu(make, n_ticks, rt, dev, what):
+    """Gate (a): the app of ``make(device) -> (app, source_fn)`` on the
+    card and on the CPU (torch's threads bounded by ``cpu_threads``):
+    the state, every tick's outputs and the stats bitwise equal.  Then a
+    ``run_chunk`` of the card app's engine under the sync debug mode
+    "error" (gate (d)).  Returns the walls."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.core.engine import stack_sources
+    runs, walls = {}, {}
+    for where, d in (("card", dev), ("CPU", torch.device("cpu"))):
+        with (cpu_threads() if d.type == "cpu" else nullcontext()):
+            t0 = time.perf_counter()
+            app, src = make(d)
+            outs, _, _ = run_app(app, src, n_ticks, rt, d)
+            walls[where] = time.perf_counter() - t0
+        runs[where] = app, src, outs
+    (a, src, oa), (b, _, ob) = runs["card"], runs["CPU"]
+    same_arrays(convert.state_to_numpy(a.handle.state),
+                convert.state_to_numpy(b.handle.state), f"{what} state")
+    for t, (x, y) in enumerate(zip(oa, ob, strict=True)):
+        same_arrays(convert.to_plain(x), convert.to_plain(y),
+                    f"{what} tick {t}'s outputs")
+    if a.stats() != b.stats():
+        raise AssertionError(f"{what}: stats differ card vs CPU")
+    eng, state = a.engine, a.handle.state
+    stacked = stack_sources([src(t, None) for t in range(2)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.run_chunk(state, stacked)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"{what}: state, {len(oa)} ticks' outputs and stats bitwise card = "
+        f"CPU ({a.stats()['processed']}); a run_chunk of 2 ticks under "
+        f"sync debug mode 'error': no host sync; walls card "
+        f"{walls['card']:.2f} s, CPU {walls['CPU']:.2f} s "
+        f"({cpu_limits()['torch threads']} torch threads outside it)")
+    a.close()
+    b.close()
+    return walls
+
+
+def reset_app_launches():
+    from repro_torch.kernels.countmin import kernel as ck
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.kernels.slate_update import kernel as uk
+    for k in (uk.slate_update, lk.slate_lookup, ck.countmin_update,
+              hk.histogram_update):
+        k.launches = 0
+    reset_lookup_routes()
+
+
+def check_app_launches(what, app, torch_calls):
+    """Gate (c): every ``insert_or_find`` walked ``find`` (INSERT_ROUNDS
+    launches an updater a tick, drain ticks included), reads took
+    ``keys``, nothing launched ``cand``, ``slate_update`` or the count
+    kernels and no torch probe hash ran."""
+    from repro_torch.kernels.countmin import kernel as ck
+    from repro_torch.kernels.histogram import kernel as hk
+    from repro_torch.kernels.slate_lookup import kernel as lk
+    from repro_torch.kernels.slate_update import kernel as uk
+    from repro_torch.slates.table import INSERT_ROUNDS
+    routes = check_lookup_routes(what, torch_calls)
+    ticks = int(app.handle.state["tick"])
+    n_up = len(app.engine.wf.updaters())
+    others = {k.__name__: k.launches for k in (
+        uk.slate_update, ck.countmin_update, hk.histogram_update)}
+    if routes["find"] != ticks * n_up * INSERT_ROUNDS or any(
+            others.values()):
+        raise AssertionError(f"{what}: find launches {routes['find']} over "
+                             f"{ticks} ticks of {n_up} updaters; other "
+                             f"kernels {others}")
+    log(f"{what}: slate_lookup find {routes['find']} = {ticks} ticks x "
+        f"{n_up} updaters x {INSERT_ROUNDS}, keys {routes['keys']}; "
+        f"{others} (none)")
+    return {"slate_lookup": lk.slate_lookup.launches,
+            "slate_lookup routes": routes}
+
+
+def log_app_speed(what, fed, n_ticks, t_run, t_drain, phase5_tick_s, card):
+    tick_s = t_run / n_ticks
+    log(f"{what}: {n_ticks} ticks x {fed // n_ticks} events in "
+        f"{t_run:.3f} s = {tick_s * 1e3:.3f} ms/tick, "
+        f"{fed / t_run:.4e} events/s (numpy feed copied to the card "
+        f"each tick), drain {t_drain:.3f} s; phase 5 "
+        f"{phase5_tick_s * 1e3:.3f} ms/tick; {card}")
+    return tick_s
+
+
+def app_hot_topics_path(dev, seed, card, phase5_tick_s):
+    """Phase 21a: hot topics at G = 128 through ``App.run`` and a drain;
+    gates (a)-(d)."""
+    import torch
+    mod = example("torch_hot_topics")
+    t_phase = time.perf_counter()
+    n_ticks, small = mod.TICKS, APPS["small"]
+    dirs, ticks = mod.make_feed(seed, n_ticks, small)
+
+    def make(d):
+        return (mod.build_app(dirs, groups=small, device=d),
+                mod.source(ticks, d))
+    check_card_equals_cpu(make, n_ticks, mod.runtime(small), dev,
+                          f"21a at G = {small}")
+
+    G = APPS["groups"]
+    dirs, ticks = mod.make_feed(seed, n_ticks + 1, G)   # + the profile's
+    app = mod.build_app(dirs, groups=G, device=dev)
+    src = mod.source(ticks, dev)
+    reset_app_launches()
+    with torch_probe_calls() as torch_calls:
+        outs, t_run, t_drain = run_app(app, src, n_ticks, mod.runtime(G),
+                                       dev)
+        check_hot_topics(mod, app, outs, dirs, ticks[:n_ticks], G,
+                         f"21a at G = {G}")
+    launches = check_app_launches("21a hot topics", app, torch_calls)
+    tick_s = log_app_speed("21a hot topics", n_ticks * mod.N * G, n_ticks,
+                           t_run, t_drain, phase5_tick_s, card)
+    profile_ticks(app.engine, app.handle.state, src, n_ticks, tick_s, n=1)
+    app.close()
+    del app, outs
+    torch.cuda.empty_cache()
+    log(f"21a: the phase took {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
+def app_reputation_path(dev, seed, card, phase5_tick_s):
+    """Phase 21b: reputation over 1,048,576 users at G = 128 through
+    ``App.run`` and a drain; gates (a)-(d)."""
+    import torch
+    mod = example("torch_reputation")
+    t_phase = time.perf_counter()
+    n_ticks, small = mod.TICKS, APPS["small"]
+    ticks = mod.make_feed(seed, n_ticks, small)
+
+    def make(d):
+        return (mod.build_app(table_capacity=mod.TABLE_CAPACITY * small),
+                mod.source(ticks, d))
+    check_card_equals_cpu(make, n_ticks, mod.runtime(small), dev,
+                          f"21b at G = {small}")
+
+    G, users = APPS["groups"], APPS["users"]
+    ticks = mod.make_feed(seed, n_ticks + 1, G, n_users=users)
+    app = mod.build_app(table_capacity=APPS["capacity"])
+    src = mod.source(ticks, dev)
+    reset_app_launches()
+    with torch_probe_calls() as torch_calls:
+        _, t_run, t_drain = run_app(app, src, n_ticks, mod.runtime(G), dev)
+        check_reputation(mod, app, ticks[:n_ticks], G, users,
+                         f"21b at G = {G}")
+    launches = check_app_launches("21b reputation", app, torch_calls)
+    tick_s = log_app_speed("21b reputation", n_ticks * mod.N * G, n_ticks,
+                           t_run, t_drain, phase5_tick_s, card)
+    profile_ticks(app.engine, app.handle.state, src, n_ticks, tick_s, n=1)
+    app.close()
+    del app
+    torch.cuda.empty_cache()
+    log(f"21b: the phase took {time.perf_counter() - t_phase:.1f} s wall")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=64)
@@ -7795,6 +8307,8 @@ def main(argv=None):
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
+    log(f"host CPUs: {cpu_limits()}; the CPU runs of 15c, 16c and 21 take "
+        f"the least of them as torch's threads")
 
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False    # f32 plain versions
@@ -7892,9 +8406,15 @@ def main(argv=None):
     for e in entries:
         if split_routes.get(e["name"]):
             e.setdefault("routes", {}).update(split_routes[e["name"]])
+    torch.cuda.empty_cache()
+    by_path["app hot topics"] = timed("21", app_hot_topics_path, dev,
+                                      args.seed, card, off_s)
+    torch.cuda.empty_cache()
+    by_path["app reputation"] = timed("21", app_reputation_path, dev,
+                                      args.seed, card, off_s)
     total = time.perf_counter() - t_run
     log(f"phase walls (s): {json.dumps({k: round(v, 1) for k, v in walls.items()})}"
-        f"; phases 3-20 {total:.1f} s, the script {time.perf_counter() - t0:.1f}"
+        f"; phases 3-21 {total:.1f} s, the script {time.perf_counter() - t0:.1f}"
         f" s with the build; the host's speed marker: phase 5 "
         f"{off_s * 1e3:.3f} ms/tick; {card}")
     for e in entries:
@@ -7904,8 +8424,8 @@ def main(argv=None):
         rk = f"{e['name']} routes"
         if any(rk in n for n in by_path.values()):
             # each instance's launches by route (slate_lookup: int32 keys
-            # on phases 5-11, 15a-b and 16a-b, int64 on phases 12, 15d and
-            # 16d; the backward kernels on phase 17)
+            # on phases 5-11, 15a-b, 16a-b and 21, int64 on phases 12,
+            # 15d and 16d; the backward kernels on phase 17)
             e["launches_by_route"] = {r: sum(
                 n[rk].get(r, 0) for n in by_path.values() if rk in n)
                 for r in sorted({r for n in by_path.values() if rk in n

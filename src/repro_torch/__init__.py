@@ -50,7 +50,25 @@ Ported so far, slice by slice:
    ``remove_shards``, ``rebalance``, ``clear_split`` and ``compact``
    (slates and queued events migrated loss-free, on the device or
    through the host), ``AutoscalePolicy`` in ``run``, and the
-   closed-loop ``LoadAutoscaler``.
+   closed-loop ``LoadAutoscaler``;
+11. training (``launch.train.Trainer``: the loss, AdamW, checkpoints and
+   an exact resume) with backward kernels for ``flash_attention`` and
+   ``rmsnorm``;
+12. the mesh (``launch.mesh``, ``distributed.sharding``, ``launch.
+   cells``): the trainer, the ``ServingEngine`` and expert-parallel MoE
+   on a ``DeviceMesh``, and the dry run (``launch.dryrun``) on a fake
+   world of 512 ranks;
+13. the multi-shard engine over the ranks of a process group (exchanges
+   as ``all_to_all_single``, collective reads, elasticity and durability
+   across ranks) and HTTP slate reads served from rank 0 through a read
+   queue every rank drains;
+14. the kernel routes across ranks: ``decode_attention``'s split-K over a
+   sequence-split cache, ``ssd_scan``'s carried state and ``rmsnorm``'s
+   split row, merged after one all-gather;
+15. the paper's hot-topics and reputation applications
+   (``examples/torch_hot_topics.py``, ``examples/torch_reputation.py``):
+   a sequential updater that emits into a second, associative updater
+   with an ``emit`` of its own, on the card.
 """
 import importlib
 

@@ -184,10 +184,13 @@ def test_example_app_section_is_short(name):
 
 @pytest.mark.parametrize("name,argv", [
     ("torch_quickstart.py", ["--device", "cpu", "--ticks", "10"]),
-    ("torch_semantic_trends.py", ["--device", "cpu"])])
+    ("torch_semantic_trends.py", ["--device", "cpu"]),
+    ("torch_hot_topics.py", ["--device", "cpu"]),
+    ("torch_reputation.py", ["--device", "cpu"])])
 def test_example_runs_on_cpu(name, argv, capsys):
     """Each example checks itself (HTTP counts against the truth; slates
-    against a host replay, bitwise) and exits non-zero on a mismatch."""
+    against a host replay, bitwise; the burst topic dominates; the
+    celebrities rank on top) and exits non-zero on a mismatch."""
     load_example(name).main(argv)
     out = capsys.readouterr().out
     assert ("OK" in out) and ("MISMATCH" not in out)
@@ -884,6 +887,92 @@ def test_public_surface():
     assert not hasattr(repro_torch, "NotThere")
     from repro_torch import ml
     assert set(ml.__all__) == set(repro.ml.__all__)
+
+
+REF_SRC = ROOT / "src" / "repro"
+# names of the JAX package the port leaves out on purpose
+SURFACE_ALLOWED = {
+    # the Pallas kernels' shape gates: a CUDA kernel takes every shape
+    # its dispatcher hands it (the dispatchers keep their own rules)
+    **{f"kernels/{k}/kernel.py": {"supported"} for k in (
+        "countmin", "histogram", "rmsnorm", "slate_update")},
+    # the attention kernels mask with -inf inside the CUDA source
+    "kernels/decode_attention/kernel.py": {"supported", "NEG_INF"},
+    "kernels/flash_attention/kernel.py": {"supported", "NEG_INF"},
+    "kernels/ssd/ref.py": {"NEG_INF"},
+    # the TPU kernel's query tile bound; the int64 planes kernel is the
+    # templated kernel's int64 instance (``slate_lookup`` takes both)
+    "kernels/slate_lookup/kernel.py": {"supported", "MAX_Q",
+                                       "slate_lookup_wide"},
+    # numpy's uint32 dtype alias for JAX's 32-bit hashing
+    "core/hashing.py": {"U32"},
+    # a TPU interconnect rate; the port's dry run prices NVLink
+    "launch/dryrun.py": {"ICI_BW"},
+    # a type alias of JAX arrays; the port annotates torch.Tensor
+    "models/context.py": {"Array"},
+}
+# reference modules with no module of that name in the port
+MODULE_ALLOWED = {
+    # XLA HLO text analysis; the port's counterpart is analysis/cost.py
+    "analysis/hlo.py",
+}
+REF_MODULES = sorted(str(p.relative_to(REF_SRC))
+                     for p in REF_SRC.rglob("*.py"))
+
+
+def public_names(path):
+    """A module's public top-level definitions (functions, classes,
+    assignments) and, for a package, the names in its ``__all__``."""
+    import ast
+    names = set()
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                          ast.ClassDef)):
+            names.add(n.name)
+        elif isinstance(n, (ast.Assign, ast.AnnAssign)):
+            targets = n.targets if isinstance(n, ast.Assign) else [n.target]
+            for t in targets:
+                if isinstance(t, ast.Name):
+                    if t.id == "__all__":
+                        names |= set(ast.literal_eval(n.value))
+                    names.add(t.id)
+    return {x for x in names if not x.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", REF_MODULES)
+def test_port_has_every_public_name_of_the_reference(rel):
+    """Each module of the JAX package has a port module that, once
+    imported, has every public top-level name of the reference and
+    every name of its ``__all__`` (an ``__init__.py``: the package
+    exports it), but for ``SURFACE_ALLOWED``."""
+    import importlib
+    if rel in MODULE_ALLOWED:
+        assert not (ROOT / "src" / "repro_torch" / rel).exists()
+        return
+    parts = ["repro_torch", *rel[:-3].split("/")]
+    port = importlib.import_module(".".join(
+        parts[:-1] if parts[-1] == "__init__" else parts))
+    want = public_names(REF_SRC / rel) - SURFACE_ALLOWED.get(rel, set())
+    missing = sorted(n for n in want if not hasattr(port, n))
+    assert not missing, f"{port.__name__} lacks {missing}"
+
+
+def test_surface_allow_list_is_current():
+    """Every allowed omission is still an omission of a reference name."""
+    import importlib
+    for rel, names in SURFACE_ALLOWED.items():
+        assert names <= public_names(REF_SRC / rel), rel
+        port = importlib.import_module(
+            "repro_torch." + rel[:-3].replace("/", "."))
+        assert not [n for n in names if hasattr(port, n)], rel
+    assert all((REF_SRC / rel).exists() for rel in MODULE_ALLOWED)
+
+
+def test_slate_lookup_package_exports():
+    from repro_torch.kernels.slate_lookup import lookup_slots, slate_lookup
+    from repro_torch.kernels.slate_lookup import ops as lk_ops
+    assert slate_lookup is lk_ops.slate_lookup
+    assert lookup_slots is lk_ops.lookup_slots
 
 
 def test_import_stays_light():

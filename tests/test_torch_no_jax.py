@@ -147,3 +147,13 @@ def test_kernel_ranks_slice_files_are_checked(rel):
     dispatchers), the worker their gloo test spawns and their card-only
     tests are among the files the check above reads."""
     assert ROOT / rel in _port_files()
+
+
+@pytest.mark.parametrize("rel", [
+    "examples/torch_hot_topics.py", "examples/torch_reputation.py",
+    "src/repro_torch/kernels/slate_lookup/__init__.py"])
+def test_paper_apps_slice_files_are_checked(rel):
+    """The paper's two chained-updater applications (their examples run
+    on the card in ``chip_smoke.py`` phase 21) are among the files the
+    check above reads."""
+    assert ROOT / rel in _port_files()

@@ -378,7 +378,7 @@ def test_decode_attention_plain_version_clamps_lengths():
 def test_steps_and_mesh():
     """``cells``' decode step returns the argmax token [B, 1] int32 and
     ``cur_index + 1``; the prefill step's caches hold ``cache_len`` rows;
-    an engine on a mesh raises, naming ROADMAP item 16."""
+    a ``mesh`` that is not a ``DeviceMesh`` raises a ``TypeError``."""
     cfg = reduced_config("qwen2-0.5b")
     eng = ts.ServingEngine(cfg, ts.ServeConfig(n_slots=2, cache_len=16),
                            device="cpu")
